@@ -1,0 +1,104 @@
+"""The paper's real-world use case (Table 6): 4-layer MLP for network
+intrusion detection on UNSW-NB15, 2-bit weights and activations.
+
+Layers (IFMch -> OFMch, PE, SIMD): 600->64 (64,50), 64->64 (16,32),
+64->64 (16,32), 64->1 (1,8).
+
+``build_graph`` draws the same numpy values in the same order as the JAX
+package's ``configs/nid_mlp.py``, so both packages start from identical
+float weights.  ``GOLDEN`` names the JAX package's output digest for one
+fixed input (``golden_digest`` computes it), which the tests and
+``chip_smoke.py`` hold the port to.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+
+import numpy as np
+import torch
+
+from repro_torch.core.folding import Folding
+from repro_torch.core.ir import Graph, Node
+
+# (in_features K, out_features N, PE, SIMD) per layer, from Table 6
+LAYERS = [
+    (600, 64, 64, 50),
+    (64, 64, 16, 32),
+    (64, 64, 16, 32),
+    (64, 1, 1, 8),
+]
+WEIGHT_BITS = 2
+INPUT_BITS = 2
+
+GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "nid_mlp_golden.json")
+
+
+def foldings() -> list[Folding]:
+    return [Folding(pe, simd) for (_, _, pe, simd) in LAYERS]
+
+
+def build_graph(seed: int = 0) -> Graph:
+    """Table 6 MLP as a RAW IR chain (linear + bn + quant_act with random
+    trained-like weights, float32 CPU tensors) -- ``repro_torch.build.build``
+    does the lowering."""
+    rng = np.random.default_rng(seed)
+    dims = [k for (k, _, _, _) in LAYERS] + [LAYERS[-1][1]]
+    g = Graph([Node("input", "in", {"shape": (dims[0],), "bits": INPUT_BITS})])
+    for i, (k, n) in enumerate(zip(dims[:-1], dims[1:])):
+        w = (rng.normal(0, 1, (n, k)) / np.sqrt(k)).astype(np.float32)
+        g.append(Node("linear", f"fc{i}", {}, {"w": torch.from_numpy(w)}))
+        if i < len(dims) - 2:
+            g.append(Node("batchnorm", f"bn{i}", {}, {
+                "gamma": torch.from_numpy(rng.uniform(0.5, 1.5, n).astype(np.float32)),
+                "beta": torch.from_numpy(rng.uniform(-0.5, 0.5, n).astype(np.float32)),
+                "mean": torch.from_numpy(rng.normal(0, 1, n).astype(np.float32)),
+                "var": torch.from_numpy(rng.uniform(0.5, 2, n).astype(np.float32)),
+            }))
+            g.append(Node("quant_act", f"act{i}",
+                          {"bits": INPUT_BITS, "act_scale": 1.0}))
+    return g
+
+
+def _sha256(a: np.ndarray) -> str:
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def golden_digest(output: np.ndarray, layers: dict[str, dict[str, np.ndarray]],
+                  **meta) -> dict:
+    """The digest of one NID run: sha256 of the float32 output bytes, its
+    first 8 values, and per MVU layer the sha256 of its int8 weights and
+    (where it has them) its int32 thresholds.  ``meta`` (seed, batch,
+    bits) is recorded as given."""
+    out = np.asarray(output)
+    if out.dtype != np.float32:
+        raise ValueError(f"NID output must be float32, got {out.dtype}")
+    digest = {**meta, "output_shape": list(out.shape),
+              "output_sha256": _sha256(out),
+              "first8": [float(v) for v in out.reshape(-1)[:8]],
+              "layers": {}}
+    for name, arrays in layers.items():
+        digest["layers"][name] = {
+            f"{k}_sha256": _sha256(np.asarray(v)) for k, v in arrays.items()
+            if v is not None}
+    return digest
+
+
+def graph_layers(graph) -> dict[str, dict[str, np.ndarray | None]]:
+    """Per MVU node of a built port graph, its integer weights, thresholds
+    and out_scale as numpy arrays (None where absent): ``golden_digest``'s
+    ``layers``."""
+    def host(t):
+        return None if t is None else t.cpu().numpy()
+
+    return {n.name: {"weights": host(n.params["mvu"].weights),
+                     "thresholds": host(n.params["mvu"].thresholds),
+                     "out_scale": host(n.params["mvu"].out_scale)}
+            for n in graph if n.op == "mvu"}
+
+
+def load_golden() -> dict:
+    with open(GOLDEN) as f:
+        return json.load(f)

@@ -1,0 +1,65 @@
+"""Carry a graph across from a plain, framework-free description.
+
+``graph_from_numpy(nodes, device)`` takes each node as a dict
+
+    {"op": str, "name": str, "attrs": dict, "inputs": tuple | None,
+     "params": {name: np.ndarray}}
+
+and returns the port's :class:`~repro_torch.core.ir.Graph` with every array
+as a tensor on ``device``.  For a lowered node, ``params["mvu"]`` is a dict
+of ``weights`` / ``thresholds`` / ``out_scale`` arrays (None where absent)
+and ``attrs["config"]`` a dict of :class:`MVUConfig` fields, ``folding`` as
+``{"pe", "simd"}``.  A tuned kernel tile (``blocks``) must be None: the
+CUDA kernel runs one tile until the autotuner (ROADMAP queue A item 6).
+The JAX package's backend names map to the port's: ``pallas`` -> ``cuda``,
+``xla`` -> ``torch``.  Whoever holds the JAX graph makes the description
+(``np.asarray`` on each param); the port never imports JAX.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.folding import Folding
+from repro_torch.core.ir import Graph, Node
+from repro_torch.core.mvu import MVUConfig, MVUParams
+
+BACKEND_NAMES = {"pallas": "cuda", "xla": "torch", "cuda": "cuda", "torch": "torch"}
+
+
+def _tensor(a, device):
+    return None if a is None else torch.from_numpy(np.array(a)).to(device)
+
+
+def _config(d: dict) -> MVUConfig:
+    d = dict(d)
+    if d.get("folding") is not None:
+        d["folding"] = Folding(**d["folding"])
+    if d.pop("blocks", None) is not None:
+        raise NotImplementedError(
+            "a tuned kernel tile (blocks) cannot be carried across: the CUDA "
+            "kernel is compiled for one tile; per-layer tiles come with the "
+            "autotuner (ROADMAP queue A item 6)")
+    d["backend"] = BACKEND_NAMES[d.get("backend", "cuda")]
+    return MVUConfig(**d)
+
+
+def graph_from_numpy(nodes, device="cpu") -> Graph:
+    """The port's Graph for a list of plain node dicts (see module doc)."""
+    g = Graph()
+    for nd in nodes:
+        attrs = dict(nd.get("attrs") or {})
+        if "config" in attrs:
+            attrs["config"] = _config(attrs["config"])
+        params = {}
+        for k, v in (nd.get("params") or {}).items():
+            if k == "mvu":
+                params[k] = MVUParams(**{f: _tensor(v.get(f), device)
+                                         for f in ("weights", "thresholds", "out_scale")})
+            else:
+                params[k] = _tensor(v, device)
+        inputs = nd.get("inputs")
+        g.append(Node(nd["op"], nd["name"], attrs, params,
+                      inputs=None if inputs is None else tuple(inputs)))
+    return g

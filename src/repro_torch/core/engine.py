@@ -1,0 +1,164 @@
+"""Fused streaming dataflow engine: the lowered graph as one stage chain.
+
+The paper's central argument (section 5.3) is architectural: FINN
+instantiates one MVU per layer, chains them with small AXI FIFOs, and lets
+the slowest stage set the initiation interval.  ``dataflow.execute``
+reproduces the *semantics* of that graph but runs the unfused graph node by
+node, float batchnorm/quant epilogues included.  ``FusedEngine`` is the
+runtime analog of the paper's dataflow build:
+
+    paper (section 5.3)                      FusedEngine
+    ------------------------------------     ------------------------------------
+    MVTU: thresholds fused after the         ``lowering.fuse_epilogues`` folds
+    accumulator (Fig. 3)                     batchnorm+quant_act into the MVU
+                                             kernel's threshold epilogue
+    one compute unit per layer               one kernel launch per MVU stage
+    FIFO decoupling (5.3.2): small           microbatch streaming: the batch is
+    buffers absorb producer bursts           split into ``StreamPlan.n_micro``
+                                             chunks run through the chain
+    II = bottleneck stage cycles             ``DataflowSchedule.steady_state_
+                                             interval`` sizes the microbatch plan
+
+One microbatch is the bottleneck stage's burst (``MVUConfig.block_m``
+samples), so every stage's kernel sees M = one burst per launch.  The
+engine is an ``nn.Module``: each stage's tensors are registered buffers,
+so ``engine.to(device)`` moves them all.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+from torch import nn
+
+from repro_torch.core import dataflow, ir, lowering
+from repro_torch.core.ir import Graph
+from repro_torch.core.mvu import MVUParams
+from repro_torch.kernels._common import pad_to
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamPlan:
+    """Microbatch schedule for one engine invocation (FINN FIFO analog)."""
+
+    n_micro: int  # microbatches streamed through the stage chain
+    microbatch: int  # samples per microbatch (batch padded up to n*mb)
+    interval_cycles: int  # bottleneck stage cycles (steady-state II)
+    fifo_bound: int  # smallest inter-stage FIFO depth (pipeline in-flight cap)
+
+
+class _StageParams(nn.Module):
+    """One stage's tensors as buffers; ``value()`` rebuilds what the stage's
+    runner takes (MVUParams, a dict of tensors, or None)."""
+
+    def __init__(self, params):
+        super().__init__()
+        self.kind = type(params).__name__
+        fields = (dataclasses.asdict(params) if isinstance(params, MVUParams)
+                  else params or {})
+        self.names = tuple(fields)
+        for name, t in fields.items():
+            self.register_buffer(name, t)
+
+    def value(self):
+        if self.kind == "MVUParams":
+            return MVUParams(*(getattr(self, n) for n in self.names))
+        if self.kind == "dict":
+            return {n: getattr(self, n) for n in self.names}
+        return None
+
+
+class FusedEngine(nn.Module):
+    """A lowered :class:`~repro_torch.core.ir.Graph` as a microbatch-streaming
+    stage chain, bit-exact with ``dataflow.execute`` on the unfused graph
+    (both apply nodes through ``dataflow.node_runner``)."""
+
+    def __init__(self, graph: Graph, *, fuse: bool = True,
+                 microbatches: int | None = None, tune: str = "off"):
+        super().__init__()
+        if tune != "off":
+            raise NotImplementedError(
+                f"tune={tune!r}: the autotuner is ROADMAP queue A item 6")
+        g = lowering.fuse_epilogues(graph) if fuse else ir.as_graph(graph)
+        self.graph = lowering.fuse_swu(g) if fuse else g
+        self.schedule = dataflow.schedule(self.graph)
+        # stage order is the dataflow (topological) order
+        order = ir.toposort(self.graph)
+        runners = [dataflow.node_runner(n) for n in order]
+        self._fns = tuple(fn for _, fn in runners)
+        self.stage_params = nn.ModuleList(_StageParams(p) for p, _ in runners)
+        self._names = tuple(n.name for n in order)
+        self._in_names = tuple(n.inputs for n in order)
+        self._out_name = ir.graph_output(self.graph).name
+        self._microbatches = microbatches
+
+    @property
+    def device(self) -> torch.device:
+        for b in self.buffers():
+            return b.device
+        return torch.device("cpu")
+
+    # ------------------------------------------------------------- schedule
+    def plan(self, batch: int) -> StreamPlan:
+        """Derive the microbatch schedule from the dataflow schedule.
+
+        The microbatch is the bottleneck MVU's burst (its ``block_m``
+        samples; ``block_m // n_pixels`` whole images for a conv stage), so
+        each streamed microbatch is one producer burst.  ``n_micro`` is the
+        number of bursts the batch decomposes into; ``fifo_bound`` (smallest
+        FIFO depth) caps in-flight microbatches on a multi-device pipeline.
+        """
+        s = self.schedule
+        if not s.stages or batch <= 1:
+            interval = s.steady_state_interval if s.stages else 0
+            return StreamPlan(1, max(batch, 1), interval, 0)
+        fifo_bound = max(2, min(st.fifo_depth for st in s.stages))
+        tile = min(max(1, st.block_m // st.n_pixels) for st in s.stages)
+        n_micro = max(1, min(math.ceil(batch / tile), batch))
+        if self._microbatches is not None:
+            n_micro = max(1, min(self._microbatches, batch))
+        return StreamPlan(
+            n_micro, -(-batch // n_micro), s.steady_state_interval, fifo_bound
+        )
+
+    # -------------------------------------------------------------- forward
+    def _chain(self, params, x):
+        env: dict = {}
+        for name, ins, p, fn in zip(self._names, self._in_names,
+                                    params, self._fns):
+            args = (x,) if not ins else tuple(env[s] for s in ins)
+            env[name] = fn(p, *args)
+        return env[self._out_name]
+
+    def _stream(self, params, x, n_micro: int):
+        if n_micro <= 1:
+            return self._chain(params, x)
+        b = x.shape[0]
+        mb = -(-b // n_micro)
+        # zero samples pad the batch to n_micro whole microbatches; every
+        # op is per-sample, so the pad rows never reach the real outputs
+        xs = pad_to(x, 0, n_micro * mb)
+        ys = [self._chain(params, xs[i * mb:(i + 1) * mb]) for i in range(n_micro)]
+        return torch.cat(ys)[:b]
+
+    def dispatch(self, x) -> tuple[torch.Tensor, StreamPlan]:
+        """Non-blocking submit: enqueue one batch, return the output tensor
+        (on the engine's device, not yet synchronised) and the stream plan
+        it runs under.  ``x`` is moved to the engine's device first."""
+        x = torch.as_tensor(x, device=self.device).contiguous()
+        plan = self.plan(int(x.shape[0]))
+        params = [sp.value() for sp in self.stage_params]
+        return self._stream(params, x, plan.n_micro), plan
+
+    def forward(self, x) -> torch.Tensor:
+        return self.dispatch(x)[0]
+
+    def profile(self, *args, **kwargs):
+        raise NotImplementedError(
+            "FusedEngine.profile needs the telemetry port: ROADMAP queue A item 7")
+
+    def as_pipeline(self, *args, **kwargs):
+        raise NotImplementedError(
+            "FusedEngine.as_pipeline is the multi-device slice: ROADMAP queue A item 9")

@@ -1,0 +1,137 @@
+"""FINN's folding pass: the PE x SIMD cycle model and pipeline balancing.
+
+FINN time-multiplexes the weight matrix (N = O_c rows, K = Kd^2*I_c cols)
+onto a PE x SIMD array:
+
+    neuron fold   NF = N / PE        (PE must divide N)
+    synapse fold  SF = K / SIMD      (SIMD must divide K)
+    cycles per output pixel = NF * SF   at II = 1
+    total cycles = n_pixels * NF * SF
+
+The cycle model is the paper's FPGA schedule and gives the JAX reference's
+numbers exactly.  What runs on the GPU is :func:`to_gpu_blocks`: the tile
+the CUDA kernel is compiled for, whatever the folding.
+
+The pipeline balancer reproduces FINN's *Folding and Resource Estimation*
+pass: given a cycle target, assign each layer the smallest PE*SIMD product
+that meets it, which rate-matches the streaming pipeline (the slowest layer
+sets the initiation interval of the whole dataflow graph).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Sequence
+
+
+@dataclasses.dataclass(frozen=True)
+class Folding:
+    pe: int
+    simd: int
+
+    def cycles(self, n: int, k: int, n_pixels: int = 1) -> int:
+        nf = -(-n // self.pe)
+        sf = -(-k // self.simd)
+        return n_pixels * nf * sf
+
+    def conv_cycles(self, n: int, k: int, oh: int, ow: int) -> int:
+        """Paper Eq. 1 over the pixel dimension: the SWU feeds one K-window
+        per output pixel, so a conv layer costs OH*OW * NF * SF cycles."""
+        return self.cycles(n, k, n_pixels=oh * ow)
+
+    def validate(self, n: int, k: int) -> None:
+        if n % self.pe:
+            raise ValueError(f"PE={self.pe} must divide N={n}")
+        if k % self.simd:
+            raise ValueError(f"SIMD={self.simd} must divide K={k}")
+
+
+def divisors(x: int) -> list[int]:
+    out = [d for d in range(1, int(math.isqrt(x)) + 1) if x % d == 0]
+    return sorted(set(out + [x // d for d in out]))
+
+
+def weight_mem_depth(n: int, k: int, fold: Folding) -> int:
+    """Paper Eq. (2): D_mem = K*N / (SIMD*PE), per-PE weight memory depth."""
+    return (k * n) // (fold.simd * fold.pe)
+
+
+def input_buffer_depth(k: int, fold: Folding) -> int:
+    """Input buffer depth K/SIMD (reused across the NF row groups)."""
+    return -(-k // fold.simd)
+
+
+def choose_folding(
+    n: int,
+    k: int,
+    *,
+    target_cycles: int | None = None,
+    max_pe: int = 128,
+    max_simd: int = 128,
+    n_pixels: int = 1,
+) -> Folding:
+    """Smallest PE*SIMD meeting ``target_cycles`` (FINN folding objective).
+
+    With no target, returns the largest legal array (fully-parallel bound).
+    Ties break toward larger SIMD (deeper dot products amortize the
+    accumulator, mirroring FINN's preference for SIMD before PE).
+    """
+    pes = [d for d in divisors(n) if d <= max_pe]
+    simds = [d for d in divisors(k) if d <= max_simd]
+    if target_cycles is None:
+        return Folding(max(pes), max(simds))
+    best: Folding | None = None
+    best_cost = None
+    for pe in pes:
+        for simd in simds:
+            f = Folding(pe, simd)
+            if f.cycles(n, k, n_pixels) <= target_cycles:
+                cost = (pe * simd, -simd)
+                if best_cost is None or cost < best_cost:
+                    best, best_cost = f, cost
+    if best is None:
+        best = Folding(max(pes), max(simds))  # can't meet target: go maximal
+    return best
+
+
+def balance_pipeline(
+    layer_shapes: Sequence[tuple[int, int, int]],  # (N, K, n_pixels)
+    *,
+    slowest_cycles: int | None = None,
+    max_pe: int = 128,
+    max_simd: int = 128,
+) -> list[Folding]:
+    """Rate-match a chain of MVU layers (FINN balanced-pipeline condition).
+
+    Every layer gets the cheapest folding whose cycle count does not exceed
+    the pipeline target; the default target is the cycle count of the
+    heaviest layer at full parallelism (nothing can beat that anyway).
+    """
+    if slowest_cycles is None:
+        slowest_cycles = max(
+            Folding(min(max_pe, n), min(max_simd, k)).cycles(n, k, px)
+            for n, k, px in layer_shapes
+        )
+    return [
+        choose_folding(n, k, target_cycles=slowest_cycles,
+                       max_pe=max_pe, max_simd=max_simd, n_pixels=px)
+        for n, k, px in layer_shapes
+    ]
+
+
+def to_gpu_blocks(mode: str = "standard", *, packed: bool = False) -> dict[str, int]:
+    """The tile the CUDA MVU kernel runs: (block_m, block_n, block_k).
+
+    ``kernels/csrc/mvu_int.cu`` is compiled for one tile, so every
+    folding maps onto it; the folding keeps describing the FPGA schedule
+    (cycles, memory depths).  The resource model reads the tile here.
+    Tile choice per layer is the autotuner's job (ROADMAP queue A item 6).
+    """
+    from repro_torch.kernels.mvu_int import BLOCK_K, BLOCK_M, BLOCK_N
+
+    if mode != "standard" or packed:
+        raise NotImplementedError(
+            f"no GPU kernel yet for mode={mode!r}, packed={packed}: the "
+            "binarized and packed kernels are ROADMAP queue B rows 2-6")
+    return {"block_m": BLOCK_M, "block_n": BLOCK_N, "block_k": BLOCK_K}

@@ -1,0 +1,266 @@
+"""Graph transformation passes: FINN's lowering + streamlining.
+
+    lower_to_mvu:   linear -> mvu (conv -> [swu, mvu] comes with CNV)
+    streamline:     [mvu, batchnorm, quant_act] -> mvu(+thresholds)
+    fuse_epilogues: same fold for finalized graphs (the runtime engine path)
+    fuse_swu:       [swu, mvu] -> conv_mvu (no-op without swu nodes)
+    apply_folding:  attach rate-balanced Folding to every mvu node
+    pack_weights:   packed weight storage (no-op without packed nodes)
+
+All passes are DAG-aware: patterns match along explicit dataflow edges
+(producer -> sole-consumer paths), not list adjacency.  Every pass returns
+a graph whose nodes carry explicit ``inputs`` edges.
+
+Weight quantization and threshold folding are float32 math followed by
+rounding; run them on CPU tensors (``repro_torch.build`` does) so the
+integer weights and thresholds equal the JAX reference's wherever the
+engine later runs.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.core import ir
+from repro_torch.core.folding import balance_pipeline
+from repro_torch.core.ir import Graph, Node, validate_graph
+from repro_torch.core.mvu import MVUConfig, MVULayer, MVUParams
+from repro_torch.core.thresholds import (
+    bn_quant_thresholds,
+    integerize_thresholds,
+    streamline_signs,
+)
+
+_CNV = "conv graphs (swu / conv_mvu) come with the CNV slice: ROADMAP queue B row 4"
+
+
+def _reroute(graph: Graph, renames: dict[str, str]) -> Graph:
+    """Repoint every input edge through ``renames`` (old producer name ->
+    the name of the node that now yields its stream)."""
+    if not renames:
+        return graph
+    out = Graph()
+    for n in graph:
+        ins = tuple(renames.get(s, s) for s in n.inputs)
+        out.append(n if ins == n.inputs else dataclasses.replace(n, inputs=ins))
+    return out
+
+
+def _sole_consumer(cons: dict[str, list[Node]], name: str, op: str) -> Node | None:
+    """The single consumer of ``name`` when it exists and has op ``op``."""
+    cs = cons.get(name, ())
+    if len(cs) == 1 and cs[0].op == op:
+        return cs[0]
+    return None
+
+
+def lower_to_mvu(graph: Graph, *, mode: str = "standard",
+                 weight_bits: int = 4, act_bits: int = 4,
+                 backend: str = "cuda") -> Graph:
+    """linear -> mvu. Float weights stay attached (raw)."""
+    validate_graph(graph)
+    out = Graph()
+    renames: dict[str, str] = {}
+    for node in ir.as_graph(graph):
+        if node.op == "conv":
+            raise NotImplementedError(f"{ir.describe(node)}: {_CNV}")
+        if node.op == "linear":
+            w = node.params["w"]
+            cfg = MVUConfig(
+                in_features=w.shape[1], out_features=w.shape[0],
+                mode=mode, weight_bits=weight_bits, act_bits=act_bits,
+                backend=backend,
+            )
+            out.append(Node("mvu", node.name + ".mvu", {"config": cfg},
+                            {"w_float": w}, inputs=node.inputs))
+            renames[node.name] = node.name + ".mvu"
+        else:
+            out.append(node)
+    return _reroute(out, renames)
+
+
+def streamline(graph: Graph) -> Graph:
+    """Fold [mvu, batchnorm, quant_act] into mvu-with-thresholds (MVTU).
+
+    Matched along edges: the batchnorm must be the MVU's sole consumer and
+    the quant_act the batchnorm's sole consumer.  The quant_act's own
+    fan-out is fine -- its consumers are rerouted to the fused node.
+    """
+    g = ir.as_graph(graph)
+    cons = ir.consumer_map(g)
+    drop: set[str] = set()
+    fused: dict[str, Node] = {}
+    renames: dict[str, str] = {}
+    for node in g:
+        if node.op != "mvu" or "w_float" not in node.params:
+            continue
+        bn = _sole_consumer(cons, node.name, "batchnorm")
+        qa = bn and _sole_consumer(cons, bn.name, "quant_act")
+        if qa is None:
+            continue
+        cfg: MVUConfig = node.attrs["config"]
+        bits = qa.attrs["bits"]
+        # weight scale factors into BN: acc_int * (w_scale) feeds BN.
+        _, qt = MVULayer.from_float(cfg, node.params["w_float"])
+        acc_scale = qt.scale.reshape(-1)  # (N,)
+        t, flip = bn_quant_thresholds(
+            bn.params["gamma"], bn.params["beta"],
+            bn.params["mean"], bn.params["var"],
+            bits=bits, acc_scale=1.0,
+            act_scale=qa.attrs.get("act_scale", 1.0),
+        )
+        # thresholds computed against real acc = acc_int * acc_scale:
+        t = t / acc_scale[:, None]
+        # flip rows (negative gamma): negate quantized weight rows.
+        wq = streamline_signs(qt.values.to(torch.int32), flip).to(qt.values.dtype)
+        params = MVUParams(weights=wq, thresholds=integerize_thresholds(t),
+                           out_scale=None)
+        cfg2 = MVUConfig(**{**cfg.__dict__, "act_bits": bits})
+        fused[node.name] = Node("mvu", node.name, {"config": cfg2},
+                                {"mvu": params}, inputs=node.inputs)
+        drop.update((bn.name, qa.name))
+        renames[qa.name] = node.name
+    out = Graph(fused.get(n.name, n) for n in g if n.name not in drop)
+    return _reroute(out, renames)
+
+
+def finalize(graph: Graph) -> Graph:
+    """Quantize any mvu nodes still carrying float weights (no BN to fold)."""
+    out = Graph()
+    for node in ir.as_graph(graph):
+        if node.op == "mvu" and "mvu" not in node.params:
+            cfg: MVUConfig = node.attrs["config"]
+            params, _ = MVULayer.from_float(cfg, node.params["w_float"])
+            out.append(Node("mvu", node.name, dict(node.attrs), {"mvu": params},
+                            inputs=node.inputs))
+        else:
+            out.append(node)
+    return out
+
+
+def fuse_epilogues(graph: Graph) -> Graph:
+    """Fold batchnorm/quant_act successors of *finalized* MVU nodes into the
+    kernel's multi-threshold epilogue.
+
+    :func:`streamline` does this rewrite at lowering time on float weights;
+    this pass is its runtime-engine analog for graphs that kept standalone
+    ``batchnorm``/``quant_act`` nodes (the unfused interpreter path).  The
+    dequant scale already attached to the MVU (``out_scale``) folds into the
+    thresholds, so the fused node emits integer activation levels straight
+    from the accumulator.  Handled patterns, on sole-consumer paths off the
+    MVU (the quant_act's own consumers reroute to the fused node):
+        mvu -> batchnorm -> quant_act   =>  mvu(+thresholds)
+        mvu -> quant_act                =>  mvu(+thresholds)  (identity BN)
+    """
+    g = ir.as_graph(graph)
+    cons = ir.consumer_map(g)
+    drop: set[str] = set()
+    fused_nodes: dict[str, Node] = {}
+    renames: dict[str, str] = {}
+    for node in g:
+        fusable = (
+            node.op in ("mvu", "conv_mvu")
+            and "mvu" in node.params
+            and node.params["mvu"].thresholds is None
+        )
+        if not fusable:
+            continue
+        bn = _sole_consumer(cons, node.name, "batchnorm")
+        qa = (_sole_consumer(cons, bn.name, "quant_act") if bn is not None
+              else _sole_consumer(cons, node.name, "quant_act"))
+        if qa is None:
+            continue
+
+        cfg: MVUConfig = node.attrs["config"]
+        if cfg.mode != "standard":
+            raise NotImplementedError(
+                f"{ir.describe(node)}: flipping {cfg.mode} weight rows comes "
+                "with the binarized slice (ROADMAP queue B rows 2-3)")
+        params: MVUParams = node.params["mvu"]
+        n = cfg.out_features
+        bits = qa.attrs["bits"]
+        if bn is not None:
+            gamma, beta = bn.params["gamma"], bn.params["beta"]
+            mean, var = bn.params["mean"], bn.params["var"]
+        else:
+            # identity BN: var = 1 - eps so sqrt(var + eps) == 1 exactly and
+            # the thresholds reduce to the bare quantizer boundaries.
+            gamma = torch.ones((n,), dtype=torch.float32)
+            beta = torch.zeros((n,), dtype=torch.float32)
+            mean = torch.zeros((n,), dtype=torch.float32)
+            var = torch.ones((n,), dtype=torch.float32) - 1e-5
+        t, flip = bn_quant_thresholds(
+            gamma, beta, mean, var,
+            bits=bits, acc_scale=1.0,
+            act_scale=qa.attrs.get("act_scale", 1.0),
+        )
+        # thresholds hold on the real accumulator; the kernel compares the
+        # integer accumulator, so divide per-row by the dequant scale.
+        scale = params.out_scale
+        if scale is not None:
+            t = t / scale.reshape(-1)[:, None]
+        w = streamline_signs(params.weights.to(torch.int32), flip)
+        fused_params = MVUParams(
+            weights=w.to(params.weights.dtype),
+            thresholds=integerize_thresholds(t), out_scale=None,
+        )
+        cfg2 = MVUConfig(**{**cfg.__dict__, "act_bits": bits})
+        attrs = dict(node.attrs)
+        attrs["config"] = cfg2
+        attrs["fused"] = tuple(x.name for x in (bn, qa) if x is not None)
+        fused_nodes[node.name] = Node(node.op, node.name, attrs,
+                                      {"mvu": fused_params}, inputs=node.inputs)
+        drop.update(x.name for x in (bn, qa) if x is not None)
+        renames[qa.name] = node.name
+    out = Graph(fused_nodes.get(n.name, n) for n in g if n.name not in drop)
+    return _reroute(out, renames)
+
+
+def fuse_swu(graph: Graph) -> Graph:
+    """Collapse ``swu -> mvu`` edges into ``conv_mvu`` nodes.  Graphs without
+    swu nodes (every graph this slice lowers) pass through unchanged."""
+    g = ir.as_graph(graph)
+    if ir.find(g, "swu"):
+        raise NotImplementedError(_CNV)
+    return g
+
+
+def apply_folding(graph: Graph, *, target_cycles: int | None = None,
+                  max_pe: int = 128, max_simd: int = 128) -> Graph:
+    """FINN folding pass: rate-balance all MVU stages.
+
+    MVU stages are visited in topological (dataflow) order; configs rewrite
+    in place through the shared attrs dicts, so the caller's graph is
+    updated.
+    """
+    shapes = []
+    mvu_nodes = []
+    for node, _, out_shape in ir.io_shapes(graph):
+        if node.op in ("mvu", "conv_mvu"):
+            cfg: MVUConfig = node.attrs["config"]
+            shapes.append((cfg.out_features, cfg.in_features,
+                           ir.n_pixels(out_shape)))
+            mvu_nodes.append(node)
+    folds = balance_pipeline(shapes, slowest_cycles=target_cycles,
+                             max_pe=max_pe, max_simd=max_simd)
+    for node, f in zip(mvu_nodes, folds):
+        cfg = node.attrs["config"]
+        node.attrs["config"] = MVUConfig(**{**cfg.__dict__, "folding": f})
+    return graph
+
+
+def pack_weights(graph: Graph, *, force: bool = False) -> Graph:
+    """Packing rewrite: store MVU weights in their bit-packed form.
+
+    Nothing on this slice's path selects the packed datapath (it is pinned
+    by tuned schedules), so the pass returns the graph as it is; a packed
+    node, or ``force``, needs the packed kernels (ROADMAP queue B rows 5-6).
+    """
+    packed = [n for n in graph
+              if n.op == "mvu" and n.attrs["config"].packed]
+    if force or packed:
+        raise NotImplementedError(
+            "packed weight storage needs the packed kernels: ROADMAP queue B rows 5-6")
+    return Graph(graph)

@@ -1,0 +1,138 @@
+"""The port's ground rules: torch alone, no fallback, later slices refuse.
+
+* ``repro_torch`` and every submodule import with no ``jax``, ``jaxlib`` or
+  ``repro`` module loaded (checked in a fresh interpreter), and no file of
+  the port nor ``chip_smoke.py`` imports one (checked on the source).
+* A tensor that is neither on the CPU nor on a CUDA device makes the kernel
+  wrapper raise instead of returning the plain version's result.
+* ``build()`` without a device raises when CUDA is absent.
+* What belongs to a later slice raises NotImplementedError.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.build import BuildError, build
+from repro_torch.configs import nid_mlp
+from repro_torch.core import engine, lowering
+from repro_torch.core.ir import Graph, Node
+from repro_torch.core.mvu import MVUConfig, MVULayer
+from repro_torch.kernels import mvu_int as K, ops
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(ROOT, "src", "repro_torch")
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def test_port_imports_with_torch_alone():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in %r)\n"
+        "print(len(list(pkgutil.walk_packages(repro_torch.__path__))), bad)\n"
+        "sys.exit(1 if bad else 0)\n" % (FORBIDDEN,))
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          env=env, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _sources():
+    for dirpath, _, files in os.walk(PORT):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(dirpath, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+@pytest.mark.parametrize("path", sorted(_sources()), ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_jax_or_reference_import_in_source(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in FORBIDDEN, f"{path}:{node.lineno} imports {name}"
+
+
+def test_meta_tensor_raises_instead_of_falling_back():
+    a = torch.empty((4, 16), dtype=torch.int32, device="meta")
+    w = torch.empty((8, 16), dtype=torch.int8, device="meta")
+    launches = K.LAUNCHES
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        ops.mvu(a, w)
+    assert K.LAUNCHES == launches
+
+
+def test_mixed_devices_raise():
+    a = torch.zeros((4, 16), dtype=torch.int32)
+    w = torch.empty((8, 16), dtype=torch.int8, device="meta")
+    with pytest.raises(ValueError, match="is on meta"):
+        ops.mvu(a, w)
+
+
+def test_build_without_device_raises_when_cuda_is_absent(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(BuildError, match="device='cpu'"):
+        build(nid_mlp.build_graph(0), weight_bits=2, act_bits=2)
+
+
+def _conv_graph():
+    rng = np.random.default_rng(0)
+    return Graph([
+        Node("input", "in", {"shape": (6, 6, 2), "bits": 2}),
+        Node("conv", "c0", {"kernel": 3, "stride": 1, "pad": 0},
+             {"w": torch.from_numpy(rng.normal(0, 1, (3, 3, 2, 4)).astype(np.float32))}),
+    ])
+
+
+@pytest.mark.parametrize("what", [
+    "mode_binary", "mode_xnor", "tune_cache", "target_pipeline", "target_serving",
+    "pack_always", "conv_node", "ops_packed", "ops_xnor", "layer_xnor",
+    "engine_profile", "engine_as_pipeline", "engine_tune"])
+def test_later_slices_raise_not_implemented(what):
+    g = nid_mlp.build_graph(0)
+    overrides = {"mode_binary": {"mode": "binary"}, "mode_xnor": {"mode": "xnor"},
+                 "tune_cache": {"tune": "cache"}, "target_pipeline": {"target": "pipeline"},
+                 "target_serving": {"target": "serving"}, "pack_always": {"pack": "always"}}
+    a = torch.zeros((2, 8), dtype=torch.int32)
+    w = torch.zeros((4, 8), dtype=torch.int8)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        if what in overrides:
+            build(g, device="cpu", **overrides[what])
+        elif what == "conv_node":
+            lowering.lower_to_mvu(_conv_graph())
+        elif what == "ops_packed":
+            ops.mvu(a, w, packed=True)
+        elif what == "ops_xnor":
+            ops.mvu(a, w, "xnor")
+        elif what == "layer_xnor":
+            MVULayer(MVUConfig(8, 4, mode="xnor")).init_params(torch.Generator())
+        elif what == "engine_tune":
+            engine.FusedEngine(g, tune="cache")
+        else:
+            acc = build(g, weight_bits=2, act_bits=2, device="cpu")
+            getattr(acc, what.removeprefix("engine_"))()
+
+
+def test_init_params_and_device_moves():
+    layer = MVULayer(MVUConfig(64, 8, weight_bits=2))
+    p = layer.init_params(torch.Generator().manual_seed(0))
+    assert p.weights.dtype == torch.int8 and int(p.weights.abs().max()) <= 1
+    q = p.to("meta")
+    assert q.weights.device.type == "meta" and q.thresholds is None
+    x = torch.randint(0, 4, (3, 5, 64), dtype=torch.int32)
+    assert tuple(layer(p, x).shape) == (3, 5, 8)

@@ -1,0 +1,92 @@
+"""The port's threshold folding and weight quantizer against the JAX package.
+
+Same numpy inputs through both; the integer thresholds, flip masks and
+integer weights must be equal, and so must the float32 intermediates the
+integers come from (the port keeps the JAX op order).
+"""
+
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+from repro.core import quantize as jq, thresholds as jth
+from repro_torch.core import quantize as tq, thresholds as tth
+
+
+def _bn(c, seed, gamma_special):
+    rng = np.random.default_rng(seed)
+    gamma = rng.uniform(0.3, 2.0, c).astype(np.float32)
+    if gamma_special == "negative":
+        gamma[::2] *= -1
+    elif gamma_special == "zero":
+        gamma[1::3] = 0.0
+        gamma[::4] *= -1
+    beta = rng.uniform(-1, 1, c).astype(np.float32)
+    mean = rng.normal(0, 3, c).astype(np.float32)
+    var = rng.uniform(0.1, 4, c).astype(np.float32)
+    return gamma, beta, mean, var
+
+
+def _eq(got: torch.Tensor, want) -> None:
+    want = np.asarray(want)
+    got = got.numpy()
+    assert got.dtype == want.dtype, (got.dtype, want.dtype)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("gamma_special", ["positive", "negative", "zero"])
+@pytest.mark.parametrize("bits", [1, 2, 4])
+@pytest.mark.parametrize("act_scale", [1.0, 0.37])
+def test_bn_quant_thresholds_equal_jax(gamma_special, bits, act_scale):
+    bn = _bn(24, bits * 13 + len(gamma_special), gamma_special)
+    jt, jflip = jth.bn_quant_thresholds(*(jnp.asarray(v) for v in bn), bits=bits,
+                                        act_scale=act_scale)
+    tt, tflip = tth.bn_quant_thresholds(*(torch.from_numpy(v) for v in bn), bits=bits,
+                                        act_scale=act_scale)
+    _eq(tt, jt)
+    _eq(tflip, jflip)
+    _eq(tth.integerize_thresholds(tt), jth.integerize_thresholds(jt))
+    # the fused-epilogue form: thresholds over a per-row dequant scale
+    scale = np.random.default_rng(bits).uniform(0.01, 0.5, 24).astype(np.float32)
+    _eq(tth.integerize_thresholds(tt / torch.from_numpy(scale)[:, None]),
+        jth.integerize_thresholds(jt / jnp.asarray(scale)[:, None]))
+
+
+def test_apply_thresholds_and_signs_equal_jax():
+    rng = np.random.default_rng(4)
+    acc = rng.integers(-60, 60, (33, 8)).astype(np.int32)
+    t = np.sort(rng.integers(-50, 50, (8, 3)), axis=1).astype(np.int32)
+    _eq(tth.apply_thresholds(torch.from_numpy(acc), torch.from_numpy(t)),
+        jth.apply_thresholds(jnp.asarray(acc), jnp.asarray(t)))
+    w = rng.integers(-1, 2, (8, 5)).astype(np.int32)
+    flip = rng.integers(0, 2, 8).astype(bool)
+    _eq(tth.streamline_signs(torch.from_numpy(w), torch.from_numpy(flip)),
+        jth.streamline_signs(jnp.asarray(w), jnp.asarray(flip)))
+
+
+@pytest.mark.parametrize("bits", [1, 2, 8])
+@pytest.mark.parametrize("axis", [0, None])
+def test_quantize_weights_equal_jax(bits, axis):
+    rng = np.random.default_rng(bits)
+    w = (rng.normal(0, 1, (64, 600)) / np.sqrt(600)).astype(np.float32)
+    w[3, 7] = 0.0
+    jqt = jq.quantize_weights(jnp.asarray(w), bits, axis=axis)
+    tqt = tq.quantize_weights(torch.from_numpy(w), bits, axis=axis)
+    _eq(tqt.values, jqt.values)
+    if bits > 1:  # the bipolar scale is a float mean: its sum order may differ
+        _eq(tqt.scale, jqt.scale)
+    assert (tqt.bits, tqt.signed) == (jqt.bits, jqt.signed)
+
+
+@pytest.mark.parametrize("bits", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("signed", [True, False])
+def test_int_bounds_equal_jax(bits, signed):
+    assert tq.int_bounds(bits, signed) == jq.int_bounds(bits, signed)
+
+
+def test_integerize_saturates_like_xla():
+    t = np.array([[np.inf, -np.inf, np.nan, 1.6e12, -1.6e12, 2.5, -2.5,
+                   2.0**31, -2.0**31]], np.float32)
+    _eq(tth.integerize_thresholds(torch.from_numpy(t)),
+        jth.integerize_thresholds(jnp.asarray(t)))
