@@ -58,15 +58,18 @@ class BuildConfig:
     target: ``interpret`` (eager reference only) or ``engine``
         (FusedEngine); ``pipeline`` and ``serving`` are later slices.
     mode / weight_bits / act_bits / backend: lowering parameters
-        (``lowering.lower_to_mvu``); backend is ``"cuda"`` (the hand kernel)
-        or ``"torch"`` (the plain oracle).
+        (``lowering.lower_to_mvu``); mode is ``"standard"``, ``"binary"``
+        or ``"xnor"`` (paper Fig. 4); backend is ``"cuda"`` (the hand
+        kernels) or ``"torch"`` (the plain oracles).
     folding: ``"balance"`` rate-balances every stage, ``"none"`` keeps
         heuristic per-layer defaults, or an explicit sequence of
         :class:`Folding`, one per MVU node in chain order (the paper's
         Table 6 PE/SIMD choices).
     tune: only ``"off"`` in this slice (the autotuner is later).
-    pack: ``"auto"`` (packs nodes a tuned schedule selected -- none without
-        the autotuner) or ``"never"``; ``"always"`` needs packed kernels.
+    pack: ``"auto"`` packs the nodes a tuned schedule selected (none
+        until the autotuner is ported), ``"never"`` keeps canonical
+        storage, ``"always"`` packs every packable node
+        (``lowering.packable``).
     verify: ``"all"`` re-runs a probe batch through the reference
         interpreter after every graph transform and checks bit-exactness,
         the engine included; ``"off"`` skips.
@@ -130,12 +133,6 @@ class BuildConfig:
         if self.tune != "off":
             raise NotImplementedError(
                 f"tune={self.tune!r}: the autotuner is ROADMAP queue A item 6")
-        if self.pack == "always":
-            raise NotImplementedError(
-                "pack='always' needs the packed kernels: ROADMAP queue B rows 5-6")
-        if self.mode != "standard":
-            raise NotImplementedError(
-                f"mode={self.mode!r} needs its kernel: ROADMAP queue B rows 2-3")
 
     def resolved_device(self) -> torch.device:
         """The device the built design runs on (see the ``device`` field)."""

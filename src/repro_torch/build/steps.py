@@ -201,10 +201,12 @@ def step_tune(state: BuildState) -> None:
 
 @register_step("pack_weights")
 def step_pack_weights(state: BuildState) -> None:
-    """Bit-packed weight storage rewrite (``lowering.pack_weights``)."""
+    """Bit-packed weight storage rewrite (``lowering.pack_weights``):
+    ``pack="always"`` packs every packable node, ``"auto"`` the nodes whose
+    config asks for it, ``"never"`` none."""
     if state.cfg.pack == "never":
         return
-    state.graph = lowering.pack_weights(state.graph)
+    state.graph = lowering.pack_weights(state.graph, force=state.cfg.pack == "always")
     state.mark_dirty()
 
 

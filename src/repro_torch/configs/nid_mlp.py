@@ -6,9 +6,11 @@ Layers (IFMch -> OFMch, PE, SIMD): 600->64 (64,50), 64->64 (16,32),
 
 ``build_graph`` draws the same numpy values in the same order as the JAX
 package's ``configs/nid_mlp.py``, so both packages start from identical
-float weights.  ``GOLDEN`` names the JAX package's output digest for one
-fixed input (``golden_digest`` computes it), which the tests and
-``chip_smoke.py`` hold the port to.
+float weights.  ``GOLDEN`` names the file of the JAX package's output
+digests for one fixed input (``golden_digest`` computes one), a digest per
+build variant -- the paper's 2-bit standard datapath and the Fig. 4
+binarized and packed ones -- each beside its build kwargs.  The tests and
+``chip_smoke.py`` read the variants from there and hold the port to them.
 """
 
 from __future__ import annotations
@@ -69,9 +71,10 @@ def _sha256(a: np.ndarray) -> str:
 def golden_digest(output: np.ndarray, layers: dict[str, dict[str, np.ndarray]],
                   **meta) -> dict:
     """The digest of one NID run: sha256 of the float32 output bytes, its
-    first 8 values, and per MVU layer the sha256 of its int8 weights and
-    (where it has them) its int32 thresholds.  ``meta`` (seed, batch,
-    bits) is recorded as given."""
+    first 8 values, and per MVU layer the sha256 of its weight storage
+    (int8 rows, 32-bit words or uint8 lanes: the bytes, the same in both
+    packages) and, where it has them, its thresholds and out_scale.
+    ``meta`` (seed, batch, build kwargs) is recorded as given."""
     out = np.asarray(output)
     if out.dtype != np.float32:
         raise ValueError(f"NID output must be float32, got {out.dtype}")
@@ -99,6 +102,12 @@ def graph_layers(graph) -> dict[str, dict[str, np.ndarray | None]]:
             for n in graph if n.op == "mvu"}
 
 
-def load_golden() -> dict:
+# the keys of a digest that say how it was made (besides the output)
+GOLDEN_META = ("seed", "data_seed", "batch", "build")
+
+
+def load_golden() -> dict[str, dict]:
+    """The golden digests, ``{variant: digest}``; each digest's ``build``
+    holds the variant's build kwargs (mode, bits, pack)."""
     with open(GOLDEN) as f:
         return json.load(f)

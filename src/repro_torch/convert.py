@@ -12,8 +12,9 @@ and ``attrs["config"]`` a dict of :class:`MVUConfig` fields, ``folding`` as
 ``{"pe", "simd"}``.  A tuned kernel tile (``blocks``) must be None: the
 CUDA kernel runs one tile until the autotuner (ROADMAP queue A item 6).
 The JAX package's backend names map to the port's: ``pallas`` -> ``cuda``,
-``xla`` -> ``torch``.  Whoever holds the JAX graph makes the description
-(``np.asarray`` on each param); the port never imports JAX.
+``xla`` -> ``torch``.  Packed uint32 words arrive as the port's int32 bit
+patterns (see :func:`_tensor`).  Whoever holds the JAX graph makes the
+description (``np.asarray`` on each param); the port never imports JAX.
 """
 
 from __future__ import annotations
@@ -29,7 +30,15 @@ BACKEND_NAMES = {"pallas": "cuda", "xla": "torch", "cuda": "cuda", "torch": "tor
 
 
 def _tensor(a, device):
-    return None if a is None else torch.from_numpy(np.array(a)).to(device)
+    """One array as a tensor on ``device``.  uint32 arrays (the JAX
+    package's packed words) become the port's int32 bit patterns by a
+    ``view`` -- the same 32 bits, not a value cast; uint8 lanes stay uint8."""
+    if a is None:
+        return None
+    a = np.array(a)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    return torch.from_numpy(a).to(device)
 
 
 def _config(d: dict) -> MVUConfig:

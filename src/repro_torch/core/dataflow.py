@@ -18,6 +18,7 @@ from repro_torch.core import ir
 from repro_torch.core.ir import Graph
 from repro_torch.core.mvu import MVUConfig, MVULayer, MVUParams
 from repro_torch.core.resource_model import NOMINAL_CLOCK_HZ, MVUResources
+from repro_torch.kernels import packing
 
 
 @dataclasses.dataclass
@@ -178,7 +179,18 @@ def node_runner(node):
     if node.op == "flatten":
         return None, lambda p, x: x.reshape(x.shape[0], -1)
     if node.op == "mvu":
-        return node.params["mvu"], MVULayer(node.attrs["config"])
+        cfg: MVUConfig = node.attrs["config"]
+        layer = MVULayer(cfg)
+        if cfg.mode != "xnor":
+            return node.params["mvu"], layer
+
+        def run_xnor(p, x):
+            # activations stream between nodes as integer levels (int32, as
+            # packed words are, so the dtype cannot tell the two apart): an
+            # xnor stage packs its input's LSBs itself
+            return layer(p, packing.pack_bits(x))
+
+        return node.params["mvu"], run_xnor
     if node.op == "batchnorm":
         p = {k: node.params[k] for k in ("gamma", "beta", "mean", "var")}
         # separate ops, in the JAX reference's order: no fused multiply-add

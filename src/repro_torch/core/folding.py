@@ -120,18 +120,16 @@ def balance_pipeline(
     ]
 
 
-def to_gpu_blocks(mode: str = "standard", *, packed: bool = False) -> dict[str, int]:
-    """The tile the CUDA MVU kernel runs: (block_m, block_n, block_k).
+def to_gpu_blocks() -> dict[str, int]:
+    """The tile the CUDA MVU kernels run: (block_m, block_n, block_k).
 
-    ``kernels/csrc/mvu_int.cu`` is compiled for one tile, so every
-    folding maps onto it; the folding keeps describing the FPGA schedule
-    (cycles, memory depths).  The resource model reads the tile here.
+    Every kernel in ``kernels/csrc/`` is compiled for one tile, whatever the
+    folding, mode or packing; ``block_k`` counts synapses a K step (32-bit
+    words for the xnor kernel, which stages them as they are; the packed
+    kernels unpack a block_k-synapse weight tile into shared memory).  The
+    folding keeps describing the FPGA schedule (cycles, memory depths).
     Tile choice per layer is the autotuner's job (ROADMAP queue A item 6).
     """
-    from repro_torch.kernels.mvu_int import BLOCK_K, BLOCK_M, BLOCK_N
+    from repro_torch.kernels._cuda import BLOCK_K, BLOCK_M, BLOCK_N
 
-    if mode != "standard" or packed:
-        raise NotImplementedError(
-            f"no GPU kernel yet for mode={mode!r}, packed={packed}: the "
-            "binarized and packed kernels are ROADMAP queue B rows 2-6")
     return {"block_m": BLOCK_M, "block_n": BLOCK_N, "block_k": BLOCK_K}

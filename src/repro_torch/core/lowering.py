@@ -5,7 +5,7 @@
     fuse_epilogues: same fold for finalized graphs (the runtime engine path)
     fuse_swu:       [swu, mvu] -> conv_mvu (no-op without swu nodes)
     apply_folding:  attach rate-balanced Folding to every mvu node
-    pack_weights:   packed weight storage (no-op without packed nodes)
+    pack_weights:   bit-packed weight storage (forced, or where a node asks)
 
 All passes are DAG-aware: patterns match along explicit dataflow edges
 (producer -> sole-consumer paths), not list adjacency.  Every pass returns
@@ -26,12 +26,14 @@ import torch
 from repro_torch.core import ir
 from repro_torch.core.folding import balance_pipeline
 from repro_torch.core.ir import Graph, Node, validate_graph
-from repro_torch.core.mvu import MVUConfig, MVULayer, MVUParams
+from repro_torch.core.mvu import MVUConfig, MVULayer, MVUParams, coded_weights
 from repro_torch.core.thresholds import (
     bn_quant_thresholds,
     integerize_thresholds,
     streamline_signs,
 )
+from repro_torch.kernels import packing
+from repro_torch.kernels.mvu_packed import pack_mvu_weights
 
 _CNV = "conv graphs (swu / conv_mvu) come with the CNV slice: ROADMAP queue B row 4"
 
@@ -115,8 +117,8 @@ def streamline(graph: Graph) -> Graph:
         t = t / acc_scale[:, None]
         # flip rows (negative gamma): negate quantized weight rows.
         wq = streamline_signs(qt.values.to(torch.int32), flip).to(qt.values.dtype)
-        params = MVUParams(weights=wq, thresholds=integerize_thresholds(t),
-                           out_scale=None)
+        params = MVUParams(weights=coded_weights(cfg.mode, wq),
+                           thresholds=integerize_thresholds(t), out_scale=None)
         cfg2 = MVUConfig(**{**cfg.__dict__, "act_bits": bits})
         fused[node.name] = Node("mvu", node.name, {"config": cfg2},
                                 {"mvu": params}, inputs=node.inputs)
@@ -138,6 +140,23 @@ def finalize(graph: Graph) -> Graph:
         else:
             out.append(node)
     return out
+
+
+def _flip_weight_rows(weights: torch.Tensor, flip: torch.Tensor,
+                      cfg: MVUConfig) -> torch.Tensor:
+    """Negate the (bipolar) value of flipped weight rows, per weight coding.
+
+    standard: integer rows negate directly (widened so -(-2^(b-1)) is safe);
+    binary:   {0,1}-coded +/-1 rows flip bits (1 - w);
+    xnor:     packed rows unpack over the true K bits, flip, repack (pad
+              bits stay zero, preserving the popcount correction).
+    """
+    if cfg.mode == "xnor":
+        bits = packing.unpack_bits(weights, cfg.in_features)
+        return packing.pack_bits(torch.where(flip[:, None], 1 - bits, bits))
+    if cfg.mode == "binary":
+        return torch.where(flip[:, None], 1 - weights, weights).to(weights.dtype)
+    return streamline_signs(weights.to(torch.int32), flip).to(weights.dtype)
 
 
 def fuse_epilogues(graph: Graph) -> Graph:
@@ -174,10 +193,6 @@ def fuse_epilogues(graph: Graph) -> Graph:
             continue
 
         cfg: MVUConfig = node.attrs["config"]
-        if cfg.mode != "standard":
-            raise NotImplementedError(
-                f"{ir.describe(node)}: flipping {cfg.mode} weight rows comes "
-                "with the binarized slice (ROADMAP queue B rows 2-3)")
         params: MVUParams = node.params["mvu"]
         n = cfg.out_features
         bits = qa.attrs["bits"]
@@ -201,9 +216,8 @@ def fuse_epilogues(graph: Graph) -> Graph:
         scale = params.out_scale
         if scale is not None:
             t = t / scale.reshape(-1)[:, None]
-        w = streamline_signs(params.weights.to(torch.int32), flip)
         fused_params = MVUParams(
-            weights=w.to(params.weights.dtype),
+            weights=_flip_weight_rows(params.weights, flip, cfg),
             thresholds=integerize_thresholds(t), out_scale=None,
         )
         cfg2 = MVUConfig(**{**cfg.__dict__, "act_bits": bits})
@@ -251,16 +265,47 @@ def apply_folding(graph: Graph, *, target_cycles: int | None = None,
     return graph
 
 
+def packable(cfg: MVUConfig) -> bool:
+    """Whether the packed datapath exists for this config's weight coding:
+    all 1-bit codings pack into 32-bit bitplanes; standard weights pack into
+    2-bit lanes only when they fit signed 2 bits.  (The JAX package keeps
+    this in its autotuner, ``core/autotune.py:271``.)"""
+    return cfg.mode in ("xnor", "binary") or cfg.weight_bits <= 2
+
+
 def pack_weights(graph: Graph, *, force: bool = False) -> Graph:
     """Packing rewrite: store MVU weights in their bit-packed form.
 
-    Nothing on this slice's path selects the packed datapath (it is pinned
-    by tuned schedules), so the pass returns the graph as it is; a packed
-    node, or ``force``, needs the packed kernels (ROADMAP queue B rows 5-6).
+    Rewrites every finalized dense ``mvu`` node whose config selects the
+    packed datapath (``cfg.packed``, pinned by tuned schedules once the
+    autotuner is ported), or every :func:`packable` one when ``force`` is
+    set (the build's ``pack="always"``).  Storage converts per coding:
+    binary {0,1} int8 rows -> int32 bitplanes (8x smaller), standard signed
+    2-bit rows -> uint8 lanes (4x), xnor rows are already words (storage
+    no-op; the flag routes ``backend="torch"`` onto the packed popcount).
+    Returns a new graph; rewritten nodes carry fresh params/attrs.
     """
-    packed = [n for n in graph
-              if n.op == "mvu" and n.attrs["config"].packed]
-    if force or packed:
-        raise NotImplementedError(
-            "packed weight storage needs the packed kernels: ROADMAP queue B rows 5-6")
-    return Graph(graph)
+    out = Graph()
+    for node in graph:
+        if node.op != "mvu" or "mvu" not in node.params:
+            out.append(node)
+            continue
+        cfg: MVUConfig = node.attrs["config"]
+        if not (cfg.packed or (force and packable(cfg))):
+            out.append(node)
+            continue
+        params = node.params["mvu"]
+        w = params.weights
+        # idempotence: canonical non-xnor storage is int8 rows; the packed
+        # forms are int32 words / uint8 lanes
+        if cfg.mode != "xnor" and w.dtype == torch.int8:
+            w = pack_mvu_weights(w, cfg.mode)
+        new_params = MVUParams(weights=w, thresholds=params.thresholds,
+                               out_scale=params.out_scale)
+        new_cfg = (cfg if cfg.packed
+                   else MVUConfig(**{**cfg.__dict__, "packed": True}))
+        out.append(Node(node.op, node.name,
+                        {**node.attrs, "config": new_cfg},
+                        {**node.params, "mvu": new_params},
+                        inputs=node.inputs))
+    return out

@@ -16,15 +16,19 @@ from repro_torch.core.folding import Folding, choose_folding
 from repro_torch.core.quantize import QTensor, int_bounds, quantize_weights
 from repro_torch.core.resource_model import MVUResources, mvu_resources
 from repro_torch.core.thresholds import integerize_thresholds
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, packing
+from repro_torch.kernels.mvu_packed import pack_mvu_weights
 
 
-def _standard_only(cfg: "MVUConfig") -> None:
-    if cfg.mode != "standard" or cfg.packed:
-        raise NotImplementedError(
-            f"mode={cfg.mode!r}, packed={cfg.packed}: only the standard "
-            "unpacked datapath is ported; binary/xnor and packed weights are "
-            "ROADMAP queue B rows 2-6")
+def coded_weights(mode: str, values: torch.Tensor) -> torch.Tensor:
+    """Integer weight values (N, K) in the mode's canonical storage: xnor
+    packs the bipolar rows into 32-bit words, binary keeps them as {0,1}
+    int8 rows, standard as they are."""
+    if mode == "xnor":
+        return packing.pack_bits(packing.bipolar_to_bits(values))
+    if mode == "binary":
+        return packing.bipolar_to_bits(values).to(torch.int8)
+    return values
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,7 +56,7 @@ class MVUConfig:
 class MVUParams:
     """Deployed (post-streamlining) parameters of one MVU instance."""
 
-    weights: torch.Tensor  # (N, K) int8
+    weights: torch.Tensor  # xnor: packed (N, Wd) int32 words; else (N, K) int8
     thresholds: torch.Tensor | None  # (N, T) int32, ascending
     out_scale: torch.Tensor | None  # (N,) float32 dequant scale
 
@@ -70,10 +74,16 @@ class MVULayer:
     def init_params(self, generator: torch.Generator, device=None) -> MVUParams:
         """Random integer weights on the mode's grid (tests/benchmarks)."""
         cfg = self.config
-        _standard_only(cfg)
-        lo, hi = int_bounds(cfg.weight_bits, signed=True)
-        w = torch.randint(lo, hi + 1, (cfg.out_features, cfg.in_features),
-                          generator=generator, dtype=torch.int8)
+        n, k = cfg.out_features, cfg.in_features
+        if cfg.mode in ("xnor", "binary"):
+            w = torch.randint(0, 2, (n, k), generator=generator, dtype=torch.int8)
+            if cfg.mode == "xnor":
+                w = packing.pack_bits(w)
+        else:
+            lo, hi = int_bounds(cfg.weight_bits, signed=True)
+            w = torch.randint(lo, hi + 1, (n, k), generator=generator, dtype=torch.int8)
+        if cfg.packed:
+            w = pack_mvu_weights(w, cfg.mode)
         return MVUParams(weights=w.to(device), thresholds=None, out_scale=None)
 
     @staticmethod
@@ -82,22 +92,31 @@ class MVULayer:
         w_float: torch.Tensor,
         thresholds: torch.Tensor | None = None,
     ) -> tuple[MVUParams, QTensor]:
-        """Quantize trained float weights (N, K) onto the MVU grid."""
-        _standard_only(config)
-        qt = quantize_weights(w_float, config.weight_bits)
+        """Quantize trained float weights (N, K) onto the MVU grid: 1-bit
+        bipolar for xnor (packed words) and binary ({0,1} int8 rows)."""
+        binarized = config.mode in ("xnor", "binary")
+        qt = quantize_weights(w_float, 1 if binarized else config.weight_bits)
+        w = coded_weights(config.mode, qt.values)
+        if config.packed:
+            w = pack_mvu_weights(w, config.mode)
         t = None if thresholds is None else integerize_thresholds(thresholds)
         scale = None if t is not None else qt.scale.reshape(-1).to(torch.float32)
-        return MVUParams(weights=qt.values, thresholds=t, out_scale=scale), qt
+        return MVUParams(weights=w, thresholds=t, out_scale=scale), qt
 
     def __call__(self, params: MVUParams, x: torch.Tensor) -> torch.Tensor:
-        """x: (..., K) integers -> (..., N)."""
+        """x: (..., K) integers (standard/binary) or (..., Wd) int32 words (xnor)."""
         cfg = self.config
-        _standard_only(cfg)
+        w = params.weights
+        if cfg.packed and cfg.mode != "xnor" and w.dtype == torch.int8:
+            # packed datapath selected but storage not yet rewritten (before
+            # the pack_weights step): pack on the fly so the graph runs
+            w = pack_mvu_weights(w, cfg.mode)
         lead = x.shape[:-1]
         out = ops.mvu(
-            x.reshape(-1, x.shape[-1]), params.weights, cfg.mode,
+            x.reshape(-1, x.shape[-1]), w, cfg.mode,
+            k_bits=cfg.in_features if cfg.mode == "xnor" or cfg.packed else None,
             thresholds=params.thresholds, out_scale=params.out_scale,
-            backend=cfg.backend,
+            backend=cfg.backend, packed=cfg.packed,
         )
         return out.reshape(*lead, cfg.out_features)
 

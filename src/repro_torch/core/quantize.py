@@ -36,6 +36,42 @@ class QTensor(NamedTuple):
     signed: bool
 
 
+# XLA:CPU's tree-reduction rewrite splits a reduction longer than this into
+# windows of this many elements (each padded evenly at both ends)
+_XLA_WINDOW = 32
+
+
+def xla_cpu_row_mean(x: torch.Tensor) -> torch.Tensor:
+    """float32 mean of each row of a 2-D tensor, (N, K) -> (N, 1), summed in
+    the order the JAX package's ``jnp.mean(..., axis=1)`` sums on the CPU,
+    so the 1-bit weight scale equals the reference's to the last bit.
+
+    XLA:CPU rewrites a reduction over more than 32 elements into sums over
+    windows of 32 (the row zero-padded to a whole number of windows, the
+    padding split between both ends), then reduces the window sums the
+    same way; each window and the last <= 32 values are summed in order.
+    The mean is that sum times float32(1 / K), XLA's rewrite of the
+    division by a constant.  ``torch.mean`` sums in another order and can
+    differ in the last bit.
+    """
+    count = x.shape[-1]
+    rows = x
+    while rows.shape[-1] > _XLA_WINDOW:
+        pad = -rows.shape[-1] % _XLA_WINDOW
+        rows = torch.nn.functional.pad(rows, (pad // 2, pad - pad // 2))
+        rows = _in_order_sum(rows.reshape(rows.shape[0], -1, _XLA_WINDOW))
+    inv = torch.tensor(1.0, dtype=torch.float32) / count
+    return (_in_order_sum(rows) * inv)[:, None]
+
+
+def _in_order_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum the last axis left to right, rounding to float32 at each add."""
+    acc = torch.zeros(x.shape[:-1], dtype=torch.float32, device=x.device)
+    for i in range(x.shape[-1]):
+        acc = acc + x[..., i]
+    return acc
+
+
 def quantize_weights(w: torch.Tensor, bits: int, axis: int | None = 0) -> QTensor:
     """Post-training symmetric weight quantization (per-output-channel).
 
@@ -46,8 +82,13 @@ def quantize_weights(w: torch.Tensor, bits: int, axis: int | None = 0) -> QTenso
     reduce_axes = (tuple(i for i in range(w.ndim) if i != axis)
                    if axis is not None else tuple(range(w.ndim)))
     if bits == 1:
-        # bipolar: scale = mean |w| per channel (XNOR-Net style)
-        scale = w.abs().mean(dim=reduce_axes, keepdim=True)
+        # bipolar: scale = mean |w| per channel (XNOR-Net style); an (N, K)
+        # weight's rows are summed in the JAX reference's order.  Other
+        # layouts (conv weights) come with the CNV slice (queue B row 4).
+        if w.ndim == 2 and axis == 0:
+            scale = xla_cpu_row_mean(w.abs())
+        else:
+            scale = w.abs().mean(dim=reduce_axes, keepdim=True)
         q = torch.where(w >= 0, 1, -1).to(torch.int8)
         return QTensor(q, scale, bits, True)
     amax = w.abs().amax(dim=reduce_axes, keepdim=True)

@@ -75,13 +75,13 @@ def mvu_resources(
     """Closed-form resource estimate for one MVU layer instance.
 
     ``lut_bytes`` is the CUDA kernel's shared memory for the tile it runs
-    (:func:`to_gpu_blocks`): a (block_k, block_m) int32
+    (:func:`to_gpu_blocks`, one for every mode): a (block_k, block_m) int32
     A tile and a (block_k, block_n) int32 W tile, each row padded by one
     word against bank conflicts.  ``ff_bytes`` is the block's
     block_m x block_n int32 accumulators.  BRAM/cycle terms stay on the
     folding abstraction (paper Eq. 1/2) and equal the JAX reference's.
     """
-    blocks = to_gpu_blocks(mode, packed=packed)
+    blocks = to_gpu_blocks()
     bm, bn, bk = blocks["block_m"], blocks["block_n"], blocks["block_k"]
     lut = bk * (bm + 1) * 4 + bk * (bn + 1) * 4
     ff = bm * bn * 4

@@ -1,0 +1,158 @@
+"""Build, load and launch the hand kernels: the plumbing every wrapper shares.
+
+Each kernel source in ``csrc/`` (``mvu_int.cu``, ``mvu_xnor.cu``, ...) is
+compiled with ``nvcc`` into a shared library of its own, at first use,
+into ``_build/`` beside this file, and loaded with ``ctypes``.  A library
+is ``<source>.cu`` plus ``binding.cpp`` (the error-string helper); every
+source includes ``mvu_tile.cuh`` (the shared K loop) and ``epilogue.cuh``.
+The library's name carries a hash of those files and the flags, so an
+edited source never loads a stale build.
+:func:`build_all` starts one ``nvcc`` per source at once.
+
+Every kernel exports one C function of the same shape::
+
+    int repro_<kernel>(const void* a, const void* w, const void* thr,
+                       const void* scale, void* out, int m, int n, int k,
+                       int w_cols, int n_thr, int epilogue, void* stream)
+
+and returns the launch's CUDA error code.  Importing this module builds
+nothing and imports nothing CUDA-only.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+
+import torch
+
+# The one tile every kernel is compiled for (passed to nvcc as -D flags);
+# per-layer tiles come with the autotuner (ROADMAP queue A item 6).
+BLOCK_M = 32
+BLOCK_N = 32
+BLOCK_K = 32  # synapses per K step (32-bit words for the xnor kernel)
+THREADS = 256
+
+CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
+_SHARED = ("binding.cpp", "epilogue.cuh", "mvu_tile.cuh")
+EPILOGUE = {"raw": 0, "thresholds": 1, "scale": 2}
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+
+
+def nvcc_flags() -> list[str]:
+    return ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+            "-shared", "-Xcompiler", "-fPIC",
+            f"-DMVU_BM={BLOCK_M}", f"-DMVU_BN={BLOCK_N}",
+            f"-DMVU_BK={BLOCK_K}", f"-DMVU_THREADS={THREADS}"]
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit found (set CUDA_HOME): nvcc is "
+                           "needed to build the MVU kernels")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+class Library:
+    """One kernel source's shared library: its path, build and C functions."""
+
+    def __init__(self, source: str, functions: tuple[str, ...]):
+        self.source = source
+        self.functions = functions
+        self._lib = None
+        self._lock = threading.Lock()
+
+    @property
+    def path(self) -> str:
+        h = hashlib.sha256(" ".join(nvcc_flags()).encode())
+        for name in (self.source, *_SHARED):
+            with open(os.path.join(CSRC, name), "rb") as f:
+                h.update(f.read())
+        stem = os.path.splitext(self.source)[0]
+        return os.path.join(BUILD_DIR, f"lib{stem}_{h.hexdigest()[:16]}.so")
+
+    def _start(self):
+        """Start nvcc unless the library exists; returns (process, tmp, path)."""
+        path = self.path
+        if os.path.exists(path):
+            return None, None, path
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
+        srcs = [os.path.join(CSRC, s) for s in (self.source, "binding.cpp")]
+        proc = subprocess.Popen([_nvcc(), *nvcc_flags(), "-o", tmp, *srcs],
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                text=True)
+        return proc, tmp, path
+
+    @staticmethod
+    def _finish(proc, tmp, path, err: str | None = None) -> str:
+        if proc is not None:
+            if err is None:
+                _, err = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed to build {os.path.basename(path)}:\n{err}")
+            os.replace(tmp, path)  # atomic: a concurrent builder never loads half a file
+        return path
+
+    def build(self) -> str:
+        """Compile the library (once per content) and return its path."""
+        return self._finish(*self._start())
+
+    def load(self) -> ctypes.CDLL:
+        with self._lock:
+            if self._lib is None:
+                lib = ctypes.CDLL(self.build())
+                for fn in self.functions:
+                    getattr(lib, fn).argtypes = _ARGTYPES
+                    getattr(lib, fn).restype = ctypes.c_int
+                lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+                lib.repro_cuda_error_string.restype = ctypes.c_char_p
+                self._lib = lib
+        return self._lib
+
+    def launch(self, fn: str, a: torch.Tensor, w: torch.Tensor,
+               thresholds: torch.Tensor | None, out_scale: torch.Tensor | None,
+               epi: str, *, n: int, k: int) -> torch.Tensor:
+        """Launch ``fn`` on ``a``'s device and current stream; returns the
+        (M, N) output (int32, float32 for the scale epilogue).  ``k`` is the
+        kernel's reduction length argument, ``n`` the output width.  Raises
+        for a device that is not CUDA, and when the launch fails."""
+        if not a.is_cuda:
+            raise ValueError(f"{fn.removeprefix('repro_')} runs on CUDA or CPU "
+                             f"tensors, got {a.device}")
+        m = a.shape[0]
+        if max(m, a.shape[1], w.shape[1], k) >= 2**31 or n > 65535 * BLOCK_N:
+            raise ValueError(f"shape (M={m}, N={n}, K={k}) exceeds the kernel's grid")
+        out = torch.empty((m, n), dtype=torch.float32 if epi == "scale" else torch.int32,
+                          device=a.device)
+        if m == 0 or n == 0:
+            return out
+        lib = self.load()
+        n_thr = thresholds.shape[1] if thresholds is not None else 0
+        with torch.cuda.device(a.device):
+            stream = torch.cuda.current_stream(a.device).cuda_stream
+            err = getattr(lib, fn)(
+                a.data_ptr(), w.data_ptr(),
+                thresholds.data_ptr() if thresholds is not None else None,
+                out_scale.data_ptr() if out_scale is not None else None,
+                out.data_ptr(), m, n, k, w.shape[1], n_thr, EPILOGUE[epi], stream)
+        if err != 0:
+            raise RuntimeError(f"{fn} launch failed: "
+                               + lib.repro_cuda_error_string(err).decode())
+        return out
+
+
+def build_all(libraries) -> list[str]:
+    """Build several libraries at once: one nvcc per source, all started
+    together.  Returns their paths in order."""
+    started = [lib._start() for lib in libraries]
+    # wait for every nvcc before reporting the first failure: none is left running
+    errs = [proc.communicate()[1] if proc is not None else None
+            for proc, _, _ in started]
+    return [Library._finish(*s, err) for s, err in zip(started, errs)]

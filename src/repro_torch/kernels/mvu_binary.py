@@ -1,0 +1,55 @@
+"""Binary-weight MVU (paper Fig. 4b) on the H100: the hand CUDA kernel.
+
+``mvu_binary`` computes ``out[M, N] = epilogue(A[M, K] . (2 W01 - 1)^T)``
+for {0,1}-coded +/-1 weights as ``2 * (A . W01^T) - rowsum(A)``.  It
+replaces ``src/repro/kernels/mvu_binary.py::mvu_binary_pallas``
+(``pallas_call`` at line 108); the source is ``csrc/mvu_binary.cu``.  Like
+every wrapper: a CUDA tensor launches the kernel or raises, a CPU tensor
+takes the plain version :func:`mvu_binary_plain`, and ``LAUNCHES`` counts
+launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels._common import check_operands, epilogue_value, int_dot
+from repro_torch.kernels._cuda import Library
+
+LIB = Library("mvu_binary.cu", ("repro_mvu_binary",))
+
+# Kernel launches since import (or since a caller reset it to 0).
+LAUNCHES = 0
+
+
+def mvu_binary(a: torch.Tensor, w_bits: torch.Tensor,
+               thresholds: torch.Tensor | None = None,
+               out_scale: torch.Tensor | None = None) -> torch.Tensor:
+    """out[M,N] = epilogue(A[M,K] . (2*W01[N,K]-1)^T).
+
+    a: (M, K) int32 (int8/uint8/int16 are widened; the value is not
+    narrowed); w_bits: (N, K) int8 in {0,1}.
+    """
+    global LAUNCHES
+    a, epi = check_operands("mvu_binary", a, w_bits, thresholds, out_scale,
+                            w_dtype=torch.int8)
+    if a.device.type == "cpu":
+        return mvu_binary_plain(a, w_bits, thresholds, out_scale)
+    out = LIB.launch("repro_mvu_binary", a, w_bits, thresholds, out_scale, epi,
+                     n=w_bits.shape[0], k=a.shape[1])
+    if out.numel():  # an empty output launches nothing
+        LAUNCHES += 1
+    return out
+
+
+def mvu_binary_plain(a: torch.Tensor, w_bits: torch.Tensor,
+                     thresholds: torch.Tensor | None = None,
+                     out_scale: torch.Tensor | None = None) -> torch.Tensor:
+    """The kernel's function in plain PyTorch, on CPU or CUDA tensors; also
+    the port's oracle (``ref.mvu_binary_ref``) and its ``backend="torch"``:
+    the integer dot of ``a`` with the bipolar rows ``2 w - 1``, which equals
+    the kernel's ``2 * dot - rowsum`` mod 2^32."""
+    if thresholds is not None and out_scale is not None:
+        raise ValueError("thresholds and out_scale are mutually exclusive")
+    bipolar = 2 * w_bits.to(torch.int64) - 1
+    return epilogue_value(int_dot(a, bipolar), thresholds, out_scale)

@@ -1,31 +1,66 @@
 """Entry points for the MVU kernels.
 
-``mvu(...)`` dispatches on the SIMD-lane datapath (paper Fig. 4).  This
-slice of the port carries ``mode="standard"`` (Fig. 4c, arbitrary-precision
-integer lanes); ``"binary"`` and ``"xnor"`` come with their kernels
-(ROADMAP queue B rows 2-3).  Two backends, the port's names for the JAX
+``mvu(...)`` dispatches on the SIMD-lane datapath (paper Fig. 4):
+
+    mode="xnor"     1-bit x 1-bit, bit-packed XNOR+popcount   (Fig. 4a)
+    mode="binary"   {+-1} weights x n-bit inputs               (Fig. 4b)
+    mode="standard" arbitrary-precision integer lanes          (Fig. 4c)
+
+and, with ``packed=True``, onto the packed-weight kernels
+(``kernels/mvu_packed.py``).  Two backends, the port's names for the JAX
 package's ``("pallas", "xla")``:
 
-    backend="cuda"   the hand-written CUDA kernel (the paper's RTL analog);
-                     a CPU tensor takes its plain version, any other
-                     device launches the kernel or raises
-    backend="torch"  the plain oracle ``ref.mvu_int_ref`` (the HLS analog)
+    backend="cuda"   the hand-written CUDA kernels (the paper's RTL analog);
+                     a CPU tensor takes the kernel's plain version, any
+                     other device launches the kernel or raises
+    backend="torch"  the plain oracles in ``ref`` / ``mvu_packed`` (the HLS
+                     analog)
 
-The JAX package's tile kwargs (``block_m``/``block_n``/``block_k``) are
-accepted for a like signature and ignored: the CUDA kernel is compiled for
-one tile, and per-layer tiles come with the autotuner (ROADMAP queue A
-item 6).
+Packed words are int32 bit patterns (``kernels/packing.py``).  The JAX
+package's tile kwargs (``block_m``/``block_n``/``block_k``/``block_kw``)
+are accepted for a like signature and ignored: the CUDA kernels are
+compiled for one tile, and per-layer tiles come with the autotuner
+(ROADMAP queue A item 6).
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import ref
-from repro_torch.kernels.mvu_int import mvu_int
+from repro_torch.kernels import mvu_binary, mvu_int, mvu_packed, mvu_xnor, ref
 
 MODES = ("xnor", "binary", "standard")
 BACKENDS = ("cuda", "torch")
+
+# every hand kernel: name -> (its wrapper's module, that module's launch counter)
+KERNELS = {
+    "mvu_int": (mvu_int, "LAUNCHES"),
+    "mvu_xnor": (mvu_xnor, "LAUNCHES"),
+    "mvu_binary": (mvu_binary, "LAUNCHES"),
+    "mvu_binary_packed": (mvu_packed, "BINARY_LAUNCHES"),
+    "mvu_int2_packed": (mvu_packed, "INT2_LAUNCHES"),
+}
+# the kernel libraries, one per source in csrc/ (kernels/_cuda.py)
+LIBRARIES = (mvu_int.LIB, mvu_xnor.LIB, mvu_binary.LIB, mvu_packed.LIB)
+
+
+def kernel_name(mode: str, packed: bool = False) -> str:
+    """The hand kernel ``mvu(..., mode, packed=packed)`` launches."""
+    if mode == "xnor":
+        return "mvu_xnor"  # natively packed: the packed path runs it too
+    if packed:
+        return "mvu_binary_packed" if mode == "binary" else "mvu_int2_packed"
+    return "mvu_binary" if mode == "binary" else "mvu_int"
+
+
+def launch_counts() -> dict[str, int]:
+    """Every kernel's launch counter, by kernel name."""
+    return {name: getattr(mod, attr) for name, (mod, attr) in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for mod, attr in KERNELS.values():
+        setattr(mod, attr, 0)
 
 
 def mvu_layer_fn(mode: str = "standard", *, backend: str = "cuda", **blocks):
@@ -47,27 +82,39 @@ def mvu(
     w: torch.Tensor,
     mode: str = "standard",
     *,
+    k_bits: int | None = None,
     thresholds: torch.Tensor | None = None,
     out_scale: torch.Tensor | None = None,
     backend: str = "cuda",
     packed: bool = False,
     **blocks,
 ) -> torch.Tensor:
-    """Matrix-vector(-batch) compute: epilogue(A . W^T), a (M, K), w (N, K).
+    """Matrix-vector(-batch) compute: epilogue(A . W^T).
 
-    ``blocks`` are ignored (see the module doc).
+    Shapes: standard/binary: a (M, K), w (N, K).  xnor: packed a (M, Wd)
+    and w (N, Wd) int32 words with ``k_bits`` true synapses.
+    ``packed=True``: ``w`` is the mode's packed storage (int32 bitplanes
+    for binary, uint8 2-bit lanes for standard, the usual words for xnor)
+    and ``k_bits`` carries the true K for every mode.  ``blocks`` are
+    ignored (see the module doc).
     """
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
-    if mode != "standard":
-        raise NotImplementedError(
-            f"mode={mode!r} needs its kernel: ROADMAP queue B row "
-            f"{2 if mode == 'xnor' else 3}")
+    if (packed or mode == "xnor") and k_bits is None:
+        raise ValueError(f"mode={mode!r}, packed={packed} needs k_bits")
     if packed:
-        raise NotImplementedError(
-            "packed=True needs the packed-weight kernels: ROADMAP queue B rows 5-6")
+        return mvu_packed.mvu_packed(a, w, mode, k_bits, thresholds, out_scale,
+                                     backend=backend)
     if backend == "torch":
+        if mode == "xnor":
+            return ref.mvu_xnor_ref(a, w, k_bits, thresholds, out_scale)
+        if mode == "binary":
+            return ref.mvu_binary_ref(a, w, thresholds, out_scale)
         return ref.mvu_int_ref(a, w, thresholds, out_scale)
-    return mvu_int(a, w, thresholds, out_scale)
+    if mode == "xnor":
+        return mvu_xnor.mvu_xnor(a, w, k_bits, thresholds, out_scale)
+    if mode == "binary":
+        return mvu_binary.mvu_binary(a, w, thresholds, out_scale)
+    return mvu_int.mvu_int(a, w, thresholds, out_scale)

@@ -1,4 +1,4 @@
-"""The hand kernel and the slice on the card (marked ``cuda``).
+"""The hand kernels and the slice on the card (marked ``cuda``).
 
 Run on a machine with an NVIDIA GPU and nvcc:
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
@@ -11,15 +11,16 @@ import torch
 from repro_torch.build import build
 from repro_torch.configs import nid_mlp
 from repro_torch.data import nid
-from repro_torch.kernels import mvu_int as K
+from repro_torch.kernels import mvu_binary, mvu_int as K, mvu_packed, mvu_xnor, ops, packing
 
 pytestmark = pytest.mark.cuda
+VARIANTS = ["standard", "xnor", "binary", "binary_packed", "standard_packed"]
 
 
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the hand kernel has no CPU mode)")
+        pytest.skip("needs a CUDA device (the hand kernels have no CPU mode)")
     return torch.device("cuda")
 
 
@@ -32,20 +33,57 @@ def _inputs(m, n, k, lo, hi, device, seed=0):
     return [x.to(device) for x in (a, w, t, s)]
 
 
+def _epilogue_kw(epilogue, t, s):
+    return {"thresholds": t} if epilogue == "thresholds" else \
+        {"out_scale": s} if epilogue == "scale" else {}
+
+
 @pytest.mark.parametrize("epilogue", ["raw", "thresholds", "scale"])
 @pytest.mark.parametrize("n,k", [(64, 600), (64, 64), (1, 64), (33, 95)])
 @pytest.mark.parametrize("m", [1, 3, 128, 257])
 def test_kernel_equals_plain(cuda, m, n, k, epilogue):
     for lo, hi in ((-1, 2), (-128, 128)):
         a, w, t, s = _inputs(m, n, k, lo, hi, cuda, seed=m + k)
-        kw = {"thresholds": t} if epilogue == "thresholds" else \
-            {"out_scale": s} if epilogue == "scale" else {}
+        kw = _epilogue_kw(epilogue, t, s)
         launches = K.LAUNCHES
         got = K.mvu_int(a, w, **kw)
         assert K.LAUNCHES == launches + 1 and got.is_cuda
         want = K.mvu_int_plain(a, w, **kw)
         torch.cuda.synchronize()
         assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kernel", ["mvu_xnor", "mvu_binary", "mvu_binary_packed",
+                                    "mvu_int2_packed"])
+@pytest.mark.parametrize("epilogue", ["raw", "thresholds", "scale"])
+@pytest.mark.parametrize("n,k", [(64, 600), (64, 64), (1, 64), (33, 95), (7, 1)])
+@pytest.mark.parametrize("m", [1, 3, 128, 257])
+def test_new_kernels_equal_plain(cuda, kernel, m, n, k, epilogue):
+    g = torch.Generator().manual_seed(m * 1000 + k)
+    # activations up to 299: the packed kernels narrow them with a wrap
+    a = torch.randint(-8, 300, (m, k), generator=g, dtype=torch.int32).to(cuda)
+    bits = torch.randint(0, 2, (n, k), generator=g, dtype=torch.int8).to(cuda)
+    _, _, t, s = _inputs(1, n, 1, 0, 1, cuda, seed=k)
+    kw = _epilogue_kw(epilogue, t, s)
+    if kernel == "mvu_xnor":
+        fn, plain = mvu_xnor.mvu_xnor, mvu_xnor.mvu_xnor_plain
+        args = (packing.pack_bits(a), packing.pack_bits(bits), k)
+    elif kernel == "mvu_binary":
+        fn, plain = mvu_binary.mvu_binary, mvu_binary.mvu_binary_plain
+        args = (a, bits)
+    elif kernel == "mvu_binary_packed":
+        fn, plain = mvu_packed.mvu_binary_packed, mvu_packed.mvu_binary_packed_plain
+        args = (a, packing.pack_bits(bits), k)
+    else:
+        fn, plain = mvu_packed.mvu_int2_packed, mvu_packed.mvu_int2_packed_plain
+        w2 = torch.randint(-2, 2, (n, k), generator=g, dtype=torch.int8).to(cuda)
+        args = (a, packing.pack_int2(w2), k)
+    launches = ops.launch_counts()[kernel]
+    got = fn(*args, **kw)
+    assert ops.launch_counts()[kernel] == launches + 1 and got.is_cuda
+    want = plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and torch.equal(got, want)
 
 
 def test_kernel_wraps_and_widens(cuda):
@@ -55,6 +93,8 @@ def test_kernel_wraps_and_widens(cuda):
     assert torch.equal(K.mvu_int(a, w), K.mvu_int_plain(a, w))
     a8 = torch.randint(-128, 128, (5, 77), generator=g, dtype=torch.int8).to(cuda)
     assert torch.equal(K.mvu_int(a8, w), K.mvu_int_plain(a8.int(), w))
+    bits = (w > 0).to(torch.int8)
+    assert torch.equal(mvu_binary.mvu_binary(a, bits), mvu_binary.mvu_binary_plain(a, bits))
 
 
 def test_kernel_rejects_non_contiguous_and_mixed_devices(cuda):
@@ -63,17 +103,23 @@ def test_kernel_rejects_non_contiguous_and_mixed_devices(cuda):
         K.mvu_int(torch.cat([a, a], 1)[:, ::2], w)
     with pytest.raises(ValueError, match="is on cpu"):
         K.mvu_int(a, w.cpu())
+    with pytest.raises(ValueError, match="is on cpu"):
+        mvu_xnor.mvu_xnor(packing.pack_bits(a), packing.pack_bits(w).cpu(), 32)
 
 
-def test_nid_engine_on_the_card(cuda):
-    golden = nid_mlp.load_golden()
-    acc = build(nid_mlp.build_graph(golden["seed"]), weight_bits=golden["weight_bits"],
-                act_bits=golden["act_bits"], folding=nid_mlp.foldings())
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_nid_engine_on_the_card(cuda, variant):
+    golden = nid_mlp.load_golden()[variant]
+    kw = golden["build"]
+    acc = build(nid_mlp.build_graph(golden["seed"]), folding=nid_mlp.foldings(), **kw)
     x = torch.from_numpy(nid.make_dataset(golden["batch"], seed=golden["data_seed"])[0])
-    K.LAUNCHES = 0
+    kernel = ops.kernel_name(kw["mode"], packed=kw.get("pack") == "always")
+    ops.reset_launch_counts()
     y = acc(x)
-    assert K.LAUNCHES == 4 * acc.plan(golden["batch"]).n_micro and y.is_cuda
-    assert torch.equal(y, acc.interpret(x))
-    meta = {k: golden[k] for k in ("seed", "data_seed", "batch", "weight_bits", "act_bits")}
+    n_micro = acc.plan(golden["batch"]).n_micro
+    assert ops.launch_counts() == {k: 4 * n_micro if k == kernel else 0
+                                   for k in ops.KERNELS}
+    assert y.is_cuda and torch.equal(y, acc.interpret(x))
+    meta = {k: golden[k] for k in nid_mlp.GOLDEN_META}
     assert nid_mlp.golden_digest(y.cpu().numpy(), nid_mlp.graph_layers(acc.graph),
                                  **meta) == golden

@@ -1,9 +1,11 @@
-"""The committed NID-MLP golden digest, recomputed by both packages on the CPU.
+"""The committed NID-MLP golden digests, recomputed by both packages on the CPU.
 
 ``src/repro_torch/configs/nid_mlp_golden.json`` records the JAX package's
-NID output (batch 4096, seed 0, data seed 1, 2-bit weights and
-activations).  ``chip_smoke.py`` holds the card's output to it; here the
-JAX package (``scripts/nid_golden.py``) and the port both recompute it.
+NID output (batch 4096, seed 0, data seed 1) for each build variant -- the
+2-bit standard datapath and the xnor, binary, packed-binary and
+packed-2-bit ones -- beside the variant's build kwargs.  ``chip_smoke.py``
+holds the card's output to it; here the JAX package
+(``scripts/nid_golden.py``) and the port both recompute every variant.
 """
 
 import importlib.util
@@ -17,6 +19,7 @@ from repro_torch.configs import nid_mlp
 from repro_torch.data import nid
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+VARIANTS = ["standard", "xnor", "binary", "binary_packed", "standard_packed"]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -33,19 +36,31 @@ def golden():
     return nid_mlp.load_golden()
 
 
-def test_jax_package_reproduces_the_golden_digest(golden):
+@pytest.fixture(scope="module")
+def script():
     spec = importlib.util.spec_from_file_location(
         "nid_golden", os.path.join(ROOT, "scripts", "nid_golden.py"))
-    script = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(script)
-    assert script.jax_digest(golden["weight_bits"], golden["act_bits"]) == golden
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
-def test_port_reproduces_the_golden_digest(golden):
-    acc = build(nid_mlp.build_graph(golden["seed"]), target="engine", mode="standard",
-                weight_bits=golden["weight_bits"], act_bits=golden["act_bits"],
-                folding=nid_mlp.foldings(), device="cpu")
-    x = torch.from_numpy(nid.make_dataset(golden["batch"], seed=golden["data_seed"])[0])
+def test_the_file_holds_the_script_variants(golden, script):
+    assert sorted(golden) == sorted(VARIANTS) == sorted(script.VARIANTS)
+    assert all(golden[v]["build"] == script.VARIANTS[v] for v in VARIANTS)
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_jax_package_reproduces_the_golden_digest(golden, script, variant):
+    assert script.jax_digest(golden[variant]["build"]) == golden[variant]
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_port_reproduces_the_golden_digest(golden, variant):
+    g = golden[variant]
+    acc = build(nid_mlp.build_graph(g["seed"]), target="engine",
+                folding=nid_mlp.foldings(), device="cpu", **g["build"])
+    x = torch.from_numpy(nid.make_dataset(g["batch"], seed=g["data_seed"])[0])
     y = acc(x)
-    meta = {k: golden[k] for k in ("seed", "data_seed", "batch", "weight_bits", "act_bits")}
-    assert nid_mlp.golden_digest(y.numpy(), nid_mlp.graph_layers(acc.graph), **meta) == golden
+    meta = {k: g[k] for k in nid_mlp.GOLDEN_META}
+    assert nid_mlp.golden_digest(y.numpy(), nid_mlp.graph_layers(acc.graph), **meta) == g

@@ -150,7 +150,7 @@ def test_oracle_matches_plain_on_random_int8(monkeypatch):
     a chunk) it still equals the JAX oracle."""
     assert ref.mvu_int_ref is K.mvu_int_plain
     a, w, t, _ = _inputs(40, 50, 160, "int8", "thresholds", seed=9)
-    monkeypatch.setattr(K, "_PLAIN_CHUNK_BYTES", 3 * 8 * 50 * 160)
+    monkeypatch.setattr(_common, "PLAIN_CHUNK_BYTES", 3 * 8 * 50 * 160)
     got = K.mvu_int_plain(*[_torch(v) for v in (a, w, t)])
     _assert_same(got.numpy(), jref.mvu_int_ref(_jax(a), _jax(w), _jax(t)))
 

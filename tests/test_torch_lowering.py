@@ -31,8 +31,8 @@ def _fold(graph, folds, config_cls):
     return graph
 
 
-def _passes(low, nid, config_cls, weight_bits):
-    g = low.lower_to_mvu(nid.build_graph(0), mode="standard",
+def _passes(low, nid, config_cls, mode, weight_bits):
+    g = low.lower_to_mvu(nid.build_graph(0), mode=mode,
                          weight_bits=weight_bits, act_bits=2)
     out = {"lower": g}
     out["finalize"] = g = low.finalize(g)
@@ -42,14 +42,19 @@ def _passes(low, nid, config_cls, weight_bits):
     return out
 
 
-@pytest.fixture(scope="module", params=[2, 8], ids=["w2", "w8"])
+@pytest.fixture(scope="module", params=[("standard", 2), ("standard", 8), ("xnor", 1),
+                                        ("binary", 1)], ids=["w2", "w8", "xnor", "binary"])
 def graphs(request):
-    wb = request.param
-    return (_passes(jlow, jnid, JConfig, wb), _passes(tlow, tnid, TConfig, wb))
+    mode, wb = request.param
+    return (_passes(jlow, jnid, JConfig, mode, wb), _passes(tlow, tnid, TConfig, mode, wb))
 
 
 def _arr(x):
-    return None if x is None else (x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x))
+    if x is None:
+        return None
+    a = x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    # the JAX package's packed uint32 words are the port's int32 bit patterns
+    return a.view(np.int32) if a.dtype == np.uint32 else a
 
 
 def _same_array(got, want):
@@ -127,4 +132,5 @@ def test_engine_buffers_follow_module_moves(graphs):
     assert "stage_params.1.weights" in names and "stage_params.2.gamma" not in names
     assert te.device == torch.device("cpu")
     moved = te.to(torch.float64)  # dtype-only move keeps the integer buffers
-    assert moved.stage_params[1].weights.dtype == torch.int8
+    words = graphs[1]["fold"][1].attrs["config"].mode == "xnor"  # packed int32 words
+    assert moved.stage_params[1].weights.dtype == (torch.int32 if words else torch.int8)

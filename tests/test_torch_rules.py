@@ -100,32 +100,50 @@ def _conv_graph():
 
 
 @pytest.mark.parametrize("what", [
-    "mode_binary", "mode_xnor", "tune_cache", "target_pipeline", "target_serving",
-    "pack_always", "conv_node", "ops_packed", "ops_xnor", "layer_xnor",
+    "tune_cache", "target_pipeline", "target_serving", "conv_node",
     "engine_profile", "engine_as_pipeline", "engine_tune"])
 def test_later_slices_raise_not_implemented(what):
     g = nid_mlp.build_graph(0)
-    overrides = {"mode_binary": {"mode": "binary"}, "mode_xnor": {"mode": "xnor"},
-                 "tune_cache": {"tune": "cache"}, "target_pipeline": {"target": "pipeline"},
-                 "target_serving": {"target": "serving"}, "pack_always": {"pack": "always"}}
-    a = torch.zeros((2, 8), dtype=torch.int32)
-    w = torch.zeros((4, 8), dtype=torch.int8)
+    overrides = {"tune_cache": {"tune": "cache"}, "target_pipeline": {"target": "pipeline"},
+                 "target_serving": {"target": "serving"}}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         if what in overrides:
             build(g, device="cpu", **overrides[what])
         elif what == "conv_node":
             lowering.lower_to_mvu(_conv_graph())
-        elif what == "ops_packed":
-            ops.mvu(a, w, packed=True)
-        elif what == "ops_xnor":
-            ops.mvu(a, w, "xnor")
-        elif what == "layer_xnor":
-            MVULayer(MVUConfig(8, 4, mode="xnor")).init_params(torch.Generator())
         elif what == "engine_tune":
             engine.FusedEngine(g, tune="cache")
         else:
             acc = build(g, weight_bits=2, act_bits=2, device="cpu")
             getattr(acc, what.removeprefix("engine_"))()
+
+
+@pytest.mark.parametrize("what", ["mode_binary", "mode_xnor", "pack_always",
+                                  "ops_packed", "ops_xnor", "layer_xnor"])
+def test_binarized_and_packed_paths_run(what):
+    """What the later-slices test refused before the binarized and packed
+    kernels were ported now runs (on the CPU: the kernels' plain versions)."""
+    g = nid_mlp.build_graph(0)
+    x = torch.randint(0, 4, (5, 600), dtype=torch.int32)
+    a = torch.randint(0, 4, (2, 8), dtype=torch.int32)
+    if what.startswith(("mode_", "pack_")):
+        kw = {"mode_binary": {"mode": "binary", "act_bits": 4},
+              "mode_xnor": {"mode": "xnor", "weight_bits": 1, "act_bits": 1},
+              "pack_always": {"pack": "always", "weight_bits": 2, "act_bits": 2}}[what]
+        acc = build(g, device="cpu", **kw)
+        assert torch.equal(acc(x), acc.interpret(x)) and tuple(acc(x).shape) == (5, 1)
+        assert all(n.packed == (what == "pack_always") for n in acc.report.nodes)
+    elif what == "ops_packed":
+        w = torch.zeros((4, 2), dtype=torch.uint8)  # 8 zero 2-bit lanes a row
+        assert torch.equal(ops.mvu(a, w, packed=True, k_bits=8), torch.zeros((2, 4), dtype=torch.int32))
+    elif what == "ops_xnor":
+        # all-zero words: every bit agrees, so the bipolar dot is +K
+        words = torch.zeros((2, 1), dtype=torch.int32)
+        out = ops.mvu(words, torch.zeros((4, 1), dtype=torch.int32), "xnor", k_bits=8)
+        assert torch.equal(out, torch.full((2, 4), 8, dtype=torch.int32))
+    else:
+        p = MVULayer(MVUConfig(8, 4, mode="xnor")).init_params(torch.Generator())
+        assert p.weights.dtype == torch.int32 and tuple(p.weights.shape) == (4, 1)
 
 
 def test_init_params_and_device_moves():

@@ -74,9 +74,23 @@ def test_quantize_weights_equal_jax(bits, axis):
     jqt = jq.quantize_weights(jnp.asarray(w), bits, axis=axis)
     tqt = tq.quantize_weights(torch.from_numpy(w), bits, axis=axis)
     _eq(tqt.values, jqt.values)
-    if bits > 1:  # the bipolar scale is a float mean: its sum order may differ
+    # the bipolar scale is a float mean: the port sums an (N, K) weight's rows
+    # in XLA:CPU's order; a tensor-wide mean (axis=None) is not matched yet
+    if bits > 1 or axis == 0:
         _eq(tqt.scale, jqt.scale)
     assert (tqt.bits, tqt.signed) == (jqt.bits, jqt.signed)
+
+
+@pytest.mark.parametrize("k", [1, 3, 31, 32, 33, 64, 600, 1100])
+@pytest.mark.parametrize("n", [1, 64])
+def test_one_bit_scale_equals_jax_mean(n, k):
+    """``jnp.mean`` on the CPU sums in windows of 32 and multiplies by
+    float32(1/K); ``torch.mean`` would differ in the last bit already at
+    K = 3 (ROADMAP queue C)."""
+    w = (np.random.default_rng(4 if k == 3 else k).normal(0, 1, (n, k))
+         / np.sqrt(k)).astype(np.float32)
+    _eq(tq.quantize_weights(torch.from_numpy(w), 1).scale,
+        jq.quantize_weights(jnp.asarray(w), 1).scale)
 
 
 @pytest.mark.parametrize("bits", [1, 2, 3, 4, 8])
