@@ -6,20 +6,32 @@
 Phases, each printing its own line(s); any failure exits non-zero:
 
 1. env     torch and CUDA versions, the card's name and power limit.
-2. build   the five MVU kernels from ``src/repro_torch/kernels/csrc/``:
-           one nvcc per source, all started together.
+2. build   the six kernels from ``src/repro_torch/kernels/csrc/`` (five
+           sources): one nvcc per source, all started together.
 3. kernel  ``mvu_int`` against ``mvu_int_plain`` on the card at every
-           (N, K) of the NID path, M in {1, 3, 128, 4096}, all three
-           epilogues, 2-bit and full-int8 weights: exact equality.  Device
+           (N, K) of the NID path, M in {1, 3, 128, 4096}, and at the
+           FULL CNV's dense (N, K) at M = 1 (its one image a microbatch),
+           all three epilogues, 2-bit and full-int8 weights: exact equality.  Device
            times (CUDA events, median) of the kernel, its plain version and
            a float32 ``torch.matmul`` + epilogue yardstick (``library_ms``;
            exact here since |acc| < 2^24), beside the least time the card
            needs (bytes at 3.35 TB/s or operations at the 1,979 TOP/s int8
            tensor-core peak, whichever is larger).
    kernel  the same for ``mvu_xnor``, ``mvu_binary``, ``mvu_binary_packed``
-           and ``mvu_int2_packed`` at M in {1, 128, 4096}, activations up
-           to 299 (the packed kernels narrow them to int8 with a wrap); the
-           yardstick multiplies the unpacked +/-1 or integer operands.
+           and ``mvu_int2_packed`` at M in {1, 128, 4096} (``mvu_xnor`` and
+           ``mvu_binary`` also at the CNV's dense shapes, M = 1),
+           activations up to 299 (the packed kernels narrow them to int8
+           with a wrap); the yardstick multiplies the unpacked +/-1 or
+           integer operands.  Each layer is timed with its own epilogue:
+           thresholds (as many as its variant's activation levels) or, on
+           a classifier head, the scale.
+   kernel  ``conv_mvu`` against ``conv_mvu_plain`` at each of the FULL
+           CNV's six conv shapes in the three modes, at 1 and 32 images,
+           all three epilogues, plus one stride-2 / pad-1 case per mode;
+           activations up to 299 for standard and binary (the kernel
+           narrows them to int8 with a wrap).  The yardstick is
+           ``torch.nn.functional.conv2d`` in float32 (TF32 off) on the
+           +/-1 or integer operands plus the same epilogue, timed only.
 4. slice   the NID-MLP (Table 6) built on the card in each variant of the
            golden file (2-bit standard, xnor, binary, packed binary,
            packed 2-bit standard); ``acc(x)`` on ``nid.make_dataset(4096,
@@ -28,6 +40,13 @@ Phases, each printing its own line(s); any failure exits non-zero:
            before it, must launch the variant's kernel exactly
            4 x n_micro times and no other kernel; flows/s at batch 4096
            (and 65536 for the standard variant), host clock, synchronised.
+   slice   the FULL CNV built on the card in each variant of its golden
+           file (xnor W1A1, binary A2, standard W2A2); ``acc(x)`` on the
+           golden batch of numpy-seeded images must equal
+           ``acc.interpret(x)`` and the golden digest, and must launch
+           ``conv_mvu`` exactly 6 x n_micro times, the variant's dense
+           kernel 3 x n_micro times and nothing else; images/s at batch
+           256 and the build seconds.
 5. the kernels JSON line, the card's ``nvidia-smi`` line, and last the
    result line ``{"ok": true, "device": {...}}``.
 
@@ -59,7 +78,11 @@ KERNELS = {
     "mvu_binary": (CSRC + "mvu_binary.cu", "src/repro/kernels/mvu_binary.py:60"),
     "mvu_binary_packed": (CSRC + "mvu_packed.cu", "src/repro/kernels/mvu_packed.py:124"),
     "mvu_int2_packed": (CSRC + "mvu_packed.cu", "src/repro/kernels/mvu_packed.py:250"),
+    "conv_mvu": (CSRC + "conv_mvu.cu", "src/repro/kernels/swu_mvu.py:139"),
 }
+CONV_IMAGES = (1, 32)
+CNV_DENSE_M = 1  # images a CNV microbatch: the dense layers' M on that path
+CNV_BATCH = 256  # images per acc(x) for the images/s line
 
 
 def check(cond: bool, msg: str) -> None:
@@ -138,16 +161,90 @@ def new_kernel_case(name, m, n, k, g, dev):
     return fn, plain, args, a_f.to(dev), w_f.to(dev), nbytes
 
 
+def conv_shapes(spec) -> list[tuple[int, int, int]]:
+    """(H = W, C, N) of each 3x3 / stride 1 / pad 0 conv layer of a CNV spec."""
+    shapes, size, cin = [], spec.image, 3
+    for i, cout in enumerate(spec.channels):
+        shapes.append((size, cin, cout))
+        size, cin = size - 2, cout
+        if i in spec.pool_after:
+            size //= 2
+    return shapes
+
+
+def dense_shapes(spec) -> list[tuple[int, int]]:
+    """(N, K) of each dense layer of a CNV spec, the flattened last conv
+    output first."""
+    h, _, _ = conv_shapes(spec)[-1]
+    k = (h - 2) ** 2 * spec.channels[-1]
+    shapes = []
+    for n in spec.fc:
+        shapes.append((n, k))
+        k = n
+    return shapes
+
+
+def conv_case(mode, b, h, c, n, kd, g, dev, hi=300):
+    """Operands of one ``conv_mvu`` launch on a (b, h, h, c) image:
+    ``(x, w, x_f, w_f, nbytes)`` -- the image (int32; {0,1} for xnor,
+    [-8, hi) otherwise), the mode's weight storage, the float32 NCHW image
+    and (N, C, kd, kd) weights the yardstick convolves (the int8-narrowed
+    or +/-1 values the kernel multiplies), and the bytes the launch must
+    read (image and weights)."""
+    import torch
+
+    from repro_torch.kernels import packing
+    from repro_torch.kernels._common import narrow_int8
+
+    k = kd * kd * c
+    if mode == "xnor":
+        x = torch.randint(0, 2, (b, h, h, c), generator=g, dtype=torch.int32)
+        x_f = 2 * x.float() - 1
+    else:
+        x = torch.randint(-8, hi, (b, h, h, c), generator=g, dtype=torch.int32)
+        x_f = narrow_int8(x).float()
+    if mode == "standard":
+        w = torch.randint(-2, 2, (n, k), generator=g, dtype=torch.int8)
+        w_f = w.float()
+    else:
+        w = torch.randint(0, 2, (n, k), generator=g, dtype=torch.int8)
+        w_f = 2 * w.float() - 1
+        if mode == "xnor":
+            w = packing.pack_bits(w)
+    nbytes = 4 * x.numel() + w.numel() * w.element_size()
+    w_f = w_f.reshape(n, kd, kd, c).permute(0, 3, 1, 2).contiguous()
+    return (x.to(dev), w.to(dev), x_f.permute(0, 3, 1, 2).contiguous().to(dev),
+            w_f.to(dev), nbytes)
+
+
 def main() -> int:
     import torch
 
+    import torch.nn.functional as F
+
     from repro_torch.build import build
-    from repro_torch.configs import nid_mlp
+    from repro_torch.configs import cnv_bnn, golden as golden_mod, nid_mlp
     from repro_torch.data import nid
     from repro_torch.kernels import _cuda, ops
-    from repro_torch.kernels import mvu_int as K
+    from repro_torch.kernels import mvu_int as K, swu_mvu as C
 
     path_nk = sorted({(n, k) for k, n, _, _ in nid_mlp.LAYERS}, reverse=True)
+    cnv_golden = cnv_bnn.load_golden()
+    cnv_dense = dense_shapes(cnv_bnn.FULL)
+
+    def dense_cases(name: str, ms) -> list[tuple[int, int, int, int]]:
+        """(M, N, K, T) of each timed launch of a dense kernel: the NID layers
+        at every M of ``ms`` (T = 3 thresholds; the 1-wide head takes the
+        scale, T = 0), then, for the CNV variant that runs the kernel, its
+        dense layers at M = CNV_DENSE_M (T = 2^act_bits - 1; the
+        classifier head takes the scale)."""
+        cases = [(m, n, k, 3 if n > 1 else 0) for n, k in path_nk for m in ms]
+        for gd in cnv_golden.values():
+            if ops.kernel_name(gd["build"]["mode"]) == name:
+                t = 2 ** gd["build"]["act_bits"] - 1
+                cases += [(CNV_DENSE_M, n, k, t if i < len(cnv_dense) - 1 else 0)
+                          for i, (n, k) in enumerate(cnv_dense)]
+        return cases
 
     # ------------------------------------------------------------ 1. env
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False: no card")
@@ -156,7 +253,11 @@ def main() -> int:
         check=True, capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
     kind = torch.cuda.get_device_name(0)
     print(f"env: torch {torch.__version__}, CUDA {torch.version.cuda}, {smi}", flush=True)
-    torch.backends.cuda.matmul.allow_tf32 = False  # the yardstick matmul in full float32
+    # the yardsticks in full float32: cuDNN convolutions default to TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print("env: torch.backends.cuda.matmul.allow_tf32 = False, "
+          "torch.backends.cudnn.allow_tf32 = False (float32 yardsticks)", flush=True)
 
     # ---------------------------------------------------------- 2. build
     t0 = time.perf_counter()
@@ -176,27 +277,64 @@ def main() -> int:
     def err(got, want):
         return (got.double() - want.double()).abs().max().item() if got.numel() else 0.0
 
-    for n, k in path_nk:
-        thr = torch.sort(torch.randint(-300, 300, (n, 3), generator=g, dtype=torch.int32),
-                         dim=1).values.to(dev)
+    for m, n, k, n_thr in dense_cases("mvu_int", KERNEL_MS):
+        thr = torch.sort(torch.randint(-300, 300, (n, n_thr or 3), generator=g,
+                                       dtype=torch.int32), dim=1).values.to(dev)
         scale = (torch.rand(n, generator=g) + 0.01).to(dev)
-        for m in KERNEL_MS:
-            a = torch.randint(0, 4, (m, k), generator=g, dtype=torch.int32).to(dev)
-            for lo, hi in ((-1, 2), (-128, 128)):
-                w = torch.randint(lo, hi, (n, k), generator=g, dtype=torch.int8).to(dev)
-                for t, s in ((None, None), (thr, None), (None, scale)):
-                    got = K.mvu_int(a, w, t, s)
-                    want = K.mvu_int_plain(a, w, t, s)
-                    torch.cuda.synchronize()
-                    check(got.dtype == want.dtype and torch.equal(got, want),
-                          f"mvu_int != mvu_int_plain at M={m} N={n} K={k} "
-                          f"w in [{lo},{hi}) thresholds={t is not None} scale={s is not None}")
-                    max_err["mvu_int"] = max(max_err["mvu_int"], err(got, want))
-                    n_checked += 1
-            # time the layer as the path runs it: 2-bit weights, its own epilogue
-            w = torch.randint(-1, 2, (n, k), generator=g, dtype=torch.int8).to(dev)
-            t, s = (thr, None) if n > 1 else (None, scale)
-            af, wf = a.float(), w.float()
+        a = torch.randint(0, 4, (m, k), generator=g, dtype=torch.int32).to(dev)
+        for lo, hi in ((-1, 2), (-128, 128)):
+            w = torch.randint(lo, hi, (n, k), generator=g, dtype=torch.int8).to(dev)
+            for t, s in ((None, None), (thr, None), (None, scale)):
+                got = K.mvu_int(a, w, t, s)
+                want = K.mvu_int_plain(a, w, t, s)
+                torch.cuda.synchronize()
+                check(got.dtype == want.dtype and torch.equal(got, want),
+                      f"mvu_int != mvu_int_plain at M={m} N={n} K={k} "
+                      f"w in [{lo},{hi}) thresholds={t is not None} scale={s is not None}")
+                max_err["mvu_int"] = max(max_err["mvu_int"], err(got, want))
+                n_checked += 1
+        # time the layer as the path runs it: 2-bit weights, its own epilogue
+        w = torch.randint(-1, 2, (n, k), generator=g, dtype=torch.int8).to(dev)
+        t, s = (thr, None) if n_thr else (None, scale)
+        af, wf = a.float(), w.float()
+        tf = None if t is None else t.float()
+
+        def library(af=af, wf=wf, tf=tf, s=s):
+            c = torch.matmul(af, wf.T)
+            return ((c[:, :, None] >= tf[None]).sum(-1, dtype=torch.int32)
+                    if tf is not None else c * s)
+
+        check(torch.equal(library(), K.mvu_int(a, w, t, s)),
+              f"the float32 yardstick disagrees with the kernel at M={m} N={n} K={k}")
+        kms = device_ms(lambda: K.mvu_int(a, w, t, s), reps=100)
+        pms = device_ms(lambda: K.mvu_int_plain(a, w, t, s), reps=10)
+        lms = device_ms(library, reps=100)
+        bms, bby = bound(m, n, k, t.numel() * 4 if t is not None else s.numel() * 4)
+        timing[("mvu_int", m, n, k)] = (kms, pms, lms, bms, bby)
+        print(f"kernel: mvu_int M={m} N={n} K={k} "
+              f"{f'{n_thr} thresholds' if t is not None else 'scale'}: "
+              f"ms={kms:.5f} plain_ms={pms:.5f} library_ms={lms:.5f} "
+              f"bound_ms={bms:.6f} ({bby})", flush=True)
+    print(f"kernel: mvu_int: {n_checked} checks equal to the plain version, "
+          f"max_abs_err={max_err['mvu_int']}", flush=True)
+
+    for name in ("mvu_xnor", "mvu_binary", "mvu_binary_packed", "mvu_int2_packed"):
+        n_checked = 0
+        for m, n, k, n_thr in dense_cases(name, NEW_KERNEL_MS):
+            thr = torch.sort(torch.randint(-300 * k, 300 * k, (n, n_thr or 3), generator=g,
+                                           dtype=torch.int32), dim=1).values.to(dev)
+            scale = (torch.rand(n, generator=g) + 0.01).to(dev)
+            fn, plain, args, af, wf, nbytes = new_kernel_case(name, m, n, k, g, dev)
+            for t, s in ((None, None), (thr, None), (None, scale)):
+                got = fn(*args, t, s)
+                want = plain(*args, t, s)
+                torch.cuda.synchronize()
+                check(got.dtype == want.dtype and torch.equal(got, want),
+                      f"{name} != its plain version at M={m} N={n} K={k} "
+                      f"thresholds={t is not None} scale={s is not None}")
+                max_err[name] = max(max_err[name], err(got, want))
+                n_checked += 1
+            t, s = (thr, None) if n_thr else (None, scale)
             tf = None if t is None else t.float()
 
             def library(af=af, wf=wf, tf=tf, s=s):
@@ -204,59 +342,69 @@ def main() -> int:
                 return ((c[:, :, None] >= tf[None]).sum(-1, dtype=torch.int32)
                         if tf is not None else c * s)
 
-            check(torch.equal(library(), K.mvu_int(a, w, t, s)),
-                  f"the float32 yardstick disagrees with the kernel at M={m} N={n} K={k}")
-            kms = device_ms(lambda: K.mvu_int(a, w, t, s), reps=100)
-            pms = device_ms(lambda: K.mvu_int_plain(a, w, t, s), reps=10)
+            check(torch.equal(library(), fn(*args, t, s)),
+                  f"the float32 yardstick disagrees with {name} at M={m} N={n} K={k}")
+            kms = device_ms(lambda: fn(*args, t, s), reps=100)
+            pms = device_ms(lambda: plain(*args, t, s), reps=10)
             lms = device_ms(library, reps=100)
-            bms, bby = bound(m, n, k, t.numel() * 4 if t is not None else s.numel() * 4)
-            timing[("mvu_int", m, n, k)] = (kms, pms, lms, bms, bby)
-            print(f"kernel: mvu_int M={m} N={n} K={k} "
-                  f"{'thresholds' if t is not None else 'scale'}: "
+            bms, bby = bound_of(nbytes + (t.numel() if t is not None else n) * 4
+                                + m * n * 4, 2 * m * n * k)
+            timing[(name, m, n, k)] = (kms, pms, lms, bms, bby)
+            print(f"kernel: {name} M={m} N={n} K={k} "
+                  f"{f'{n_thr} thresholds' if t is not None else 'scale'}: "
                   f"ms={kms:.5f} plain_ms={pms:.5f} library_ms={lms:.5f} "
                   f"bound_ms={bms:.6f} ({bby})", flush=True)
-    print(f"kernel: mvu_int: {n_checked} checks equal to the plain version, "
-          f"max_abs_err={max_err['mvu_int']}", flush=True)
-
-    for name in ("mvu_xnor", "mvu_binary", "mvu_binary_packed", "mvu_int2_packed"):
-        n_checked = 0
-        for n, k in path_nk:
-            thr = torch.sort(torch.randint(-300 * k, 300 * k, (n, 3), generator=g,
-                                           dtype=torch.int32), dim=1).values.to(dev)
-            scale = (torch.rand(n, generator=g) + 0.01).to(dev)
-            for m in NEW_KERNEL_MS:
-                fn, plain, args, af, wf, nbytes = new_kernel_case(name, m, n, k, g, dev)
-                for t, s in ((None, None), (thr, None), (None, scale)):
-                    got = fn(*args, t, s)
-                    want = plain(*args, t, s)
-                    torch.cuda.synchronize()
-                    check(got.dtype == want.dtype and torch.equal(got, want),
-                          f"{name} != its plain version at M={m} N={n} K={k} "
-                          f"thresholds={t is not None} scale={s is not None}")
-                    max_err[name] = max(max_err[name], err(got, want))
-                    n_checked += 1
-                t, s = (thr, None) if n > 1 else (None, scale)
-                tf = None if t is None else t.float()
-
-                def library(af=af, wf=wf, tf=tf, s=s):
-                    c = torch.matmul(af, wf.T)
-                    return ((c[:, :, None] >= tf[None]).sum(-1, dtype=torch.int32)
-                            if tf is not None else c * s)
-
-                check(torch.equal(library(), fn(*args, t, s)),
-                      f"the float32 yardstick disagrees with {name} at M={m} N={n} K={k}")
-                kms = device_ms(lambda: fn(*args, t, s), reps=100)
-                pms = device_ms(lambda: plain(*args, t, s), reps=10)
-                lms = device_ms(library, reps=100)
-                bms, bby = bound_of(nbytes + (t.numel() if t is not None else n) * 4
-                                    + m * n * 4, 2 * m * n * k)
-                timing[(name, m, n, k)] = (kms, pms, lms, bms, bby)
-                print(f"kernel: {name} M={m} N={n} K={k} "
-                      f"{'thresholds' if t is not None else 'scale'}: "
-                      f"ms={kms:.5f} plain_ms={pms:.5f} library_ms={lms:.5f} "
-                      f"bound_ms={bms:.6f} ({bby})", flush=True)
         print(f"kernel: {name}: {n_checked} checks equal to the plain version, "
               f"max_abs_err={max_err[name]}", flush=True)
+
+
+    # conv_mvu at the FULL CNV's six conv shapes, three modes, 1 and 32 images
+    n_checked = 0
+    cnv_shapes = conv_shapes(cnv_bnn.FULL)
+    for mode in C.MODES:
+        cases = [(b, h, c, n, 1, 0) for h, c, n in cnv_shapes for b in CONV_IMAGES]
+        cases.append((2, 9, 16, 24, 2, 1))  # stride 2, pad 1: pad taps (xnor: -1)
+        for b, h, c, n, stride, pad in cases:
+            kd = 3
+            k = kd * kd * c
+            x, w, x_f, w_f, nbytes = conv_case(mode, b, h, c, n, kd, g, dev)
+            thr = torch.sort(torch.randint(-8 * k, 8 * k, (n, 3), generator=g,
+                                           dtype=torch.int32), dim=1).values.to(dev)
+            scale = (torch.rand(n, generator=g) + 0.01).to(dev)
+            geo = dict(kernel=kd, stride=stride, pad=pad, mode=mode)
+            for t, s in ((None, None), (thr, None), (None, scale)):
+                got = C.conv_mvu(x, w, t, s, **geo)
+                want = C.conv_mvu_plain(x, w, t, s, **geo)
+                torch.cuda.synchronize()
+                check(got.dtype == want.dtype and torch.equal(got, want),
+                      f"conv_mvu != conv_mvu_plain ({mode}) at B={b} H=W={h} C={c} N={n} "
+                      f"stride={stride} pad={pad} thresholds={t is not None} "
+                      f"scale={s is not None}")
+                max_err["conv_mvu"] = max(max_err["conv_mvu"], err(got, want))
+                n_checked += 1
+            if pad:
+                continue
+            # time the layer as the path runs it: the threshold epilogue.  The
+            # yardstick is timed only: cuDNN may pick a Winograd or FFT
+            # algorithm, whose float32 rounding is not exact here
+            tf = thr.float()
+
+            def library(x_f=x_f, w_f=w_f, tf=tf, b=b, n=n):
+                c_ = F.conv2d(x_f, w_f).permute(0, 2, 3, 1).reshape(b, -1, n)
+                return (c_[..., None] >= tf).sum(-1, dtype=torch.int32)
+
+            kms = device_ms(lambda: C.conv_mvu(x, w, thr, **geo), reps=50)
+            pms = device_ms(lambda: C.conv_mvu_plain(x, w, thr, **geo),
+                            reps=10 if b == 1 else 2, trials=3)
+            lms = device_ms(library, reps=50)
+            m = b * (h - 2) * (h - 2)
+            bms, bby = bound_of(nbytes + thr.numel() * 4 + m * n * 4, 2 * m * n * k)
+            timing[("conv_mvu", mode, b, h, c, n)] = (kms, pms, lms, bms, bby)
+            print(f"kernel: conv_mvu {mode} B={b} H=W={h} C={c} N={n} K={k} thresholds: "
+                  f"ms={kms:.5f} plain_ms={pms:.5f} library_ms={lms:.5f} "
+                  f"bound_ms={bms:.6f} ({bby})", flush=True)
+    print(f"kernel: conv_mvu: {n_checked} checks equal to the plain version, "
+          f"max_abs_err={max_err['conv_mvu']}", flush=True)
 
     # ---------------------------------------------------------- 4. slice
     golden = nid_mlp.load_golden()
@@ -287,9 +435,8 @@ def main() -> int:
               f"{tuple(y.shape)}")
         check(torch.equal(y, acc.interpret(x)), f"{variant}: acc(x) differs from "
               "acc.interpret(x)")
-        meta = {k: gd[k] for k in nid_mlp.GOLDEN_META}
-        check(nid_mlp.golden_digest(y.cpu().numpy(), nid_mlp.graph_layers(acc.graph), **meta)
-              == gd, f"{variant}: the card's NID output differs from the JAX package's "
+        check(golden_mod.digest_like(gd, y.cpu().numpy(), acc.graph) == gd,
+              f"{variant}: the card's NID output differs from the JAX package's "
               "golden digest")
         print(f"slice: {variant}: acc(x) at batch {batch} equals acc.interpret(x) and the "
               f"golden digest; {counts[kernel]} {kernel} launches = 4 x n_micro="
@@ -309,19 +456,90 @@ def main() -> int:
             print(f"slice: {variant}: batch {b}: {b / med:.1f} flows/s (median of 7 "
                   f"acc(x), {med * 1e3:.3f} ms)", flush=True)
 
+    # the FULL CNV in each golden variant
+    cnv_runs = {}  # variant -> (mode, dense kernel, n_micro, its launch counts)
+    for variant, gd in sorted(cnv_golden.items()):
+        kw = gd["build"]
+        dense = ops.kernel_name(kw["mode"])
+        t0 = time.perf_counter()
+        acc = build(cnv_bnn.build_graph(cnv_bnn.spec_for(kw), seed=gd["seed"]),
+                    target="engine", tune="off", device="cuda", **kw)
+        torch.cuda.synchronize()
+        print(f"slice: cnv {variant} {kw}: built {acc.report.step_names} in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        batch = gd["batch"]
+        x = torch.from_numpy(cnv_bnn.images(batch, kw["act_bits"], gd["data_seed"])).to(dev)
+        cplan = acc.plan(batch)
+        check(cplan.microbatch == CNV_DENSE_M, f"cnv {variant}: {cplan.microbatch} images "
+              f"a microbatch, but the dense kernels were checked at M={CNV_DENSE_M}")
+        ops.reset_launch_counts()
+        y = acc(x)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        want = {k: 0 for k in counts}
+        want["conv_mvu"], want[dense] = 6 * cplan.n_micro, 3 * cplan.n_micro
+        check(counts == want, f"cnv {variant}: acc(x) launched {counts}, want conv_mvu "
+              f"6 x {cplan.n_micro} and {dense} 3 x {cplan.n_micro} times and nothing else")
+        cnv_runs[variant] = (kw["mode"], dense, cplan.n_micro, counts)
+        check(y.is_cuda and y.dtype == torch.float32 and tuple(y.shape) == (batch, 10)
+              and bool(torch.isfinite(y).all()), f"cnv {variant}: bad output {y.dtype} "
+              f"{tuple(y.shape)}")
+        check(torch.equal(y, acc.interpret(x)), f"cnv {variant}: acc(x) differs from "
+              "acc.interpret(x)")
+        check(golden_mod.digest_like(gd, y.cpu().numpy(), acc.graph) == gd,
+              f"cnv {variant}: the card's CNV output differs from the JAX package's "
+              "golden digest")
+        print(f"slice: cnv {variant}: acc(x) at batch {batch} equals acc.interpret(x) and "
+              f"the golden digest; {counts['conv_mvu']} conv_mvu launches = 6 x n_micro="
+              f"{cplan.n_micro}, {counts[dense]} {dense} = 3 x n_micro, no other kernel",
+              flush=True)
+        xb = torch.from_numpy(cnv_bnn.images(CNV_BATCH, kw["act_bits"], gd["data_seed"])).to(dev)
+        for _ in range(2):
+            acc(xb)
+        torch.cuda.synchronize()
+        secs = []
+        for _ in range(7):
+            t0 = time.perf_counter()
+            acc(xb)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        med = statistics.median(secs)
+        print(f"slice: cnv {variant}: batch {CNV_BATCH}: {CNV_BATCH / med:.1f} images/s "
+              f"(median of 7 acc(x), {med * 1e3:.3f} ms; n_micro="
+              f"{acc.plan(CNV_BATCH).n_micro})", flush=True)
+
     # -------------------------------------------------------- 5. results
     mb = plan.microbatch
     lines = []
     for name, (source, replaces) in KERNELS.items():
-        # one acc(x) launches each layer once per microbatch, at M = microbatch
-        rows = [timing[(name, mb, n, k)] for k, n, _, _ in nid_mlp.LAYERS]
-        per_acc = [plan.n_micro * sum(r[i] for r in rows) for i in range(4)]
+        if name == "conv_mvu":
+            # the three CNV acc(x) runs: each launches every conv layer once
+            # per microbatch of one image, in its variant's mode
+            rows = [timing[("conv_mvu", mode, 1, h, c, n)] for mode, _, n_micro, _ in
+                    cnv_runs.values() for h, c, n in cnv_shapes for _ in range(n_micro)]
+            n_launches = sum(r[3]["conv_mvu"] for r in cnv_runs.values())
+        else:
+            # one NID acc(x) launches each layer once per microbatch, at
+            # M = microbatch; the CNV acc(x) of the variant that runs this
+            # kernel (if one does) each dense layer once per image
+            rows = [timing[(name, mb, n, k)] for k, n, _, _ in nid_mlp.LAYERS] * plan.n_micro
+            n_launches = launches[name]
+            for _, dense, n_micro, counts in cnv_runs.values():
+                if dense == name:
+                    rows += [timing[(name, CNV_DENSE_M, n, k)] for n, k in cnv_dense] * n_micro
+                    n_launches += counts[name]
+        per_acc = [sum(r[i] for r in rows) for i in range(4)]
         lines.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": max_err[name],
+            "launches": n_launches, "max_abs_err": max_err[name],
             "ms": per_acc[0], "plain_ms": per_acc[1], "library_ms": per_acc[2],
             "bound_ms": per_acc[3],
             "bound_by": "bytes" if all(r[4] == "bytes" for r in rows) else "operations"})
+    for variant, (mode, dense, _, _) in sorted(cnv_runs.items()):
+        conv_ms = sum(timing[("conv_mvu", mode, 1, h, c, n)][0] for h, c, n in cnv_shapes)
+        dense_ms = sum(timing[(dense, CNV_DENSE_M, n, k)][0] for n, k in cnv_dense)
+        print(f"slice: cnv {variant}: kernel time per image (the per-launch medians): "
+              f"conv_mvu {conv_ms:.5f} ms, {dense} {dense_ms:.5f} ms", flush=True)
     print(json.dumps({"kernels": lines}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -10,7 +10,7 @@ of the JAX package's ``benchmarks/packed_gain.py`` -- builds
 ``repro.configs.nid_mlp.build_graph(SEED)`` with the JAX package at
 Table 6 folding, runs ``nid.make_dataset(BATCH, seed=DATA_SEED)`` through
 the fused engine, and digests the float32 output plus every MVU layer's
-weight storage, thresholds and scale (``repro_torch.configs.nid_mlp.
+weight storage, thresholds and scale (``repro_torch.configs.golden.
 golden_digest``).  The result is ``src/repro_torch/configs/
 nid_mlp_golden.json``, ``{variant: digest}`` with each variant's build
 kwargs inside its digest; ``tests/test_torch_golden.py`` and
@@ -42,7 +42,7 @@ def jax_digest(build_kwargs: dict) -> dict:
     from repro.build import build
     from repro.configs import nid_mlp
     from repro.data import nid
-    from repro_torch.configs.nid_mlp import golden_digest
+    from repro_torch.configs.golden import golden_digest
 
     acc = build(nid_mlp.build_graph(SEED), target="engine", tune="off",
                 folding=nid_mlp.foldings(), **build_kwargs)

@@ -260,9 +260,10 @@ def _localize_divergence(state: BuildState, graph: Graph) -> tuple:
     (``dataflow.trace``, on the graph's device) and walks the current graph
     in dataflow order comparing each node's stream against the reference
     activation it must reproduce -- fused nodes against the last epilogue
-    node they absorbed (``attrs["fused"]``).  Returns ``(detail_suffix,
-    node_name, branch)``; all empty when localization itself fails (the
-    step-level error still raises).
+    node they absorbed (``attrs["fused"]``), conv_mvu nodes against their
+    pre-``fuse_swu`` MVU.  Returns ``(detail_suffix, node_name, branch)``;
+    all empty when localization itself fails (the step-level error still
+    raises).
     """
     try:
         ref_env = dataflow.trace(state.ref_graph, state.probe)
@@ -279,6 +280,8 @@ def _localize_divergence(state: BuildState, graph: Graph) -> tuple:
         if fused:
             cands.append(fused[-1])
         cands.append(node.name)
+        if ".conv_mvu" in node.name:
+            cands.append(node.name.replace(".conv_mvu", ".mvu"))
         want = next((ref_env[c] for c in cands if c in ref_env), None)
         got = got_env.get(node.name)
         if want is None or got is None:
@@ -299,7 +302,7 @@ def _graph_device(graph: Graph) -> torch.device:
 
 
 def _executable(graph: Graph) -> bool:
-    """Can ``dataflow.execute`` run this graph? (no float linear left,
+    """Can ``dataflow.execute`` run this graph? (no float conv/linear left,
     every MVU finalized)."""
     for n in graph:
         if n.op in ("conv", "linear"):

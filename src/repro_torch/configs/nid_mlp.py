@@ -7,7 +7,7 @@ Layers (IFMch -> OFMch, PE, SIMD): 600->64 (64,50), 64->64 (16,32),
 ``build_graph`` draws the same numpy values in the same order as the JAX
 package's ``configs/nid_mlp.py``, so both packages start from identical
 float weights.  ``GOLDEN`` names the file of the JAX package's output
-digests for one fixed input (``golden_digest`` computes one), a digest per
+digests for one fixed input (``configs/golden.py`` computes one), a digest per
 build variant -- the paper's 2-bit standard datapath and the Fig. 4
 binarized and packed ones -- each beside its build kwargs.  The tests and
 ``chip_smoke.py`` read the variants from there and hold the port to them.
@@ -15,7 +15,6 @@ binarized and packed ones -- each beside its build kwargs.  The tests and
 
 from __future__ import annotations
 
-import hashlib
 import json
 import os
 
@@ -62,48 +61,6 @@ def build_graph(seed: int = 0) -> Graph:
             g.append(Node("quant_act", f"act{i}",
                           {"bits": INPUT_BITS, "act_scale": 1.0}))
     return g
-
-
-def _sha256(a: np.ndarray) -> str:
-    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
-
-
-def golden_digest(output: np.ndarray, layers: dict[str, dict[str, np.ndarray]],
-                  **meta) -> dict:
-    """The digest of one NID run: sha256 of the float32 output bytes, its
-    first 8 values, and per MVU layer the sha256 of its weight storage
-    (int8 rows, 32-bit words or uint8 lanes: the bytes, the same in both
-    packages) and, where it has them, its thresholds and out_scale.
-    ``meta`` (seed, batch, build kwargs) is recorded as given."""
-    out = np.asarray(output)
-    if out.dtype != np.float32:
-        raise ValueError(f"NID output must be float32, got {out.dtype}")
-    digest = {**meta, "output_shape": list(out.shape),
-              "output_sha256": _sha256(out),
-              "first8": [float(v) for v in out.reshape(-1)[:8]],
-              "layers": {}}
-    for name, arrays in layers.items():
-        digest["layers"][name] = {
-            f"{k}_sha256": _sha256(np.asarray(v)) for k, v in arrays.items()
-            if v is not None}
-    return digest
-
-
-def graph_layers(graph) -> dict[str, dict[str, np.ndarray | None]]:
-    """Per MVU node of a built port graph, its integer weights, thresholds
-    and out_scale as numpy arrays (None where absent): ``golden_digest``'s
-    ``layers``."""
-    def host(t):
-        return None if t is None else t.cpu().numpy()
-
-    return {n.name: {"weights": host(n.params["mvu"].weights),
-                     "thresholds": host(n.params["mvu"].thresholds),
-                     "out_scale": host(n.params["mvu"].out_scale)}
-            for n in graph if n.op == "mvu"}
-
-
-# the keys of a digest that say how it was made (besides the output)
-GOLDEN_META = ("seed", "data_seed", "batch", "build")
 
 
 def load_golden() -> dict[str, dict]:

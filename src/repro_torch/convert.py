@@ -6,7 +6,9 @@
      "params": {name: np.ndarray}}
 
 and returns the port's :class:`~repro_torch.core.ir.Graph` with every array
-as a tensor on ``device``.  For a lowered node, ``params["mvu"]`` is a dict
+as a tensor on ``device``: a raw ``conv`` node's (Kd, Kd, Cin, Cout) float
+weights and its kernel/stride/pad, a ``maxpool``'s size, as they come.  For
+a lowered node (``mvu``, ``conv_mvu``), ``params["mvu"]`` is a dict
 of ``weights`` / ``thresholds`` / ``out_scale`` arrays (None where absent)
 and ``attrs["config"]`` a dict of :class:`MVUConfig` fields, ``folding`` as
 ``{"pe", "simd"}``.  A tuned kernel tile (``blocks``) must be None: the

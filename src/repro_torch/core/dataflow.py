@@ -14,11 +14,11 @@ import dataclasses
 
 import torch
 
-from repro_torch.core import ir
+from repro_torch.core import ir, swu as swu_mod
 from repro_torch.core.ir import Graph
 from repro_torch.core.mvu import MVUConfig, MVULayer, MVUParams
 from repro_torch.core.resource_model import NOMINAL_CLOCK_HZ, MVUResources
-from repro_torch.kernels import packing
+from repro_torch.kernels import ops, packing
 
 
 @dataclasses.dataclass
@@ -172,10 +172,44 @@ def node_runner(node):
             return opf(a2 * sa, b2 * sb)
 
         return None, run_eltwise
-    if node.op in ("swu", "conv_mvu", "maxpool"):
-        raise NotImplementedError(
-            f"{ir.describe(node)}: conv graphs come with the CNV slice "
-            "(ROADMAP queue B row 4)")
+    if node.op == "swu":
+        kd, st, pd = node.attrs["kernel"], node.attrs["stride"], node.attrs["pad"]
+
+        def run_swu(p, x):
+            # keep the spatial layout so conv stages chain: (B, OH, OW, K)
+            b, h, w, _ = x.shape
+            cols = swu_mod.sliding_window(x, kd, st, pd)  # (B, P, K)
+            return cols.reshape(b, swu_mod.out_dim(h, kd, st, pd),
+                                swu_mod.out_dim(w, kd, st, pd), cols.shape[-1])
+
+        return None, run_swu
+    if node.op == "conv_mvu":
+        cfg: MVUConfig = node.attrs["config"]
+        kd, st, pd = node.attrs["kernel"], node.attrs["stride"], node.attrs["pad"]
+
+        def run_conv(p, x):
+            b, h, w, _ = x.shape
+            out = ops.conv_mvu(
+                x, p.weights, kernel=kd, stride=st, pad=pd, mode=cfg.mode,
+                k_bits=cfg.in_features if cfg.mode == "xnor" else None,
+                thresholds=p.thresholds, out_scale=p.out_scale, backend=cfg.backend,
+            )  # (B, OH*OW, N)
+            return out.reshape(b, swu_mod.out_dim(h, kd, st, pd),
+                               swu_mod.out_dim(w, kd, st, pd), cfg.out_features)
+
+        return node.params["mvu"], run_conv
+    if node.op == "maxpool":
+        size = node.attrs["size"]
+        st = node.attrs.get("stride", size)
+
+        def run_pool(p, x):
+            # VALID windows (a ragged edge is dropped), as the JAX package's
+            # reduce_window; amax over the window views needs no init value,
+            # so integer streams stay exact on every device
+            win = x.unfold(1, size, st).unfold(2, size, st)  # (B, OH, OW, C, s, s)
+            return win.amax(dim=(-2, -1))
+
+        return None, run_pool
     if node.op == "flatten":
         return None, lambda p, x: x.reshape(x.shape[0], -1)
     if node.op == "mvu":

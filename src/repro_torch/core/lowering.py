@@ -1,9 +1,9 @@
 """Graph transformation passes: FINN's lowering + streamlining.
 
-    lower_to_mvu:   linear -> mvu (conv -> [swu, mvu] comes with CNV)
+    lower_to_mvu:   conv -> [swu, mvu];  linear -> mvu
     streamline:     [mvu, batchnorm, quant_act] -> mvu(+thresholds)
     fuse_epilogues: same fold for finalized graphs (the runtime engine path)
-    fuse_swu:       [swu, mvu] -> conv_mvu (no-op without swu nodes)
+    fuse_swu:       [swu, mvu] -> conv_mvu (line-buffer fused conv kernel)
     apply_folding:  attach rate-balanced Folding to every mvu node
     pack_weights:   bit-packed weight storage (forced, or where a node asks)
 
@@ -23,7 +23,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.core import ir
+from repro_torch.core import ir, swu as swu_mod
 from repro_torch.core.folding import balance_pipeline
 from repro_torch.core.ir import Graph, Node, validate_graph
 from repro_torch.core.mvu import MVUConfig, MVULayer, MVUParams, coded_weights
@@ -34,8 +34,6 @@ from repro_torch.core.thresholds import (
 )
 from repro_torch.kernels import packing
 from repro_torch.kernels.mvu_packed import pack_mvu_weights
-
-_CNV = "conv graphs (swu / conv_mvu) come with the CNV slice: ROADMAP queue B row 4"
 
 
 def _reroute(graph: Graph, renames: dict[str, str]) -> Graph:
@@ -61,14 +59,24 @@ def _sole_consumer(cons: dict[str, list[Node]], name: str, op: str) -> Node | No
 def lower_to_mvu(graph: Graph, *, mode: str = "standard",
                  weight_bits: int = 4, act_bits: int = 4,
                  backend: str = "cuda") -> Graph:
-    """linear -> mvu. Float weights stay attached (raw)."""
+    """conv -> swu+mvu; linear -> mvu. Float weights stay attached (raw)."""
     validate_graph(graph)
     out = Graph()
     renames: dict[str, str] = {}
     for node in ir.as_graph(graph):
         if node.op == "conv":
-            raise NotImplementedError(f"{ir.describe(node)}: {_CNV}")
-        if node.op == "linear":
+            out.append(Node("swu", node.name + ".swu", dict(node.attrs),
+                            inputs=node.inputs))
+            wm = swu_mod.pack_conv_weights(node.params["w"])  # (N, K)
+            cfg = MVUConfig(
+                in_features=wm.shape[1], out_features=wm.shape[0],
+                mode=mode, weight_bits=weight_bits, act_bits=act_bits,
+                backend=backend,
+            )
+            out.append(Node("mvu", node.name + ".mvu", {"config": cfg},
+                            {"w_float": wm}, inputs=(node.name + ".swu",)))
+            renames[node.name] = node.name + ".mvu"
+        elif node.op == "linear":
             w = node.params["w"]
             cfg = MVUConfig(
                 in_features=w.shape[1], out_features=w.shape[0],
@@ -233,12 +241,36 @@ def fuse_epilogues(graph: Graph) -> Graph:
 
 
 def fuse_swu(graph: Graph) -> Graph:
-    """Collapse ``swu -> mvu`` edges into ``conv_mvu`` nodes.  Graphs without
-    swu nodes (every graph this slice lowers) pass through unchanged."""
+    """Collapse ``swu -> mvu`` edges into one ``conv_mvu`` node.
+
+    The standalone SWU materialises the full (B, OH*OW, Kd^2*C) window
+    matrix before the MVU consumes it; the fused node streams sliding
+    windows through the line-buffer kernel (``kernels/swu_mvu.py``) instead
+    -- the runtime analog of FINN's SWU->MVU stream, where that matrix
+    never exists in memory.  Requires finalized MVU nodes (``params["mvu"]``)
+    and an SWU with a single consumer; run after :func:`finalize` /
+    :func:`fuse_epilogues`.
+    """
     g = ir.as_graph(graph)
-    if ir.find(g, "swu"):
-        raise NotImplementedError(_CNV)
-    return g
+    cons = ir.consumer_map(g)
+    drop: set[str] = set()
+    fused: dict[str, Node] = {}
+    renames: dict[str, str] = {}
+    for node in g:
+        if node.op != "swu":
+            continue
+        mvu = _sole_consumer(cons, node.name, "mvu")
+        if mvu is None or "mvu" not in mvu.params:
+            continue
+        attrs = dict(mvu.attrs)
+        for key in ("kernel", "stride", "pad"):
+            attrs[key] = node.attrs[key]
+        name = mvu.name.replace(".mvu", ".conv_mvu")
+        fused[mvu.name] = Node("conv_mvu", name, attrs, mvu.params, inputs=node.inputs)
+        drop.add(node.name)
+        renames[mvu.name] = name
+    out = Graph(fused.get(n.name, n) for n in g if n.name not in drop)
+    return _reroute(out, renames)
 
 
 def apply_folding(graph: Graph, *, target_cycles: int | None = None,
@@ -283,7 +315,9 @@ def pack_weights(graph: Graph, *, force: bool = False) -> Graph:
     binary {0,1} int8 rows -> int32 bitplanes (8x smaller), standard signed
     2-bit rows -> uint8 lanes (4x), xnor rows are already words (storage
     no-op; the flag routes ``backend="torch"`` onto the packed popcount).
-    Returns a new graph; rewritten nodes carry fresh params/attrs.
+    Conv nodes keep canonical storage: the fused line-buffer gather reads
+    unpacked rows.  Returns a new graph; rewritten nodes carry fresh
+    params/attrs.
     """
     out = Graph()
     for node in graph:

@@ -83,8 +83,9 @@ def quantize_weights(w: torch.Tensor, bits: int, axis: int | None = 0) -> QTenso
                    if axis is not None else tuple(range(w.ndim)))
     if bits == 1:
         # bipolar: scale = mean |w| per channel (XNOR-Net style); an (N, K)
-        # weight's rows are summed in the JAX reference's order.  Other
-        # layouts (conv weights) come with the CNV slice (queue B row 4).
+        # weight's rows are summed in the JAX reference's order.  Conv
+        # weights arrive here as (N, Kd^2*C) rows too (lowering packs them
+        # first); a tensor-wide or N-D mean still uses torch.mean.
         if w.ndim == 2 and axis == 0:
             scale = xla_cpu_row_mean(w.abs())
         else:

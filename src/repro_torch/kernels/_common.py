@@ -18,7 +18,7 @@ from repro_torch.core.thresholds import apply_thresholds
 # the broadcast product of a plain version stays under this many bytes
 PLAIN_CHUNK_BYTES = 1 << 28
 # activation dtypes a wrapper widens to int32 (float and int64 raise)
-_WIDEN = (torch.int8, torch.uint8, torch.int16)
+WIDEN = (torch.int8, torch.uint8, torch.int16)
 
 
 def epilogue_value(acc: torch.Tensor, thresholds: torch.Tensor | None,
@@ -68,8 +68,9 @@ def int_dot(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(M, K) x (N, K) -> (M, N) int32: products summed in int64, truncated
     to int32 (the wraparound of the kernels' and XLA's int32 sum).
 
-    CUDA has no integer matmul, so the sum is a broadcast product, chunked
-    over M to stay under ``PLAIN_CHUNK_BYTES``.
+    The CPU has an int64 matmul; CUDA has no integer matmul, so there the
+    sum is a broadcast product.  Both are chunked over M to stay under
+    ``PLAIN_CHUNK_BYTES`` (the size of the broadcast product).
     """
     m, k = a.shape
     n = w.shape[0]
@@ -77,8 +78,13 @@ def int_dot(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return torch.zeros((0, n), dtype=torch.int32, device=a.device)
     w64 = w.to(torch.int64)
     rows = max(1, PLAIN_CHUNK_BYTES // max(1, 8 * n * k))
-    acc = torch.cat([(a[i:i + rows].to(torch.int64)[:, None, :] * w64[None]).sum(-1)
-                     for i in range(0, m, rows)])
+    if a.device.type == "cpu":
+        def dot(c):
+            return c.to(torch.int64) @ w64.T
+    else:
+        def dot(c):
+            return (c.to(torch.int64)[:, None, :] * w64[None]).sum(-1)
+    acc = torch.cat([dot(a[i:i + rows]) for i in range(0, m, rows)])
     return acc.to(torch.int32)
 
 
@@ -94,8 +100,6 @@ def check_operands(name: str, a: torch.Tensor, w: torch.Tensor,
     (N, C) of ``w_dtype``, ``lanes_per_col`` synapses per column: C == K
     for one, C * lanes_per_col >= K for packed storage.
     """
-    if thresholds is not None and out_scale is not None:
-        raise ValueError("thresholds and out_scale are mutually exclusive")
     if a.ndim != 2 or w.ndim != 2:
         raise ValueError(f"{name}: need a 2-D a and w, got {tuple(a.shape)} and "
                          f"{tuple(w.shape)}")
@@ -107,11 +111,22 @@ def check_operands(name: str, a: torch.Tensor, w: torch.Tensor,
     if words:
         if a.dtype != torch.int32:
             raise TypeError(f"{name}: packed a must be int32 bit patterns, got {a.dtype}")
-    elif a.dtype != torch.int32 and a.dtype not in _WIDEN:
+    elif a.dtype != torch.int32 and a.dtype not in WIDEN:
         raise TypeError(f"{name}: a must be int32 (int8/uint8/int16 are widened), "
                         f"got {a.dtype}")
     if w.dtype != w_dtype:
         raise TypeError(f"{name}: w must be {w_dtype}, got {w.dtype}")
+    return a.to(torch.int32), check_epilogue(name, a, w, thresholds, out_scale)
+
+
+def check_epilogue(name: str, a: torch.Tensor, w: torch.Tensor,
+                   thresholds: torch.Tensor | None,
+                   out_scale: torch.Tensor | None) -> str:
+    """Validate the epilogue operand against w's N rows, and that every
+    operand is contiguous and on ``a``'s device; returns the epilogue's
+    name (``raw``, ``thresholds`` or ``scale``)."""
+    if thresholds is not None and out_scale is not None:
+        raise ValueError("thresholds and out_scale are mutually exclusive")
     n = w.shape[0]
     operands = [("a", a), ("w", w)]
     if thresholds is not None:
@@ -134,4 +149,4 @@ def check_operands(name: str, a: torch.Tensor, w: torch.Tensor,
             raise ValueError(f"{name}: {arg} is on {t.device} but a is on {a.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
-    return a.to(torch.int32), epi
+    return epi

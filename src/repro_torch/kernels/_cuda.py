@@ -9,13 +9,15 @@ The library's name carries a hash of those files and the flags, so an
 edited source never loads a stale build.
 :func:`build_all` starts one ``nvcc`` per source at once.
 
-Every kernel exports one C function of the same shape::
+Every MVU kernel exports one C function of the same shape::
 
     int repro_<kernel>(const void* a, const void* w, const void* thr,
                        const void* scale, void* out, int m, int n, int k,
                        int w_cols, int n_thr, int epilogue, void* stream)
 
-and returns the launch's CUDA error code.  Importing this module builds
+(:meth:`Library.launch`); the conv kernel's takes the image geometry
+instead (``kernels/swu_mvu.py``, through :meth:`Library.run`).  Each
+returns the launch's CUDA error code.  Importing this module builds
 nothing and imports nothing CUDA-only.
 """
 
@@ -62,9 +64,11 @@ def _nvcc() -> str:
 class Library:
     """One kernel source's shared library: its path, build and C functions."""
 
-    def __init__(self, source: str, functions: tuple[str, ...]):
+    def __init__(self, source: str, functions: tuple[str, ...],
+                 argtypes: list = _ARGTYPES):
         self.source = source
         self.functions = functions
+        self.argtypes = argtypes
         self._lib = None
         self._lock = threading.Lock()
 
@@ -109,7 +113,7 @@ class Library:
             if self._lib is None:
                 lib = ctypes.CDLL(self.build())
                 for fn in self.functions:
-                    getattr(lib, fn).argtypes = _ARGTYPES
+                    getattr(lib, fn).argtypes = self.argtypes
                     getattr(lib, fn).restype = ctypes.c_int
                 lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
                 lib.repro_cuda_error_string.restype = ctypes.c_char_p
@@ -133,19 +137,27 @@ class Library:
                           device=a.device)
         if m == 0 or n == 0:
             return out
-        lib = self.load()
         n_thr = thresholds.shape[1] if thresholds is not None else 0
-        with torch.cuda.device(a.device):
-            stream = torch.cuda.current_stream(a.device).cuda_stream
-            err = getattr(lib, fn)(
-                a.data_ptr(), w.data_ptr(),
-                thresholds.data_ptr() if thresholds is not None else None,
-                out_scale.data_ptr() if out_scale is not None else None,
-                out.data_ptr(), m, n, k, w.shape[1], n_thr, EPILOGUE[epi], stream)
+        self.run(fn, a.device, a.data_ptr(), w.data_ptr(), device_ptr(thresholds),
+                 device_ptr(out_scale), out.data_ptr(), m, n, k, w.shape[1], n_thr,
+                 EPILOGUE[epi])
+        return out
+
+    def run(self, fn: str, device: torch.device, *args) -> None:
+        """Call the C function ``fn`` with ``args`` and ``device``'s current
+        stream (its last argument); raises when the launch fails."""
+        lib = self.load()
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = getattr(lib, fn)(*args, stream)
         if err != 0:
             raise RuntimeError(f"{fn} launch failed: "
                                + lib.repro_cuda_error_string(err).decode())
-        return out
+
+
+def device_ptr(t: torch.Tensor | None):
+    """A tensor's device address for ctypes (None for an absent operand)."""
+    return None if t is None else t.data_ptr()
 
 
 def build_all(libraries) -> list[str]:

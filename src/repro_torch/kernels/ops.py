@@ -7,14 +7,16 @@
     mode="standard" arbitrary-precision integer lanes          (Fig. 4c)
 
 and, with ``packed=True``, onto the packed-weight kernels
-(``kernels/mvu_packed.py``).  Two backends, the port's names for the JAX
+(``kernels/mvu_packed.py``); ``conv_mvu(...)`` is the fused SWU+MVU
+convolution (``kernels/swu_mvu.py``) in the same three datapaths.  Two
+backends, the port's names for the JAX
 package's ``("pallas", "xla")``:
 
     backend="cuda"   the hand-written CUDA kernels (the paper's RTL analog);
                      a CPU tensor takes the kernel's plain version, any
                      other device launches the kernel or raises
     backend="torch"  the plain oracles in ``ref`` / ``mvu_packed`` (the HLS
-                     analog)
+                     analog; for conv, the materialised sliding windows)
 
 Packed words are int32 bit patterns (``kernels/packing.py``).  The JAX
 package's tile kwargs (``block_m``/``block_n``/``block_k``/``block_kw``)
@@ -27,7 +29,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import mvu_binary, mvu_int, mvu_packed, mvu_xnor, ref
+from repro_torch.kernels import mvu_binary, mvu_int, mvu_packed, mvu_xnor, packing, ref, swu_mvu
 
 MODES = ("xnor", "binary", "standard")
 BACKENDS = ("cuda", "torch")
@@ -39,9 +41,10 @@ KERNELS = {
     "mvu_binary": (mvu_binary, "LAUNCHES"),
     "mvu_binary_packed": (mvu_packed, "BINARY_LAUNCHES"),
     "mvu_int2_packed": (mvu_packed, "INT2_LAUNCHES"),
+    "conv_mvu": (swu_mvu, "LAUNCHES"),
 }
 # the kernel libraries, one per source in csrc/ (kernels/_cuda.py)
-LIBRARIES = (mvu_int.LIB, mvu_xnor.LIB, mvu_binary.LIB, mvu_packed.LIB)
+LIBRARIES = (mvu_int.LIB, mvu_xnor.LIB, mvu_binary.LIB, mvu_packed.LIB, swu_mvu.LIB)
 
 
 def kernel_name(mode: str, packed: bool = False) -> str:
@@ -118,3 +121,43 @@ def mvu(
     if mode == "binary":
         return mvu_binary.mvu_binary(a, w, thresholds, out_scale)
     return mvu_int.mvu_int(a, w, thresholds, out_scale)
+
+
+def conv_mvu(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    kernel: int,
+    stride: int = 1,
+    pad: int = 0,
+    mode: str = "standard",
+    k_bits: int | None = None,
+    thresholds: torch.Tensor | None = None,
+    out_scale: torch.Tensor | None = None,
+    backend: str = "cuda",
+    **blocks,
+) -> torch.Tensor:
+    """Fused SWU+MVU convolution: epilogue(SWU(x) . W^T) -> (B, OH*OW, N).
+
+    x: (B, H, W, C) integer activations ({0,1} bits for xnor); w: (N, Kd^2*C)
+    in (ky, kx, c) order -- ``standard`` integer rows, ``binary`` {0,1}-coded
+    +/-1 rows, ``xnor`` packed (N, Wd) int32 words with ``k_bits`` = Kd^2*C.
+    ``backend="cuda"`` runs the line-buffer kernel (a CPU tensor: its plain
+    version), which narrows x to int8 like the JAX package's Pallas kernel;
+    ``backend="torch"`` is the materialising oracle, which does not.
+    ``blocks`` are ignored (see the module doc).
+    """
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+    if mode == "xnor" and k_bits != kernel * kernel * x.shape[-1]:
+        raise ValueError(f"xnor conv needs k_bits = Kd^2*C = "
+                         f"{kernel * kernel * x.shape[-1]}, got {k_bits}")
+    if backend == "torch":
+        if mode == "xnor":
+            w = packing.unpack_bits(w, k_bits)
+        return ref.conv_mvu_ref(x, w, kernel=kernel, stride=stride, pad=pad, mode=mode,
+                                thresholds=thresholds, out_scale=out_scale)
+    return swu_mvu.conv_mvu(x, w, thresholds, out_scale, kernel=kernel, stride=stride,
+                            pad=pad, mode=mode)

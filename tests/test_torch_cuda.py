@@ -9,9 +9,10 @@ import pytest
 import torch
 
 from repro_torch.build import build
-from repro_torch.configs import nid_mlp
+from repro_torch.configs import cnv_bnn, golden as golden_mod, nid_mlp
 from repro_torch.data import nid
 from repro_torch.kernels import mvu_binary, mvu_int as K, mvu_packed, mvu_xnor, ops, packing
+from repro_torch.kernels import swu_mvu
 
 pytestmark = pytest.mark.cuda
 VARIANTS = ["standard", "xnor", "binary", "binary_packed", "standard_packed"]
@@ -120,6 +121,72 @@ def test_nid_engine_on_the_card(cuda, variant):
     assert ops.launch_counts() == {k: 4 * n_micro if k == kernel else 0
                                    for k in ops.KERNELS}
     assert y.is_cuda and torch.equal(y, acc.interpret(x))
-    meta = {k: golden[k] for k in nid_mlp.GOLDEN_META}
-    assert nid_mlp.golden_digest(y.cpu().numpy(), nid_mlp.graph_layers(acc.graph),
-                                 **meta) == golden
+    assert golden_mod.digest_like(golden, y.cpu().numpy(), acc.graph) == golden
+
+
+# (H = W, C, N) of the FULL CNV's six 3x3 conv layers
+CNV_CONVS = [(32, 3, 64), (30, 64, 64), (14, 64, 128), (12, 128, 128), (5, 128, 256),
+             (3, 256, 256)]
+
+
+def _conv_operands(mode, b, h, wdim, c, n, kd, device, seed):
+    g = torch.Generator().manual_seed(seed)
+    k = kd * kd * c
+    hi = 2 if mode == "xnor" else 300  # 300: the int8 wrap of the kernel arm
+    x = torch.randint(0 if mode == "xnor" else -8, hi, (b, h, wdim, c), generator=g,
+                      dtype=torch.int32)
+    if mode == "standard":
+        w = torch.randint(-2, 2, (n, k), generator=g, dtype=torch.int8)
+    else:
+        w = torch.randint(0, 2, (n, k), generator=g, dtype=torch.int8)
+        if mode == "xnor":
+            w = packing.pack_bits(w)
+    t = torch.sort(torch.randint(-8 * k, 8 * k, (n, 3), generator=g, dtype=torch.int32),
+                   1).values
+    s = torch.rand(n, generator=g) + 0.01
+    return [v.to(device) for v in (x, w, t, s)]
+
+
+@pytest.mark.parametrize("epilogue", ["raw", "thresholds", "scale"])
+@pytest.mark.parametrize("mode", ["standard", "binary", "xnor"])
+@pytest.mark.parametrize("h,c,n", CNV_CONVS)
+def test_conv_kernel_equals_plain_at_cnv_shapes(cuda, h, c, n, mode, epilogue):
+    for b in (1, 5):
+        x, w, t, s = _conv_operands(mode, b, h, h, c, n, 3, cuda, seed=h * 7 + c + b)
+        kw = _epilogue_kw(epilogue, t, s)
+        launches = swu_mvu.LAUNCHES
+        got = swu_mvu.conv_mvu(x, w, kernel=3, mode=mode, **kw)
+        assert swu_mvu.LAUNCHES == launches + 1 and got.is_cuda
+        want = swu_mvu.conv_mvu_plain(x, w, kernel=3, mode=mode, **kw)
+        torch.cuda.synchronize()
+        assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("mode", ["standard", "binary", "xnor"])
+@pytest.mark.parametrize("kd,stride,pad", [(1, 1, 0), (3, 2, 1), (5, 1, 2), (5, 2, 2)])
+def test_conv_kernel_pads_and_strides(cuda, mode, kd, stride, pad):
+    """Non-square images, strides and zero padding (xnor: a pad tap is -1)."""
+    x, w, t, _ = _conv_operands(mode, 3, 9, 13, 5, 37, kd, cuda, seed=kd + stride + pad)
+    for kw in ({}, {"thresholds": t}):
+        got = swu_mvu.conv_mvu(x, w, kernel=kd, stride=stride, pad=pad, mode=mode, **kw)
+        want = swu_mvu.conv_mvu_plain(x, w, kernel=kd, stride=stride, pad=pad, mode=mode,
+                                      **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("variant", ["xnor", "binary", "standard"])
+def test_cnv_engine_on_the_card(cuda, variant):
+    golden = cnv_bnn.load_golden()[variant]
+    kw = golden["build"]
+    acc = build(cnv_bnn.build_graph(cnv_bnn.spec_for(kw), seed=golden["seed"]), **kw)
+    x = torch.from_numpy(cnv_bnn.images(golden["batch"], kw["act_bits"],
+                                        golden["data_seed"]))
+    n_micro = acc.plan(golden["batch"]).n_micro
+    ops.reset_launch_counts()
+    y = acc(x)
+    want = {k: 0 for k in ops.KERNELS}
+    want["conv_mvu"], want[ops.kernel_name(kw["mode"])] = 6 * n_micro, 3 * n_micro
+    assert ops.launch_counts() == want
+    assert y.is_cuda and torch.equal(y, acc.interpret(x))
+    assert golden_mod.digest_like(golden, y.cpu().numpy(), acc.graph) == golden

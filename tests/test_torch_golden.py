@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from repro_torch.build import build
-from repro_torch.configs import nid_mlp
+from repro_torch.configs import golden as golden_mod, nid_mlp
 from repro_torch.data import nid
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -62,5 +62,4 @@ def test_port_reproduces_the_golden_digest(golden, variant):
                 folding=nid_mlp.foldings(), device="cpu", **g["build"])
     x = torch.from_numpy(nid.make_dataset(g["batch"], seed=g["data_seed"])[0])
     y = acc(x)
-    meta = {k: g[k] for k in nid_mlp.GOLDEN_META}
-    assert nid_mlp.golden_digest(y.numpy(), nid_mlp.graph_layers(acc.graph), **meta) == g
+    assert golden_mod.digest_like(g, y.numpy(), acc.graph) == g

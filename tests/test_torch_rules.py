@@ -6,7 +6,8 @@
 * A tensor that is neither on the CPU nor on a CUDA device makes the kernel
   wrapper raise instead of returning the plain version's result.
 * ``build()`` without a device raises when CUDA is absent.
-* What belongs to a later slice raises NotImplementedError.
+* What belongs to a later slice raises NotImplementedError; what an
+  earlier one refused and a later one ported runs.
 """
 
 import ast
@@ -100,7 +101,7 @@ def _conv_graph():
 
 
 @pytest.mark.parametrize("what", [
-    "tune_cache", "target_pipeline", "target_serving", "conv_node",
+    "tune_cache", "target_pipeline", "target_serving",
     "engine_profile", "engine_as_pipeline", "engine_tune"])
 def test_later_slices_raise_not_implemented(what):
     g = nid_mlp.build_graph(0)
@@ -109,8 +110,6 @@ def test_later_slices_raise_not_implemented(what):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         if what in overrides:
             build(g, device="cpu", **overrides[what])
-        elif what == "conv_node":
-            lowering.lower_to_mvu(_conv_graph())
         elif what == "engine_tune":
             engine.FusedEngine(g, tune="cache")
         else:
@@ -119,14 +118,22 @@ def test_later_slices_raise_not_implemented(what):
 
 
 @pytest.mark.parametrize("what", ["mode_binary", "mode_xnor", "pack_always",
-                                  "ops_packed", "ops_xnor", "layer_xnor"])
+                                  "ops_packed", "ops_xnor", "layer_xnor", "conv_node"])
 def test_binarized_and_packed_paths_run(what):
-    """What the later-slices test refused before the binarized and packed
-    kernels were ported now runs (on the CPU: the kernels' plain versions)."""
+    """What the later-slices test refused before the binarized, packed and
+    conv kernels were ported now runs (on the CPU: the kernels' plain
+    versions)."""
     g = nid_mlp.build_graph(0)
     x = torch.randint(0, 4, (5, 600), dtype=torch.int32)
     a = torch.randint(0, 4, (2, 8), dtype=torch.int32)
-    if what.startswith(("mode_", "pack_")):
+    if what == "conv_node":
+        lowered = lowering.lower_to_mvu(_conv_graph())
+        assert [n.op for n in lowered] == ["input", "swu", "mvu"]
+        acc = build(_conv_graph(), weight_bits=2, act_bits=2, device="cpu")
+        assert [n.op for n in acc.graph] == ["input", "conv_mvu"]
+        xc = torch.randint(0, 4, (3, 6, 6, 2), dtype=torch.int32)
+        assert torch.equal(acc(xc), acc.interpret(xc)) and tuple(acc(xc).shape) == (3, 4, 4, 4)
+    elif what.startswith(("mode_", "pack_")):
         kw = {"mode_binary": {"mode": "binary", "act_bits": 4},
               "mode_xnor": {"mode": "xnor", "weight_bits": 1, "act_bits": 1},
               "pack_always": {"pack": "always", "weight_bits": 2, "act_bits": 2}}[what]

@@ -93,6 +93,18 @@ def test_one_bit_scale_equals_jax_mean(n, k):
         jq.quantize_weights(jnp.asarray(w), 1).scale)
 
 
+@pytest.mark.parametrize("k", [27, 576, 1152, 2304])
+def test_one_bit_scale_equals_jax_mean_at_conv_widths(k):
+    """CNV's conv weights reach the 1-bit scale as (N, Kd^2*C) rows after
+    ``pack_conv_weights``: K = 27 (3x3x3) to 2304 (3x3x256), drawn as the
+    CNV config draws them."""
+    rng = np.random.default_rng(k)
+    w = rng.normal(0, 0.5, (3, 3, k // 9, 64)).astype(np.float32)
+    rows = np.ascontiguousarray(w.transpose(3, 0, 1, 2).reshape(64, k))
+    _eq(tq.quantize_weights(torch.from_numpy(rows), 1).scale,
+        jq.quantize_weights(jnp.asarray(rows), 1).scale)
+
+
 @pytest.mark.parametrize("bits", [1, 2, 3, 4, 8])
 @pytest.mark.parametrize("signed", [True, False])
 def test_int_bounds_equal_jax(bits, signed):
