@@ -7,7 +7,10 @@ Phases, each printing its own line(s); any failure exits non-zero:
 
 1. env     torch and CUDA versions, the card's name and power limit.
 2. build   the six kernels from ``src/repro_torch/kernels/csrc/`` (five
-           sources): one nvcc per source, all started together.
+           sources): one nvcc per source, all started together, and beside
+           them ``nvcc -Xptxas -v`` on the two Hopper-designed sources
+           (``conv_mvu.cu``, ``mvu_binary.cu``): registers, shared memory
+           and spills of each kernel instance.
 3. kernel  ``mvu_int`` against ``mvu_int_plain`` on the card at every
            (N, K) of the NID path, M in {1, 3, 128, 4096}, and at the
            FULL CNV's dense (N, K) at M = 1 (its one image a microbatch),
@@ -22,12 +25,21 @@ Phases, each printing its own line(s); any failure exits non-zero:
            ``mvu_binary`` also at the CNV's dense shapes, M = 1),
            activations up to 299 (the packed kernels narrow them to int8
            with a wrap); the yardstick multiplies the unpacked +/-1 or
-           integer operands.  Each layer is timed with its own epilogue:
-           thresholds (as many as its variant's activation levels) or, on
-           a classifier head, the scale.
+           integer operands.  ``mvu_binary`` also at N = 10 (ragged),
+           M in {1, 9, 100, 128, 4096} x K in {27, 64, 600, 2304} (both
+           arrangements, with and without split K) and with activations
+           near 2^30 (the uint32 wrap).  The timed layers of ``mvu_binary``
+           and ``conv_mvu`` print their launch plan (arrangement, tile,
+           K splits = cluster size, dynamic shared memory).  Each layer is
+           timed with its own epilogue: thresholds (as many as its
+           variant's activation levels) or, on a classifier head, the
+           scale.
    kernel  ``conv_mvu`` against ``conv_mvu_plain`` at each of the FULL
            CNV's six conv shapes in the three modes, at 1 and 32 images,
-           all three epilogues, plus one stride-2 / pad-1 case per mode;
+           all three epilogues (1 image: K split in a cluster on
+           conv1-conv5), plus one stride-2 / pad-1 case per mode and two
+           images too wide for the line buffer (the gather arrangement:
+           8 x 1000 x 256, and 5 x 3000 x 12 at stride 2, pad 1);
            activations up to 299 for standard and binary (the kernel
            narrows them to int8 with a wrap).  The yardstick is
            ``torch.nn.functional.conv2d`` in float32 (TF32 off) on the
@@ -61,6 +73,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
@@ -81,6 +94,12 @@ KERNELS = {
     "conv_mvu": (CSRC + "conv_mvu.cu", "src/repro/kernels/swu_mvu.py:139"),
 }
 CONV_IMAGES = (1, 32)
+# (B, H, W, C, N, stride, pad) of images too wide for conv_mvu's line
+# buffer: checked, not timed (the gather arrangement)
+CONV_WIDE = [(1, 8, 1000, 256, 64, 1, 0), (1, 5, 3000, 12, 16, 2, 1)]
+PTXAS_SOURCES = ("conv_mvu.cu", "mvu_binary.cu")  # the kernels designed for Hopper
+BINARY_MS = (1, 9, 100, 128, 4096)  # mvu_binary's extra checks: both arrangements
+BINARY_KS = (27, 64, 600, 2304)
 CNV_DENSE_M = 1  # images a CNV microbatch: the dense layers' M on that path
 CNV_BATCH = 256  # images per acc(x) for the images/s line
 
@@ -110,6 +129,71 @@ def device_ms(fn, reps: int, trials: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
+
+
+def ptxas_lines(report: str) -> list[str]:
+    """One line per kernel instance of an ``nvcc -Xptxas -v`` report: its
+    (demangled) name, registers, shared memory and spill bytes."""
+    import re
+    import shutil
+
+    entries, name = [], None
+    for line in report.splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            name, spill = m.group(1), ""
+        elif name and "spill" in line:
+            spill = line.strip()
+        elif name and (m := re.search(r"Used (\d+) registers(.*)", line)):
+            entries.append((name, f"{m.group(1)} registers{m.group(2)}; {spill}"))
+            name = None
+    if entries and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(n for n, _ in entries),
+                               capture_output=True, text=True).stdout.splitlines()
+        if len(names) == len(entries):
+            entries = [(nm, u) for nm, (_, u) in zip(names, entries)]
+    return [f"{nm}: {u}" for nm, u in entries]
+
+
+def plan_text(plan) -> str:
+    """A launch plan as printed beside a time."""
+    return (f"plan={plan.arrangement} {plan.tile_m}x{plan.tile_n} splits={plan.splits} "
+            f"smem={plan.smem_bytes}")
+
+
+def acc_seconds(acc, x, trials: int = 7) -> float:
+    """Median host seconds of ``acc(x)`` to its last result on the card
+    (``torch.cuda.synchronize()``), after two warm-up calls."""
+    import torch
+
+    for _ in range(2):
+        acc(x)
+    torch.cuda.synchronize()
+    secs = []
+    for _ in range(trials):
+        t0 = time.perf_counter()
+        acc(x)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return statistics.median(secs)
+
+
+def nid_accelerator(gd):
+    """The NID-MLP built on the card for one variant of the golden file."""
+    from repro_torch.build import build
+    from repro_torch.configs import nid_mlp
+
+    return build(nid_mlp.build_graph(gd["seed"]), target="engine", tune="off",
+                 folding=nid_mlp.foldings(), device="cuda", **gd["build"])
+
+
+def cnv_accelerator(gd):
+    """The FULL CNV built on the card for one variant of its golden file."""
+    from repro_torch.build import build
+    from repro_torch.configs import cnv_bnn
+
+    kw = gd["build"]
+    return build(cnv_bnn.build_graph(cnv_bnn.spec_for(kw), seed=gd["seed"]),
+                 target="engine", tune="off", device="cuda", **kw)
 
 
 def bound_of(nbytes: int, ops: int) -> tuple[float, str]:
@@ -184,8 +268,9 @@ def dense_shapes(spec) -> list[tuple[int, int]]:
     return shapes
 
 
-def conv_case(mode, b, h, c, n, kd, g, dev, hi=300):
-    """Operands of one ``conv_mvu`` launch on a (b, h, h, c) image:
+def conv_case(mode, b, h, c, n, kd, g, dev, hi=300, width=None):
+    """Operands of one ``conv_mvu`` launch on a (b, h, width, c) image
+    (width defaults to h):
     ``(x, w, x_f, w_f, nbytes)`` -- the image (int32; {0,1} for xnor,
     [-8, hi) otherwise), the mode's weight storage, the float32 NCHW image
     and (N, C, kd, kd) weights the yardstick convolves (the int8-narrowed
@@ -197,11 +282,12 @@ def conv_case(mode, b, h, c, n, kd, g, dev, hi=300):
     from repro_torch.kernels._common import narrow_int8
 
     k = kd * kd * c
+    shape = (b, h, width or h, c)
     if mode == "xnor":
-        x = torch.randint(0, 2, (b, h, h, c), generator=g, dtype=torch.int32)
+        x = torch.randint(0, 2, shape, generator=g, dtype=torch.int32)
         x_f = 2 * x.float() - 1
     else:
-        x = torch.randint(-8, hi, (b, h, h, c), generator=g, dtype=torch.int32)
+        x = torch.randint(-8, hi, shape, generator=g, dtype=torch.int32)
         x_f = narrow_int8(x).float()
     if mode == "standard":
         w = torch.randint(-2, 2, (n, k), generator=g, dtype=torch.int8)
@@ -222,11 +308,10 @@ def main() -> int:
 
     import torch.nn.functional as F
 
-    from repro_torch.build import build
     from repro_torch.configs import cnv_bnn, golden as golden_mod, nid_mlp
     from repro_torch.data import nid
     from repro_torch.kernels import _cuda, ops
-    from repro_torch.kernels import mvu_int as K, swu_mvu as C
+    from repro_torch.kernels import mvu_binary as B, mvu_int as K, swu_mvu as C
 
     path_nk = sorted({(n, k) for k, n, _, _ in nid_mlp.LAYERS}, reverse=True)
     cnv_golden = cnv_bnn.load_golden()
@@ -261,9 +346,15 @@ def main() -> int:
 
     # ---------------------------------------------------------- 2. build
     t0 = time.perf_counter()
-    libs = _cuda.build_all(ops.LIBRARIES)
+    with ThreadPoolExecutor(len(PTXAS_SOURCES)) as pool:
+        reports = [pool.submit(_cuda.ptxas_report, src) for src in PTXAS_SOURCES]
+        libs = _cuda.build_all(ops.LIBRARIES)
+        reports = [r.result() for r in reports]
     print(f"build: {', '.join(os.path.relpath(p, HERE) for p in libs)} in "
           f"{time.perf_counter() - t0:.2f} s (one nvcc per source, in parallel)", flush=True)
+    for src, report in zip(PTXAS_SOURCES, reports):
+        for line in ptxas_lines(report):
+            print(f"build: ptxas {src}: {line}", flush=True)
 
     # --------------------------------------------------------- 3. kernel
     dev = torch.device("cuda")
@@ -350,10 +441,45 @@ def main() -> int:
             bms, bby = bound_of(nbytes + (t.numel() if t is not None else n) * 4
                                 + m * n * 4, 2 * m * n * k)
             timing[(name, m, n, k)] = (kms, pms, lms, bms, bby)
+            plan_s = (f" {plan_text(B.binary_launch_plan(m, n, k))}" if name == "mvu_binary"
+                      else "")
             print(f"kernel: {name} M={m} N={n} K={k} "
                   f"{f'{n_thr} thresholds' if t is not None else 'scale'}: "
                   f"ms={kms:.5f} plain_ms={pms:.5f} library_ms={lms:.5f} "
-                  f"bound_ms={bms:.6f} ({bby})", flush=True)
+                  f"bound_ms={bms:.6f} ({bby}){plan_s}", flush=True)
+        if name == "mvu_binary":
+            # both arrangements, split K or not, at a ragged N; then the wrap
+            n = 10
+            for m in BINARY_MS:
+                for k in BINARY_KS:
+                    a = torch.randint(-300, 300, (m, k), generator=g, dtype=torch.int32)
+                    bits = torch.randint(0, 2, (n, k), generator=g, dtype=torch.int8)
+                    thr = torch.sort(torch.randint(-300 * k, 300 * k, (n, 3), generator=g,
+                                                   dtype=torch.int32), dim=1).values
+                    scale = torch.rand(n, generator=g) + 0.01
+                    a, bits, thr, scale = (v.to(dev) for v in (a, bits, thr, scale))
+                    for t, s in ((None, None), (thr, None), (None, scale)):
+                        got = B.mvu_binary(a, bits, t, s)
+                        want = B.mvu_binary_plain(a, bits, t, s)
+                        torch.cuda.synchronize()
+                        check(got.dtype == want.dtype and torch.equal(got, want),
+                              f"mvu_binary != its plain version at M={m} N={n} K={k} "
+                              f"({plan_text(B.binary_launch_plan(m, n, k))}) "
+                              f"thresholds={t is not None} scale={s is not None}")
+                        max_err[name] = max(max_err[name], err(got, want))
+                        n_checked += 1
+            for m in (1, 128):
+                a = torch.randint(2**30 - 2**20, 2**30, (m, 600), generator=g,
+                                  dtype=torch.int32)
+                a[:, ::3] *= -1
+                w = torch.randint(-128, 128, (33, 600), generator=g, dtype=torch.int8)
+                a, w = a.to(dev), w.to(dev)
+                got, want = B.mvu_binary(a, w), B.mvu_binary_plain(a, w)
+                torch.cuda.synchronize()
+                check(torch.equal(got, want), f"mvu_binary does not wrap mod 2^32 like its "
+                      f"plain version at M={m} with activations near 2^30")
+                max_err[name] = max(max_err[name], err(got, want))
+                n_checked += 1
         print(f"kernel: {name}: {n_checked} checks equal to the plain version, "
               f"max_abs_err={max_err[name]}", flush=True)
 
@@ -362,12 +488,13 @@ def main() -> int:
     n_checked = 0
     cnv_shapes = conv_shapes(cnv_bnn.FULL)
     for mode in C.MODES:
-        cases = [(b, h, c, n, 1, 0) for h, c, n in cnv_shapes for b in CONV_IMAGES]
-        cases.append((2, 9, 16, 24, 2, 1))  # stride 2, pad 1: pad taps (xnor: -1)
-        for b, h, c, n, stride, pad in cases:
+        timed = [(b, h, h, c, n, 1, 0) for h, c, n in cnv_shapes for b in CONV_IMAGES]
+        cases = timed + [(2, 9, 9, 16, 24, 2, 1)  # stride 2, pad 1: pad taps (xnor: -1)
+                         ] + CONV_WIDE
+        for b, h, wd, c, n, stride, pad in cases:
             kd = 3
             k = kd * kd * c
-            x, w, x_f, w_f, nbytes = conv_case(mode, b, h, c, n, kd, g, dev)
+            x, w, x_f, w_f, nbytes = conv_case(mode, b, h, c, n, kd, g, dev, width=wd)
             thr = torch.sort(torch.randint(-8 * k, 8 * k, (n, 3), generator=g,
                                            dtype=torch.int32), dim=1).values.to(dev)
             scale = (torch.rand(n, generator=g) + 0.01).to(dev)
@@ -377,12 +504,13 @@ def main() -> int:
                 want = C.conv_mvu_plain(x, w, t, s, **geo)
                 torch.cuda.synchronize()
                 check(got.dtype == want.dtype and torch.equal(got, want),
-                      f"conv_mvu != conv_mvu_plain ({mode}) at B={b} H=W={h} C={c} N={n} "
-                      f"stride={stride} pad={pad} thresholds={t is not None} "
-                      f"scale={s is not None}")
+                      f"conv_mvu != conv_mvu_plain ({mode}) at B={b} H={h} W={wd} C={c} "
+                      f"N={n} stride={stride} pad={pad} thresholds={t is not None} "
+                      f"scale={s is not None} "
+                      f"({plan_text(C.conv_launch_plan(b, h, wd, c, n, kd, stride, pad))})")
                 max_err["conv_mvu"] = max(max_err["conv_mvu"], err(got, want))
                 n_checked += 1
-            if pad:
+            if (b, h, wd, c, n, stride, pad) not in timed:
                 continue
             # time the layer as the path runs it: the threshold epilogue.  The
             # yardstick is timed only: cuDNN may pick a Winograd or FFT
@@ -402,7 +530,8 @@ def main() -> int:
             timing[("conv_mvu", mode, b, h, c, n)] = (kms, pms, lms, bms, bby)
             print(f"kernel: conv_mvu {mode} B={b} H=W={h} C={c} N={n} K={k} thresholds: "
                   f"ms={kms:.5f} plain_ms={pms:.5f} library_ms={lms:.5f} "
-                  f"bound_ms={bms:.6f} ({bby})", flush=True)
+                  f"bound_ms={bms:.6f} ({bby}) "
+                  f"{plan_text(C.conv_launch_plan(b, h, h, c, n, kd))}", flush=True)
     print(f"kernel: conv_mvu: {n_checked} checks equal to the plain version, "
           f"max_abs_err={max_err['conv_mvu']}", flush=True)
 
@@ -415,8 +544,7 @@ def main() -> int:
         kw = gd["build"]
         kernel = ops.kernel_name(kw["mode"], packed=kw.get("pack") == "always")
         t0 = time.perf_counter()
-        acc = build(nid_mlp.build_graph(gd["seed"]), target="engine", tune="off",
-                    folding=nid_mlp.foldings(), device="cuda", **kw)
+        acc = nid_accelerator(gd)
         print(f"slice: {variant} {kw}: built {acc.report.step_names} in "
               f"{time.perf_counter() - t0:.2f} s", flush=True)
         batch = gd["batch"]
@@ -443,16 +571,7 @@ def main() -> int:
               f"{plan.n_micro}, no other kernel", flush=True)
         for b in (4096, 65536) if variant == "standard" else (4096,):
             xb = torch.from_numpy(nid.make_dataset(b, seed=gd["data_seed"])[0]).to(dev)
-            for _ in range(2):
-                acc(xb)
-            torch.cuda.synchronize()
-            secs = []
-            for _ in range(7):
-                t0 = time.perf_counter()
-                acc(xb)
-                torch.cuda.synchronize()
-                secs.append(time.perf_counter() - t0)
-            med = statistics.median(secs)
+            med = acc_seconds(acc, xb)
             print(f"slice: {variant}: batch {b}: {b / med:.1f} flows/s (median of 7 "
                   f"acc(x), {med * 1e3:.3f} ms)", flush=True)
 
@@ -462,8 +581,7 @@ def main() -> int:
         kw = gd["build"]
         dense = ops.kernel_name(kw["mode"])
         t0 = time.perf_counter()
-        acc = build(cnv_bnn.build_graph(cnv_bnn.spec_for(kw), seed=gd["seed"]),
-                    target="engine", tune="off", device="cuda", **kw)
+        acc = cnv_accelerator(gd)
         torch.cuda.synchronize()
         print(f"slice: cnv {variant} {kw}: built {acc.report.step_names} in "
               f"{time.perf_counter() - t0:.2f} s", flush=True)
@@ -494,16 +612,7 @@ def main() -> int:
               f"{cplan.n_micro}, {counts[dense]} {dense} = 3 x n_micro, no other kernel",
               flush=True)
         xb = torch.from_numpy(cnv_bnn.images(CNV_BATCH, kw["act_bits"], gd["data_seed"])).to(dev)
-        for _ in range(2):
-            acc(xb)
-        torch.cuda.synchronize()
-        secs = []
-        for _ in range(7):
-            t0 = time.perf_counter()
-            acc(xb)
-            torch.cuda.synchronize()
-            secs.append(time.perf_counter() - t0)
-        med = statistics.median(secs)
+        med = acc_seconds(acc, xb)
         print(f"slice: cnv {variant}: batch {CNV_BATCH}: {CNV_BATCH / med:.1f} images/s "
               f"(median of 7 acc(x), {med * 1e3:.3f} ms; n_micro="
               f"{acc.plan(CNV_BATCH).n_micro})", flush=True)

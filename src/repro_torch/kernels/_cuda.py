@@ -3,8 +3,10 @@
 Each kernel source in ``csrc/`` (``mvu_int.cu``, ``mvu_xnor.cu``, ...) is
 compiled with ``nvcc`` into a shared library of its own, at first use,
 into ``_build/`` beside this file, and loaded with ``ctypes``.  A library
-is ``<source>.cu`` plus ``binding.cpp`` (the error-string helper); every
-source includes ``mvu_tile.cuh`` (the shared K loop) and ``epilogue.cuh``.
+is ``<source>.cu`` plus ``binding.cpp`` (the error-string helper); the
+sources include ``epilogue.cuh`` and either ``mvu_tile.cuh`` (the shared K
+loop of the first kernels) or ``cluster_reduce.cuh`` (cp.async and the
+cluster split K of the Hopper-designed ``conv_mvu`` and ``mvu_binary``).
 The library's name carries a hash of those files and the flags, so an
 edited source never loads a stale build.
 :func:`build_all` starts one ``nvcc`` per source at once.
@@ -15,10 +17,11 @@ Every MVU kernel exports one C function of the same shape::
                        const void* scale, void* out, int m, int n, int k,
                        int w_cols, int n_thr, int epilogue, void* stream)
 
-(:meth:`Library.launch`); the conv kernel's takes the image geometry
-instead (``kernels/swu_mvu.py``, through :meth:`Library.run`).  Each
-returns the launch's CUDA error code.  Importing this module builds
-nothing and imports nothing CUDA-only.
+(:meth:`Library.launch`); ``mvu_binary``'s adds its launch plan (the
+``plan`` of :meth:`Library.launch`), and the conv kernel's takes the image
+geometry and its plan (``kernels/swu_mvu.py``, through
+:meth:`Library.run`).  Each returns the launch's CUDA error code.
+Importing this module builds nothing and imports nothing CUDA-only.
 """
 
 from __future__ import annotations
@@ -32,17 +35,43 @@ import threading
 import torch
 
 # The one tile every kernel is compiled for (passed to nvcc as -D flags);
-# per-layer tiles come with the autotuner (ROADMAP queue A item 6).
+# per-layer tiles come with the autotuner (ROADMAP queue A item 3).
 BLOCK_M = 32
 BLOCK_N = 32
 BLOCK_K = 32  # synapses per K step (32-bit words for the xnor kernel)
 THREADS = 256
 
+# The Hopper-designed kernels' launch plans (kernels/swu_mvu.py,
+# kernels/mvu_binary.py; csrc/cluster_reduce.cuh): shared memory a block
+# can opt into on the H100, the portable cluster size, and the blocks that
+# fill the card (two on each of its 132 SMs).
+SMEM_BYTES = 232448
+MAX_SPLITS = 8
+FILL_BLOCKS = 2 * 132
+
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
-_SHARED = ("binding.cpp", "epilogue.cuh", "mvu_tile.cuh")
+_SHARED = ("binding.cpp", "epilogue.cuh", "mvu_tile.cuh", "cluster_reduce.cuh")
 EPILOGUE = {"raw": 0, "thresholds": 1, "scale": 2}
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+
+
+def split_k(tiles: int, steps: int) -> int:
+    """K slices for an output of ``tiles`` tiles of ``steps`` K steps each:
+    1 when the tiles fill the card, else enough slices (at most
+    ``MAX_SPLITS``, one cluster) to fill it, none empty.  Slice r runs
+    steps [r * steps // splits, (r + 1) * steps // splits) (``k_slice`` in
+    ``csrc/cluster_reduce.cuh``)."""
+    if tiles >= FILL_BLOCKS:
+        return 1
+    return min(MAX_SPLITS, steps, -(-FILL_BLOCKS // tiles))
+
+
+def k_slices(steps: int, splits: int, step: int, k: int) -> list[tuple[int, int]]:
+    """The synapses [lo, hi) of each of ``splits`` K slices, in rank order,
+    of ``steps`` steps of ``step`` synapses over a reduction of length k."""
+    return [(min(k, r * steps // splits * step), min(k, (r + 1) * steps // splits * step))
+            for r in range(splits)]
 
 
 def nvcc_flags() -> list[str]:
@@ -122,10 +151,11 @@ class Library:
 
     def launch(self, fn: str, a: torch.Tensor, w: torch.Tensor,
                thresholds: torch.Tensor | None, out_scale: torch.Tensor | None,
-               epi: str, *, n: int, k: int) -> torch.Tensor:
+               epi: str, *, n: int, k: int, plan: tuple[int, ...] = ()) -> torch.Tensor:
         """Launch ``fn`` on ``a``'s device and current stream; returns the
         (M, N) output (int32, float32 for the scale epilogue).  ``k`` is the
-        kernel's reduction length argument, ``n`` the output width.  Raises
+        kernel's reduction length argument, ``n`` the output width, ``plan``
+        the launch plan's int arguments of a kernel that takes one.  Raises
         for a device that is not CUDA, and when the launch fails."""
         if not a.is_cuda:
             raise ValueError(f"{fn.removeprefix('repro_')} runs on CUDA or CPU "
@@ -140,7 +170,7 @@ class Library:
         n_thr = thresholds.shape[1] if thresholds is not None else 0
         self.run(fn, a.device, a.data_ptr(), w.data_ptr(), device_ptr(thresholds),
                  device_ptr(out_scale), out.data_ptr(), m, n, k, w.shape[1], n_thr,
-                 EPILOGUE[epi])
+                 EPILOGUE[epi], *plan)
         return out
 
     def run(self, fn: str, device: torch.device, *args) -> None:
@@ -158,6 +188,22 @@ class Library:
 def device_ptr(t: torch.Tensor | None):
     """A tensor's device address for ctypes (None for an absent operand)."""
     return None if t is None else t.data_ptr()
+
+
+def ptxas_report(source: str) -> str:
+    """What ``nvcc -Xptxas -v`` says of ``source``'s kernels (registers,
+    shared memory, spills), compiled to a throwaway cubin."""
+    import tempfile
+
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        flags = [f for f in nvcc_flags() if f not in ("-shared", "-Xcompiler", "-fPIC")]
+        proc = subprocess.run([_nvcc(), *flags, "-Xptxas", "-v", "-cubin", "-o",
+                               os.path.join(tmp, "k.cubin"), os.path.join(CSRC, source)],
+                              capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr}")
+    return proc.stderr
 
 
 def build_all(libraries) -> list[str]:

@@ -257,6 +257,31 @@ def test_meta_tensor_raises_instead_of_falling_back(wrapper):
     assert mod.LAUNCHES == launches
 
 
+# (M, N, K) of every launch of the binary kernel on the main paths: the
+# NID layers at M = 128 (a microbatch) and 4096, the CNV's dense layers at
+# M = 1 (one image a microbatch)
+BINARY_SHAPES = ([(m, n, k) for k, n, _, _ in tnid.LAYERS for m in (128, 4096)]
+                 + [(1, 512, 256), (1, 512, 512), (1, 10, 512)])
+
+
+@pytest.mark.parametrize("m,n,k", BINARY_SHAPES)
+def test_binary_launch_plan_fits_and_covers_k(m, n, k):
+    """A plan within the H100's 232,448 bytes of shared memory a block and
+    the portable cluster of 8, whose K slices cover K exactly once, the
+    same on every call; gemv at M <= 8, tiles above."""
+    plan = B.binary_launch_plan(m, n, k)
+    assert plan.arrangement == ("gemv" if m <= 8 else "tiled")
+    assert plan.smem_bytes <= 232448 and 1 <= plan.splits <= 8
+    slices = plan.k_slices(k)
+    assert len(slices) == plan.splits and slices[0][0] == 0 and slices[-1][1] == k
+    assert all(lo < hi for lo, hi in slices)
+    assert all(a[1] == b[0] for a, b in zip(slices, slices[1:]))
+    B.binary_launch_plan.cache_clear()
+    assert B.binary_launch_plan(m, n, k) == plan
+    if (m, k) == (128, 600):  # NID fc0: 8 tiles of 19 steps, split 8 ways
+        assert plan.splits == 8
+
+
 @pytest.mark.parametrize("mode", ["xnor", "binary"])
 def test_init_params_on_the_mode_grid(mode):
     layer = MVULayer(MVUConfig(600, 7, mode=mode))

@@ -189,6 +189,73 @@ def test_rows_per_tile_and_shared_memory():
 
     for oh, ow, bm in [(30, 30, 128), (1, 1, 128), (28, 28, 32), (3, 3, 8), (12, 12, 256)]:
         assert swu_mvu.conv_rows_per_tile(oh, ow, bm) == jswu_mvu.conv_rows_per_tile(oh, ow, bm)
-    # two K-step slices of 32-bit words, rows padded by one word
-    # (csrc/mvu_tile.cuh): 2 x 32 x 33 x 4 bytes at the compiled tile
-    assert swu_mvu.conv_smem_bytes() == 8448
+    # the line buffer of a 32-pixel tile of conv1 (30x30x64 in, 28x28 out):
+    # 32 pixels span 3 output rows, so 5 input rows of 30 pixels at 20 words
+    # (64 channels as int8, padded to 4 mod 8 words), after 384 bytes of
+    # column sums and decoded taps, 2112 of staged thresholds and the
+    # 8 x 32 x 48-byte weight ring
+    assert swu_mvu.line_buffer_pitch(64) == 20 and swu_mvu.line_buffer_pitch(3) == 4
+    assert swu_mvu.conv_smem_bytes("line", 30, 30, 64, 3) == 384 + 2112 + 12288 + 5 * 30 * 20 * 4
+    # conv5 (3x3x256 in, one pixel): the ring and a 3-row line buffer
+    assert swu_mvu.conv_smem_bytes("line", 3, 3, 256, 3) == 384 + 2112 + 12288 + 3 * 3 * 68 * 4
+    # the gather arrangement: no line buffer, the ring
+    assert swu_mvu.conv_smem_bytes("gather", 30, 30, 64, 3) == 384 + 2112 + 12288
+    assert swu_mvu.conv_launch_plan(1, 30, 30, 64, 64, 3) == swu_mvu.ConvPlan(
+        arrangement="line", tile_m=32, tile_n=32, splits=6, steps=18, smem_bytes=26784)
+
+
+# (H = W, C, N) of the FULL CNV's six 3x3 conv layers
+CNV_CONVS = [(32, 3, 64), (30, 64, 64), (14, 64, 128), (12, 128, 128), (5, 128, 256),
+             (3, 256, 256)]
+
+
+@pytest.mark.parametrize("b", [1, 32])
+@pytest.mark.parametrize("h,c,n", CNV_CONVS)
+def test_conv_launch_plan_fits_and_covers_k(h, c, n, b):
+    """Every FULL CNV layer at 1 and 32 images: shared memory within the
+    H100's 232,448 bytes a block, at most 8 K slices (the portable cluster),
+    the slices covering K exactly once, the same plan on every call."""
+    k = 9 * c
+    plan = swu_mvu.conv_launch_plan(b, h, h, c, n, 3)
+    assert plan.smem_bytes <= 232448 and 1 <= plan.splits <= 8
+    assert plan.arrangement == "line" and (plan.tile_m, plan.tile_n) == (32, 32)
+    assert plan.smem_bytes == swu_mvu.conv_smem_bytes("line", h, h, c, 3)
+    slices = plan.k_slices(k)
+    assert len(slices) == plan.splits and slices[0][0] == 0 and slices[-1][1] == k
+    assert all(lo < hi for lo, hi in slices)
+    assert all(a[1] == b_[0] for a, b_ in zip(slices, slices[1:]))
+    assert all(lo % swu_mvu.KSTEP == 0 for lo, _ in slices)
+    swu_mvu.conv_launch_plan.cache_clear()
+    assert swu_mvu.conv_launch_plan(b, h, h, c, n, 3) == plan
+    if b == 1 and h <= 30:  # conv1-conv5 at one image: too few tiles, so split K
+        assert plan.splits > 1
+
+
+# (B, H, W, C, N, Kd, stride, pad) of images whose line buffer does not fit
+# a block's shared memory: a row of 1,000 pixels at C = 256, a 224-wide
+# row at C = 512 (pad 1), and narrow channels (C = 12, C = 3) on rows of
+# 3,000 and 5,000 pixels
+WIDE_CONVS = [(1, 8, 1000, 256, 64, 3, 1, 0), (2, 6, 224, 512, 40, 3, 1, 1),
+              (1, 5, 3000, 12, 16, 3, 2, 1), (1, 4, 5000, 3, 8, 3, 1, 0)]
+
+
+@pytest.mark.parametrize("b,h,w,c,n,kd,stride,pad", WIDE_CONVS)
+def test_conv_launch_plan_gathers_where_the_line_buffer_does_not_fit(b, h, w, c, n, kd, stride,
+                                                                     pad):
+    """Such an image still gets a plan: the gather arrangement (A read tap
+    by tap from the image), with the ring's shared memory only, K slices
+    covering K once; and the wrapper runs it (here the plain version)."""
+    assert swu_mvu.conv_smem_bytes("line", h, w, c, kd, stride, pad) > 232448
+    plan = swu_mvu.conv_launch_plan(b, h, w, c, n, kd, stride, pad)
+    assert plan.arrangement == "gather"
+    assert plan.smem_bytes == swu_mvu.conv_smem_bytes("gather", h, w, c, kd, stride, pad)
+    assert plan.smem_bytes == 384 + 2112 + 12288
+    slices = plan.k_slices(kd * kd * c)
+    assert slices[0][0] == 0 and slices[-1][1] == kd * kd * c and 1 <= plan.splits <= 8
+    if c <= 12:  # a small image of the same geometry through the wrapper's CPU arm
+        g = torch.Generator().manual_seed(c)
+        x = torch.randint(-8, 300, (b, h, 40, c), generator=g, dtype=torch.int32)
+        wt = torch.randint(-2, 2, (n, kd * kd * c), generator=g, dtype=torch.int8)
+        got = swu_mvu.conv_mvu(x, wt, kernel=kd, stride=stride, pad=pad)
+        want = swu_mvu.conv_mvu_plain(x, wt, kernel=kd, stride=stride, pad=pad)
+        assert torch.equal(got, want)

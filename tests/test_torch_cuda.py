@@ -175,6 +175,106 @@ def test_conv_kernel_pads_and_strides(cuda, mode, kd, stride, pad):
         assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("mode", ["standard", "binary", "xnor"])
+@pytest.mark.parametrize("h,c,n", CNV_CONVS)
+def test_conv_kernel_plans_at_32_images(cuda, h, c, n, mode):
+    """32 images a launch: K split in a cluster (conv4, conv5) or not;
+    activations up to 299 wrap."""
+    plan = swu_mvu.conv_launch_plan(32, h, h, c, n, 3)
+    assert plan.splits >= 1 and plan.arrangement == "line" and plan.tile_m == 32
+    x, w, t, _ = _conv_operands(mode, 32, h, h, c, n, 3, cuda, seed=h + c + n)
+    got = swu_mvu.conv_mvu(x, w, t, kernel=3, mode=mode)
+    want = swu_mvu.conv_mvu_plain(x, w, t, kernel=3, mode=mode)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def _misaligned(t):
+    """The same values in a contiguous tensor that starts one element past
+    a 16-byte boundary: the kernels' narrow-load paths."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("mode", ["standard", "binary", "xnor"])
+@pytest.mark.parametrize("c", [4, 12, 40, 32])
+def test_conv_kernel_load_paths(cuda, mode, c):
+    """C % 4 == 0 but not % 32 (16-byte rows, per-tap decode), C % 32 == 0
+    (a step is one window tap), and both operands misaligned (the 4-byte
+    and byte loads), split and whole K, stride 2 and pad 1."""
+    for b, stride, pad in ((1, 1, 0), (6, 2, 1)):
+        x, w, t, _ = _conv_operands(mode, b, 11, 9, c, 40, 3, cuda, seed=c + b)
+        for xx, ww in ((x, w), (_misaligned(x), _misaligned(w))):
+            got = swu_mvu.conv_mvu(xx, ww, t, kernel=3, stride=stride, pad=pad, mode=mode)
+            want = swu_mvu.conv_mvu_plain(x, w, t, kernel=3, stride=stride, pad=pad,
+                                          mode=mode)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want)
+
+
+# images whose line buffer does not fit a block (test_torch_conv.WIDE_CONVS)
+WIDE_CONVS = [(1, 8, 1000, 256, 64, 3, 1, 0), (2, 6, 224, 512, 40, 3, 1, 1),
+              (1, 5, 3000, 12, 16, 3, 2, 1), (1, 4, 5000, 3, 8, 3, 1, 0)]
+
+
+@pytest.mark.parametrize("mode", ["standard", "binary", "xnor"])
+@pytest.mark.parametrize("b,h,w,c,n,kd,stride,pad", WIDE_CONVS)
+def test_conv_kernel_gather_equals_plain(cuda, b, h, w, c, n, kd, stride, pad, mode):
+    """The gather arrangement (A read tap by tap from the image) equals the
+    plain version: aligned and narrow channels, pad taps (xnor: -1), the
+    int8 wrap, K split or not, with the threshold and scale epilogues."""
+    plan = swu_mvu.conv_launch_plan(b, h, w, c, n, kd, stride, pad)
+    assert plan.arrangement == "gather"
+    x, wt, t, s = _conv_operands(mode, b, h, w, c, n, kd, cuda, seed=w + c)
+    for kw in ({"thresholds": t}, {"out_scale": s}):
+        got = swu_mvu.conv_mvu(x, wt, kernel=kd, stride=stride, pad=pad, mode=mode, **kw)
+        want = swu_mvu.conv_mvu_plain(x, wt, kernel=kd, stride=stride, pad=pad, mode=mode,
+                                      **kw)
+        torch.cuda.synchronize()
+        assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("epilogue", ["raw", "thresholds", "scale"])
+@pytest.mark.parametrize("k", [27, 64, 600, 2304])
+@pytest.mark.parametrize("m", [1, 9, 100, 128, 4096])
+def test_binary_arrangements_equal_plain(cuda, m, k, epilogue):
+    """Both arrangements (gemv at M <= 8, tiles above), with and without
+    split K, at a ragged N = 10."""
+    n = 10
+    plan = mvu_binary.binary_launch_plan(m, n, k)
+    assert plan.arrangement == ("gemv" if m <= 8 else "tiled")
+    g = torch.Generator().manual_seed(m + k)
+    a = torch.randint(-300, 300, (m, k), generator=g, dtype=torch.int32).to(cuda)
+    bits = torch.randint(0, 2, (n, k), generator=g, dtype=torch.int8).to(cuda)
+    _, _, t, s = _inputs(1, n, 1, 0, 1, cuda, seed=k)
+    kw = _epilogue_kw(epilogue, t * k, s)
+    launches = mvu_binary.LAUNCHES
+    got = mvu_binary.mvu_binary(a, bits, **kw)
+    assert mvu_binary.LAUNCHES == launches + 1
+    want = mvu_binary.mvu_binary_plain(a, bits, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("m", [1, 5, 128, 300])
+def test_binary_wraps_mod_2_32(cuda, m):
+    """int32 activations near 2^30 (and any int8 weight): the sums wrap mod
+    2^32 in both arrangements, through the cluster sum too; misaligned
+    operands take the narrow loads."""
+    g = torch.Generator().manual_seed(m)
+    a = torch.randint(2**30 - 2**20, 2**30, (m, 600), generator=g, dtype=torch.int32)
+    a[:, ::3] *= -1
+    w = torch.randint(-128, 128, (33, 600), generator=g, dtype=torch.int8)
+    a, w = a.to(cuda), w.to(cuda)
+    want = mvu_binary.mvu_binary_plain(a, w)
+    for aa, ww in ((a, w), (_misaligned(a), _misaligned(w))):
+        got = mvu_binary.mvu_binary(aa, ww)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("variant", ["xnor", "binary", "standard"])
 def test_cnv_engine_on_the_card(cuda, variant):
     golden = cnv_bnn.load_golden()[variant]
