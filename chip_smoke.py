@@ -8,9 +8,11 @@ Phases, each printing its own line(s); any failure exits non-zero:
 1. env     torch and CUDA versions, the card's name and power limit.
 2. build   the six kernels from ``src/repro_torch/kernels/csrc/`` (five
            sources): one nvcc per source, all started together, and beside
-           them ``nvcc -Xptxas -v`` on the two Hopper-designed sources
-           (``conv_mvu.cu``, ``mvu_binary.cu``): registers, shared memory
-           and spills of each kernel instance.
+           them ``nvcc -Xptxas -v`` on the four sources of the
+           Hopper-designed kernels (``conv_mvu.cu``, and ``mvu_int.cu``,
+           ``mvu_binary.cu``, ``mvu_packed.cu`` on the dense core
+           ``dense_mvu.cuh``): registers, shared memory and spills of each
+           kernel instance.
 3. kernel  ``mvu_int`` against ``mvu_int_plain`` on the card at every
            (N, K) of the NID path, M in {1, 3, 128, 4096}, and at the
            FULL CNV's dense (N, K) at M = 1 (its one image a microbatch),
@@ -25,15 +27,21 @@ Phases, each printing its own line(s); any failure exits non-zero:
            ``mvu_binary`` also at the CNV's dense shapes, M = 1),
            activations up to 299 (the packed kernels narrow them to int8
            with a wrap); the yardstick multiplies the unpacked +/-1 or
-           integer operands.  ``mvu_binary`` also at N = 10 (ragged),
-           M in {1, 9, 100, 128, 4096} x K in {27, 64, 600, 2304} (both
-           arrangements, with and without split K) and with activations
-           near 2^30 (the uint32 wrap).  The timed layers of ``mvu_binary``
-           and ``conv_mvu`` print their launch plan (arrangement, tile,
-           K splits = cluster size, dynamic shared memory).  Each layer is
-           timed with its own epilogue: thresholds (as many as its
-           variant's activation levels) or, on a classifier head, the
-           scale.
+           integer operands.  The timed layers of the three kernels on the
+           dense core and of ``conv_mvu`` print their launch plan
+           (arrangement, tile, K splits = cluster size, dynamic shared
+           memory).  Each layer is timed with its own epilogue: thresholds
+           (as many as its variant's activation levels) or, on a
+           classifier head, the scale.
+   kernel  the dense core's arrangements: ``mvu_int``, ``mvu_binary`` and
+           ``mvu_binary_packed`` at N = 10 (ragged), M in
+           {1, 9, 100, 128, 4096} x K in {27, 64, 600, 2304} (gemv and
+           tiled, with and without split K), activations in [-300, 300)
+           (the packed kernel's int8 wrap), all three epilogues;
+           ``mvu_int`` and ``mvu_binary`` with activations near 2^30 and
+           any int8 weight (the uint32 wrap); ``mvu_binary_packed`` with
+           every pad bit of the last word set and two words more a row
+           than K needs.
    kernel  ``conv_mvu`` against ``conv_mvu_plain`` at each of the FULL
            CNV's six conv shapes in the three modes, at 1 and 32 images,
            all three epilogues (1 image: K split in a cluster on
@@ -97,9 +105,10 @@ CONV_IMAGES = (1, 32)
 # (B, H, W, C, N, stride, pad) of images too wide for conv_mvu's line
 # buffer: checked, not timed (the gather arrangement)
 CONV_WIDE = [(1, 8, 1000, 256, 64, 1, 0), (1, 5, 3000, 12, 16, 2, 1)]
-PTXAS_SOURCES = ("conv_mvu.cu", "mvu_binary.cu")  # the kernels designed for Hopper
-BINARY_MS = (1, 9, 100, 128, 4096)  # mvu_binary's extra checks: both arrangements
-BINARY_KS = (27, 64, 600, 2304)
+# the sources of the kernels designed for Hopper
+PTXAS_SOURCES = ("conv_mvu.cu", "mvu_int.cu", "mvu_binary.cu", "mvu_packed.cu")
+DENSE_MS = (1, 9, 100, 128, 4096)  # the dense core's checks: both arrangements
+DENSE_KS = (27, 64, 600, 2304)
 CNV_DENSE_M = 1  # images a CNV microbatch: the dense layers' M on that path
 CNV_BATCH = 256  # images per acc(x) for the images/s line
 
@@ -158,6 +167,37 @@ def plan_text(plan) -> str:
     """A launch plan as printed beside a time."""
     return (f"plan={plan.arrangement} {plan.tile_m}x{plan.tile_n} splits={plan.splits} "
             f"smem={plan.smem_bytes}")
+
+
+def dense_plan_text(name: str, m: int, n: int, k: int) -> str:
+    """The launch plan of a kernel on the dense core at (M, N, K)."""
+    from repro_torch.kernels.dense_mvu import CODING, dense_launch_plan
+
+    return plan_text(dense_launch_plan(m, n, k, CODING[name]))
+
+
+def dense_case(name, m, n, k, g, dev):
+    """Operands of one check of a kernel on the dense core:
+    ``(wrapper, plain, args)``, both taking ``*args`` plus the epilogue.
+    Activations in [-300, 300) (the packed kernel narrows them with a
+    wrap); ``mvu_int`` takes any int8 weight, the binary kernels {0,1}."""
+    import torch
+
+    from repro_torch.kernels import mvu_binary as B, mvu_int as K, mvu_packed as P
+    from repro_torch.kernels import packing
+
+    a = torch.randint(-300, 300, (m, k), generator=g, dtype=torch.int32)
+    if name == "mvu_int":
+        w = torch.randint(-128, 128, (n, k), generator=g, dtype=torch.int8)
+        fn, plain, args = K.mvu_int, K.mvu_int_plain, (a, w)
+    else:
+        bits = torch.randint(0, 2, (n, k), generator=g, dtype=torch.int8)
+        if name == "mvu_binary":
+            fn, plain, args = B.mvu_binary, B.mvu_binary_plain, (a, bits)
+        else:
+            fn, plain = P.mvu_binary_packed, P.mvu_binary_packed_plain
+            args = (a, packing.pack_bits(bits), k)
+    return fn, plain, tuple(x.to(dev) if isinstance(x, torch.Tensor) else x for x in args)
 
 
 def acc_seconds(acc, x, trials: int = 7) -> float:
@@ -310,8 +350,9 @@ def main() -> int:
 
     from repro_torch.configs import cnv_bnn, golden as golden_mod, nid_mlp
     from repro_torch.data import nid
-    from repro_torch.kernels import _cuda, ops
-    from repro_torch.kernels import mvu_binary as B, mvu_int as K, swu_mvu as C
+    from repro_torch.kernels import _cuda, dense_mvu, ops, packing
+    from repro_torch.kernels import mvu_binary as B, mvu_int as K, mvu_packed as P
+    from repro_torch.kernels import swu_mvu as C
 
     path_nk = sorted({(n, k) for k, n, _, _ in nid_mlp.LAYERS}, reverse=True)
     cnv_golden = cnv_bnn.load_golden()
@@ -360,7 +401,7 @@ def main() -> int:
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(0)
     max_err = dict.fromkeys(KERNELS, 0.0)
-    n_checked = 0
+    checked = dict.fromkeys(KERNELS, 0)
     # (kernel, m, n, k) -> (kernel, plain, library, bound) ms on the layer's own
     # epilogue, and what bounds it ("bytes" or "operations")
     timing = {}
@@ -383,7 +424,7 @@ def main() -> int:
                       f"mvu_int != mvu_int_plain at M={m} N={n} K={k} "
                       f"w in [{lo},{hi}) thresholds={t is not None} scale={s is not None}")
                 max_err["mvu_int"] = max(max_err["mvu_int"], err(got, want))
-                n_checked += 1
+                checked["mvu_int"] += 1
         # time the layer as the path runs it: 2-bit weights, its own epilogue
         w = torch.randint(-1, 2, (n, k), generator=g, dtype=torch.int8).to(dev)
         t, s = (thr, None) if n_thr else (None, scale)
@@ -405,12 +446,9 @@ def main() -> int:
         print(f"kernel: mvu_int M={m} N={n} K={k} "
               f"{f'{n_thr} thresholds' if t is not None else 'scale'}: "
               f"ms={kms:.5f} plain_ms={pms:.5f} library_ms={lms:.5f} "
-              f"bound_ms={bms:.6f} ({bby})", flush=True)
-    print(f"kernel: mvu_int: {n_checked} checks equal to the plain version, "
-          f"max_abs_err={max_err['mvu_int']}", flush=True)
+              f"bound_ms={bms:.6f} ({bby}) {dense_plan_text('mvu_int', m, n, k)}", flush=True)
 
     for name in ("mvu_xnor", "mvu_binary", "mvu_binary_packed", "mvu_int2_packed"):
-        n_checked = 0
         for m, n, k, n_thr in dense_cases(name, NEW_KERNEL_MS):
             thr = torch.sort(torch.randint(-300 * k, 300 * k, (n, n_thr or 3), generator=g,
                                            dtype=torch.int32), dim=1).values.to(dev)
@@ -424,7 +462,7 @@ def main() -> int:
                       f"{name} != its plain version at M={m} N={n} K={k} "
                       f"thresholds={t is not None} scale={s is not None}")
                 max_err[name] = max(max_err[name], err(got, want))
-                n_checked += 1
+                checked[name] += 1
             t, s = (thr, None) if n_thr else (None, scale)
             tf = None if t is None else t.float()
 
@@ -441,48 +479,66 @@ def main() -> int:
             bms, bby = bound_of(nbytes + (t.numel() if t is not None else n) * 4
                                 + m * n * 4, 2 * m * n * k)
             timing[(name, m, n, k)] = (kms, pms, lms, bms, bby)
-            plan_s = (f" {plan_text(B.binary_launch_plan(m, n, k))}" if name == "mvu_binary"
-                      else "")
+            plan_s = f" {dense_plan_text(name, m, n, k)}" if name in dense_mvu.CODING else ""
             print(f"kernel: {name} M={m} N={n} K={k} "
                   f"{f'{n_thr} thresholds' if t is not None else 'scale'}: "
                   f"ms={kms:.5f} plain_ms={pms:.5f} library_ms={lms:.5f} "
                   f"bound_ms={bms:.6f} ({bby}){plan_s}", flush=True)
-        if name == "mvu_binary":
-            # both arrangements, split K or not, at a ragged N; then the wrap
-            n = 10
-            for m in BINARY_MS:
-                for k in BINARY_KS:
-                    a = torch.randint(-300, 300, (m, k), generator=g, dtype=torch.int32)
-                    bits = torch.randint(0, 2, (n, k), generator=g, dtype=torch.int8)
-                    thr = torch.sort(torch.randint(-300 * k, 300 * k, (n, 3), generator=g,
-                                                   dtype=torch.int32), dim=1).values
-                    scale = torch.rand(n, generator=g) + 0.01
-                    a, bits, thr, scale = (v.to(dev) for v in (a, bits, thr, scale))
-                    for t, s in ((None, None), (thr, None), (None, scale)):
-                        got = B.mvu_binary(a, bits, t, s)
-                        want = B.mvu_binary_plain(a, bits, t, s)
-                        torch.cuda.synchronize()
-                        check(got.dtype == want.dtype and torch.equal(got, want),
-                              f"mvu_binary != its plain version at M={m} N={n} K={k} "
-                              f"({plan_text(B.binary_launch_plan(m, n, k))}) "
-                              f"thresholds={t is not None} scale={s is not None}")
-                        max_err[name] = max(max_err[name], err(got, want))
-                        n_checked += 1
-            for m in (1, 128):
-                a = torch.randint(2**30 - 2**20, 2**30, (m, 600), generator=g,
-                                  dtype=torch.int32)
-                a[:, ::3] *= -1
-                w = torch.randint(-128, 128, (33, 600), generator=g, dtype=torch.int8)
-                a, w = a.to(dev), w.to(dev)
-                got, want = B.mvu_binary(a, w), B.mvu_binary_plain(a, w)
-                torch.cuda.synchronize()
-                check(torch.equal(got, want), f"mvu_binary does not wrap mod 2^32 like its "
-                      f"plain version at M={m} with activations near 2^30")
-                max_err[name] = max(max_err[name], err(got, want))
-                n_checked += 1
-        print(f"kernel: {name}: {n_checked} checks equal to the plain version, "
-              f"max_abs_err={max_err[name]}", flush=True)
 
+    # the dense core: both arrangements, split K or not, at a ragged N
+    n = 10
+    for name in dense_mvu.CODING:
+        for m in DENSE_MS:
+            for k in DENSE_KS:
+                thr = torch.sort(torch.randint(-300 * k, 300 * k, (n, 3), generator=g,
+                                               dtype=torch.int32), dim=1).values.to(dev)
+                if name == "mvu_int":  # products of full int8 weights
+                    thr *= 128
+                scale = (torch.rand(n, generator=g) + 0.01).to(dev)
+                fn, plain, args = dense_case(name, m, n, k, g, dev)
+                for t, s in ((None, None), (thr, None), (None, scale)):
+                    got, want = fn(*args, t, s), plain(*args, t, s)
+                    torch.cuda.synchronize()
+                    check(got.dtype == want.dtype and torch.equal(got, want),
+                          f"{name} != its plain version at M={m} N={n} K={k} "
+                          f"({dense_plan_text(name, m, n, k)}) "
+                          f"thresholds={t is not None} scale={s is not None}")
+                    max_err[name] = max(max_err[name], err(got, want))
+                    checked[name] += 1
+    # the uint32 wrap: activations near 2^30, any int8 weight, both arrangements
+    for name, fn, plain in (("mvu_int", K.mvu_int, K.mvu_int_plain),
+                            ("mvu_binary", B.mvu_binary, B.mvu_binary_plain)):
+        for m in (1, 128):
+            a = torch.randint(2**30 - 2**20, 2**30, (m, 600), generator=g, dtype=torch.int32)
+            a[:, ::3] *= -1
+            w = torch.randint(-128, 128, (33, 600), generator=g, dtype=torch.int8)
+            a, w = a.to(dev), w.to(dev)
+            got, want = fn(a, w), plain(a, w)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), f"{name} does not wrap mod 2^32 like its "
+                  f"plain version at M={m} with activations near 2^30")
+            max_err[name] = max(max_err[name], err(got, want))
+            checked[name] += 1
+    # bitplanes whose pad bits are all 1, two words more a row than K needs
+    for m in (1, 9, 128):
+        for k in (27, 600):
+            a = torch.randint(-300, 300, (m, k), generator=g, dtype=torch.int32)
+            bits = torch.randint(0, 2, (33, k), generator=g, dtype=torch.int8)
+            wp = packing.pack_bits_pad_set(bits, 2, g)
+            thr = torch.sort(torch.randint(-300 * k, 300 * k, (33, 3), generator=g,
+                                           dtype=torch.int32), dim=1).values
+            a, wp, thr = a.to(dev), wp.to(dev), thr.to(dev)
+            for t in (None, thr):
+                got = P.mvu_binary_packed(a, wp, k, t)
+                want = P.mvu_binary_packed_plain(a, wp, k, t)
+                torch.cuda.synchronize()
+                check(torch.equal(got, want), f"mvu_binary_packed counts pad bits at M={m} "
+                      f"K={k} Wd={wp.shape[1]} ({dense_plan_text('mvu_binary_packed', m, 33, k)})")
+                max_err["mvu_binary_packed"] = max(max_err["mvu_binary_packed"], err(got, want))
+                checked["mvu_binary_packed"] += 1
+    for name in ("mvu_int", "mvu_xnor", "mvu_binary", "mvu_binary_packed", "mvu_int2_packed"):
+        print(f"kernel: {name}: {checked[name]} checks equal to the plain version, "
+              f"max_abs_err={max_err[name]}", flush=True)
 
     # conv_mvu at the FULL CNV's six conv shapes, three modes, 1 and 32 images
     n_checked = 0

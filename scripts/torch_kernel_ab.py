@@ -1,5 +1,7 @@
-"""Device times of ``conv_mvu`` and ``mvu_binary``, and the end-to-end rates,
-of one source tree, for A/B runs of two trees on one card.
+"""Device times of ``conv_mvu`` and the three kernels on the dense core
+(``mvu_binary``, ``mvu_int``, ``mvu_binary_packed``), their ptxas reports,
+and the end-to-end rates, of one source tree, for A/B runs of two trees on
+one card.
 
 Usage (from the repo root, on a machine with an NVIDIA GPU and nvcc):
     python scripts/torch_kernel_ab.py <src dir> <label> --out FILE
@@ -55,7 +57,8 @@ def main() -> int:
 
     from repro_torch.configs import cnv_bnn, nid_mlp
     from repro_torch.data import nid
-    from repro_torch.kernels import _cuda, mvu_binary as B, packing, ops, swu_mvu as C
+    from repro_torch.kernels import _cuda, mvu_binary as B, mvu_int as K, mvu_packed as P
+    from repro_torch.kernels import packing, ops, swu_mvu as C
 
     if not torch.cuda.is_available():
         raise SystemExit("torch_kernel_ab: no CUDA device")
@@ -98,17 +101,39 @@ def main() -> int:
                                      us=host_us(fn)))
     dense = [(1, n, k) for n, k in smoke.dense_shapes(cnv_bnn.FULL)]
     dense += [(m, n, k) for m in (128, 4096) for k, n, _, _ in nid_mlp.LAYERS]
-    for m, n, k in dense:
-        a = torch.randint(0, 4, (m, k), generator=g, dtype=torch.int32).to(dev)
-        w = torch.randint(0, 2, (n, k), generator=g, dtype=torch.int8).to(dev)
-        t = torch.sort(torch.randint(-300, 300, (n, 3), generator=g, dtype=torch.int32),
-                       1).values.to(dev)
-        s = (torch.rand(n, generator=g) + 0.01).to(dev)
-        fn = ((lambda: B.mvu_binary(a, w, None, s)) if n in (1, 10)
-              else (lambda: B.mvu_binary(a, w, t)))
-        rows.append(dict(kernel="mvu_binary", m=m, n=n, k=k, ms=ms(fn)))
-        if (m, n, k) in ((1, 512, 256), (128, 64, 600)):
-            rows.append(dict(host="mvu_binary", m=m, n=n, k=k, us=host_us(fn)))
+    for kernel in ("mvu_binary", "mvu_int", "mvu_binary_packed"):
+        for m, n, k in dense:
+            a = torch.randint(0, 4, (m, k), generator=g, dtype=torch.int32)
+            if kernel == "mvu_int":
+                w = torch.randint(-1, 2, (n, k), generator=g, dtype=torch.int8)
+                fn, wf = K.mvu_int, w.float()
+            else:
+                w = torch.randint(0, 2, (n, k), generator=g, dtype=torch.int8)
+                wf = 2 * w.float() - 1
+                if kernel == "mvu_binary":
+                    fn = B.mvu_binary
+                else:
+                    w = packing.pack_bits(w)
+                    fn = lambda a, w, t, s, k=k: P.mvu_binary_packed(a, w, k, t, s)  # noqa: E731
+            t = torch.sort(torch.randint(-300, 300, (n, 3), generator=g, dtype=torch.int32),
+                           1).values
+            s = torch.rand(n, generator=g) + 0.01
+            a, w, t, s, af, wf = (v.to(dev) for v in (a, w, t, s, a.float(), wf))
+            t, s = (None, s) if n in (1, 10) else (t, None)
+            tf = None if t is None else t.float()
+
+            def library(af=af, wf=wf, tf=tf, s=s):
+                c = torch.matmul(af, wf.T)
+                return ((c[:, :, None] >= tf[None]).sum(-1, dtype=torch.int32)
+                        if tf is not None else c * s)
+
+            run = lambda: fn(a, w, t, s)  # noqa: E731
+            rows.append(dict(kernel=kernel, m=m, n=n, k=k, ms=ms(run), library_ms=ms(library)))
+            if (m, n, k) in ((1, 512, 256), (128, 64, 600)):
+                rows.append(dict(host=kernel, m=m, n=n, k=k, us=host_us(run)))
+    for source in ("mvu_binary.cu", "mvu_int.cu", "mvu_packed.cu"):
+        for line in smoke.ptxas_lines(_cuda.ptxas_report(source)):
+            rows.append(dict(ptxas=source, line=line))
 
     for variant, gd in sorted(nid_mlp.load_golden().items()):
         acc = smoke.nid_accelerator(gd)

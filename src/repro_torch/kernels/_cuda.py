@@ -4,11 +4,13 @@ Each kernel source in ``csrc/`` (``mvu_int.cu``, ``mvu_xnor.cu``, ...) is
 compiled with ``nvcc`` into a shared library of its own, at first use,
 into ``_build/`` beside this file, and loaded with ``ctypes``.  A library
 is ``<source>.cu`` plus ``binding.cpp`` (the error-string helper); the
-sources include ``epilogue.cuh`` and either ``mvu_tile.cuh`` (the shared K
-loop of the first kernels) or ``cluster_reduce.cuh`` (cp.async and the
-cluster split K of the Hopper-designed ``conv_mvu`` and ``mvu_binary``).
-The library's name carries a hash of those files and the flags, so an
-edited source never loads a stale build.
+sources include ``epilogue.cuh`` and, besides it, ``mvu_tile.cuh`` (the
+shared K loop that ``mvu_xnor`` and ``mvu_int2_packed`` still run),
+``cluster_reduce.cuh`` (cp.async and the cluster split K of the
+Hopper-designed kernels) or ``dense_mvu.cuh`` (the CUDA-core dense core,
+on ``cluster_reduce.cuh``, of ``mvu_int``, ``mvu_binary`` and
+``mvu_binary_packed``).  The library's name carries a hash of those files
+and the flags, so an edited source never loads a stale build.
 :func:`build_all` starts one ``nvcc`` per source at once.
 
 Every MVU kernel exports one C function of the same shape::
@@ -17,9 +19,10 @@ Every MVU kernel exports one C function of the same shape::
                        const void* scale, void* out, int m, int n, int k,
                        int w_cols, int n_thr, int epilogue, void* stream)
 
-(:meth:`Library.launch`); ``mvu_binary``'s adds its launch plan (the
-``plan`` of :meth:`Library.launch`), and the conv kernel's takes the image
-geometry and its plan (``kernels/swu_mvu.py``, through
+(:meth:`Library.launch`, ``ARGTYPES``); the three on ``dense_mvu.cuh``
+add their launch plan before the stream (the ``plan`` of
+:meth:`Library.launch`, ``PLAN_ARGTYPES``), and the conv kernel's takes
+the image geometry and its plan (``kernels/swu_mvu.py``, through
 :meth:`Library.run`).  Each returns the launch's CUDA error code.
 Importing this module builds nothing and imports nothing CUDA-only.
 """
@@ -42,7 +45,7 @@ BLOCK_K = 32  # synapses per K step (32-bit words for the xnor kernel)
 THREADS = 256
 
 # The Hopper-designed kernels' launch plans (kernels/swu_mvu.py,
-# kernels/mvu_binary.py; csrc/cluster_reduce.cuh): shared memory a block
+# kernels/dense_mvu.py; csrc/cluster_reduce.cuh): shared memory a block
 # can opt into on the H100, the portable cluster size, and the blocks that
 # fill the card (two on each of its 132 SMs).
 SMEM_BYTES = 232448
@@ -51,9 +54,12 @@ FILL_BLOCKS = 2 * 132
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
-_SHARED = ("binding.cpp", "epilogue.cuh", "mvu_tile.cuh", "cluster_reduce.cuh")
+_SHARED = ("binding.cpp", "epilogue.cuh", "mvu_tile.cuh", "cluster_reduce.cuh",
+           "dense_mvu.cuh")
 EPILOGUE = {"raw": 0, "thresholds": 1, "scale": 2}
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+# the MVU entry point's arguments, and with a launch plan (five ints)
+ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+PLAN_ARGTYPES = ARGTYPES[:-1] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
 def split_k(tiles: int, steps: int) -> int:
@@ -91,13 +97,12 @@ def _nvcc() -> str:
 
 
 class Library:
-    """One kernel source's shared library: its path, build and C functions."""
+    """One kernel source's shared library: its path, build and C functions
+    (``functions`` maps each function's name to its ctypes argtypes)."""
 
-    def __init__(self, source: str, functions: tuple[str, ...],
-                 argtypes: list = _ARGTYPES):
+    def __init__(self, source: str, functions: dict[str, list]):
         self.source = source
         self.functions = functions
-        self.argtypes = argtypes
         self._lib = None
         self._lock = threading.Lock()
 
@@ -141,8 +146,8 @@ class Library:
         with self._lock:
             if self._lib is None:
                 lib = ctypes.CDLL(self.build())
-                for fn in self.functions:
-                    getattr(lib, fn).argtypes = self.argtypes
+                for fn, argtypes in self.functions.items():
+                    getattr(lib, fn).argtypes = argtypes
                     getattr(lib, fn).restype = ctypes.c_int
                 lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
                 lib.repro_cuda_error_string.restype = ctypes.c_char_p

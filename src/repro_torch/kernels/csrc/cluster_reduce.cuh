@@ -1,4 +1,5 @@
-// What the Hopper-designed kernels (conv_mvu.cu, mvu_binary.cu) share:
+// What the Hopper-designed kernels (conv_mvu.cu, and the dense core
+// dense_mvu.cuh of mvu_int.cu, mvu_binary.cu and mvu_packed.cu) share:
 // asynchronous copies into shared memory, the K slices of split K, the
 // sum of those slices through a thread-block cluster's distributed shared
 // memory, and the epilogue of one output at a time (epilogue.cuh's

@@ -1,6 +1,7 @@
-// What the five MVU kernels share: the tile they are compiled for, the
-// MVTU epilogue after the int32 accumulator, and the launch dispatch over
-// the epilogue (their shared K loop is mvu_tile.cuh).
+// The MVTU epilogue after the int32 accumulator, which every MVU kernel
+// runs, and what the two kernels on the shared K loop (mvu_tile.cuh:
+// mvu_xnor, mvu_int2_packed) also share: the tile they are compiled for
+// and the launch dispatch over the epilogue.
 //
 //   thresholds (N, T) int32   out = sum_t (acc >= T[n, t])   (int32 levels)
 //   scale      (N,) float32   out = float(acc) * s[n]        (float32)
@@ -9,7 +10,7 @@
 // This is the JAX package's shared epilogue (src/repro/kernels/_common.py::
 // epilogue_value); the plain PyTorch twin is repro_torch/kernels/_common.py.
 //
-// Every kernel is a 2-D grid of BM x BN output tiles (block (x, y) owns
+// Each kernel on the K loop is a 2-D grid of BM x BN output tiles (block (x, y) owns
 // rows x*BM.. and columns y*BN..).  A block's THREADS threads each own an
 // RM x RN register tile of outputs (rows ty + i*TY, columns tx + j*TX)
 // and hand it to store_tile at the end.  Tile sizes come from the Python

@@ -1,4 +1,5 @@
-// The K loop all five MVU kernels share (the epilogue is epilogue.cuh).
+// The K loop of the two MVU kernels not yet redesigned for Hopper,
+// mvu_xnor and mvu_int2_packed (the epilogue is epilogue.cuh).
 //
 // One block accumulates its BM x BN output tile of
 //
@@ -10,10 +11,9 @@
 // consecutive n -- avoid bank conflicts), then each thread folds op over
 // its RM x RN register tile.  load_a(gm, gk) and load_w(gn, gk) return one
 // synapse as 32 bits and are called only in range; a synapse past K reads
-// as 0 from A and as w_pad from W, and op(0, w_pad) must be 0.  With
-// ROWSUM, rowsum[i] also sums the thread's A rows (the binary datapaths'
-// 2 * dot - rowsum).  Sums are uint32, where wraparound is defined: the
-// int32 wrap of XLA's integer dot.
+// as 0 from A and as w_pad from W, and op(0, w_pad) must be 0.  Sums are
+// uint32, where wraparound is defined: the int32 wrap of XLA's integer
+// dot.
 //
 // One step's loads, barrier and BK rounds run with no overlap, on a grid
 // as small as ceil(M/BM) x ceil(N/BN) blocks: at the NID shapes that
@@ -25,10 +25,9 @@
 
 namespace repro {
 
-template <bool ROWSUM, typename LoadA, typename LoadW, typename Op>
+template <typename LoadA, typename LoadW, typename Op>
 __device__ __forceinline__ void mvu_tile(int m, int n, int k, LoadA load_a, LoadW load_w,
-                                         uint32_t w_pad, Op op, uint32_t (&acc)[RM][RN],
-                                         uint32_t (&rowsum)[RM]) {
+                                         uint32_t w_pad, Op op, uint32_t (&acc)[RM][RN]) {
   __shared__ uint32_t as[BK][BM + 1];
   __shared__ uint32_t ws[BK][BN + 1];
 
@@ -39,11 +38,9 @@ __device__ __forceinline__ void mvu_tile(int m, int n, int k, LoadA load_a, Load
   const int n0 = static_cast<int>(blockIdx.y) * BN;
 
 #pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    rowsum[i] = 0u;
+  for (int i = 0; i < RM; ++i)
 #pragma unroll
     for (int j = 0; j < RN; ++j) acc[i][j] = 0u;
-  }
 
   for (int k0 = 0; k0 < k; k0 += BK) {
     for (int idx = tid; idx < BM * BK; idx += THREADS) {
@@ -61,10 +58,7 @@ __device__ __forceinline__ void mvu_tile(int m, int n, int k, LoadA load_a, Load
     for (int kk = 0; kk < BK; ++kk) {
       uint32_t av[RM], wv[RN];
 #pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        av[i] = as[kk][ty + i * TY];
-        if (ROWSUM) rowsum[i] += av[i];
-      }
+      for (int i = 0; i < RM; ++i) av[i] = as[kk][ty + i * TY];
 #pragma unroll
       for (int j = 0; j < RN; ++j) wv[j] = ws[kk][tx + j * TX];
 #pragma unroll

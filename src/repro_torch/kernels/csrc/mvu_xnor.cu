@@ -46,11 +46,11 @@ __global__ void __launch_bounds__(THREADS)
 mvu_xnor_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ w,
                 const int32_t* __restrict__ thr, const float* __restrict__ scale,
                 void* __restrict__ out, int m, int n, int k_bits, int wd, int n_thr) {
-  uint32_t acc[RM][RN], rowsum[RM];
-  mvu_tile<false>(
+  uint32_t acc[RM][RN];
+  mvu_tile(
       m, n, wd, [&](int gm, int gw) { return a[static_cast<size_t>(gm) * wd + gw]; },
       [&](int gn, int gw) { return w[static_cast<size_t>(gn) * wd + gw]; }, ~0u, XnorPopc{},
-      acc, rowsum);
+      acc);
   // bipolar dot over the true K bits (packing.pad_correction)
   const int32_t correction = 2 * wd * 32 - k_bits;
   store_tile<EPI>(

@@ -3,9 +3,12 @@
 ``mvu_int`` computes ``out[M, N] = epilogue(A[M, K] . W[N, K]^T)`` with an
 int32 accumulator.  It replaces ``src/repro/kernels/mvu_int.py::
 mvu_int_pallas`` (``pallas_call`` at line 110).  The kernel source,
-``csrc/mvu_int.cu``, says what bounds it on the card at the NID path's
-shapes (the latency of its serial K loop on a small grid) and what a later
-design does about that.
+``csrc/mvu_int.cu``, runs the dense core of ``csrc/dense_mvu.cuh`` with
+int8 weight rows and the activations as they are; it says what bounds it
+on the card at the main path's shapes (latency) and what the two
+arrangements of :func:`~repro_torch.kernels.dense_mvu.dense_launch_plan`
+(a warp a column at M <= 8; ``cp.async`` tiles with cluster split K
+above) do about that.
 
 * A CUDA tensor launches the kernel, or the wrapper raises.  There is no
   fallback: only a tensor the caller put on the CPU takes the plain
@@ -22,9 +25,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels._common import check_operands, epilogue_value, int_dot
-from repro_torch.kernels._cuda import Library
+from repro_torch.kernels._cuda import PLAN_ARGTYPES, Library
+from repro_torch.kernels.dense_mvu import CODING, dense_launch_plan
 
-LIB = Library("mvu_int.cu", ("repro_mvu_int",))
+LIB = Library("mvu_int.cu", {"repro_mvu_int": PLAN_ARGTYPES})
 
 # Kernel launches since import (or since a caller reset it to 0).
 LAUNCHES = 0
@@ -45,8 +49,9 @@ def mvu_int(a: torch.Tensor, w: torch.Tensor,
     a, epi = check_operands("mvu_int", a, w, thresholds, out_scale, w_dtype=torch.int8)
     if a.device.type == "cpu":
         return mvu_int_plain(a, w, thresholds, out_scale)
-    out = LIB.launch("repro_mvu_int", a, w, thresholds, out_scale, epi,
-                     n=w.shape[0], k=a.shape[1])
+    (m, k), n = a.shape, w.shape[0]
+    out = LIB.launch("repro_mvu_int", a, w, thresholds, out_scale, epi, n=n, k=k,
+                     plan=dense_launch_plan(m, n, k, CODING["mvu_int"]).c_args)
     if out.numel():  # an empty output launches nothing
         LAUNCHES += 1
     return out

@@ -19,9 +19,9 @@ import torch
 from repro_torch.kernels import packing
 from repro_torch.kernels import _common
 from repro_torch.kernels._common import check_operands, epilogue_value
-from repro_torch.kernels._cuda import Library
+from repro_torch.kernels._cuda import ARGTYPES, Library
 
-LIB = Library("mvu_xnor.cu", ("repro_mvu_xnor",))
+LIB = Library("mvu_xnor.cu", {"repro_mvu_xnor": ARGTYPES})
 
 # Kernel launches since import (or since a caller reset it to 0).
 LAUNCHES = 0

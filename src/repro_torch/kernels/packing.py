@@ -77,6 +77,21 @@ def pack_bits(bits: torch.Tensor) -> torch.Tensor:
     return _to_int32_bits((b << shifts).sum(-1))
 
 
+def pack_bits_pad_set(bits: torch.Tensor, extra_words: int,
+                      generator: torch.Generator | None = None) -> torch.Tensor:
+    """``pack_bits(bits)`` for (N, K) {0,1} bits with every pad bit of the
+    last word set to 1 and ``extra_words`` random words more a row: a
+    bitplane operand (``Wd > ceil(K/32)``) of which a kernel must count
+    neither part."""
+    n, k = bits.shape
+    words = pack_bits(bits)
+    if k % WORD_BITS:
+        words[:, -1] |= -(1 << (k % WORD_BITS))  # the bits past K, as an int32 pattern
+    extra = torch.randint(-2**31, 2**31 - 1, (n, extra_words), generator=generator,
+                          dtype=torch.int32)
+    return torch.cat([words, extra.to(words.device)], 1).contiguous()
+
+
 def unpack_bits(words: torch.Tensor, count: int) -> torch.Tensor:
     """Inverse of :func:`pack_bits`: (..., W) words -> (..., count) int32 in {0,1}.
 

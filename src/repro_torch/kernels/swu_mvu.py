@@ -51,8 +51,8 @@ from repro_torch.kernels._cuda import (
 
 MODES = ("standard", "binary", "xnor")
 
-LIB = Library("conv_mvu.cu", ("repro_conv_mvu",),
-              argtypes=[ctypes.c_void_p] * 5 + [ctypes.c_int] * 15 + [ctypes.c_void_p])
+LIB = Library("conv_mvu.cu", {
+    "repro_conv_mvu": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 15 + [ctypes.c_void_p]})
 
 # The kernel's fixed shape (csrc/conv_mvu.cu): 32 pixels x 32 output
 # channels a block, K stepped 32 taps (one mma k) at a time; in shared

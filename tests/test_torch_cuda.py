@@ -11,7 +11,8 @@ import torch
 from repro_torch.build import build
 from repro_torch.configs import cnv_bnn, golden as golden_mod, nid_mlp
 from repro_torch.data import nid
-from repro_torch.kernels import mvu_binary, mvu_int as K, mvu_packed, mvu_xnor, ops, packing
+from repro_torch.kernels import dense_mvu, mvu_binary, mvu_int as K, mvu_packed, mvu_xnor
+from repro_torch.kernels import ops, packing
 from repro_torch.kernels import swu_mvu
 
 pytestmark = pytest.mark.cuda
@@ -236,30 +237,46 @@ def test_conv_kernel_gather_equals_plain(cuda, b, h, w, c, n, kd, stride, pad, m
         assert got.dtype == want.dtype and torch.equal(got, want)
 
 
+def _dense_operands(kernel, a, g, n, k):
+    """(wrapper, plain, args) of a kernel on the dense core: mvu_int takes
+    any int8 weight, the binary kernels {0,1} (bitplanes for the packed)."""
+    if kernel == "mvu_int":
+        w = torch.randint(-128, 128, (n, k), generator=g, dtype=torch.int8).to(a.device)
+        return K.mvu_int, K.mvu_int_plain, (a, w)
+    bits = torch.randint(0, 2, (n, k), generator=g, dtype=torch.int8).to(a.device)
+    if kernel == "mvu_binary":
+        return mvu_binary.mvu_binary, mvu_binary.mvu_binary_plain, (a, bits)
+    return (mvu_packed.mvu_binary_packed, mvu_packed.mvu_binary_packed_plain,
+            (a, packing.pack_bits(bits), k))
+
+
+@pytest.mark.parametrize("kernel", sorted(dense_mvu.CODING))
 @pytest.mark.parametrize("epilogue", ["raw", "thresholds", "scale"])
 @pytest.mark.parametrize("k", [27, 64, 600, 2304])
 @pytest.mark.parametrize("m", [1, 9, 100, 128, 4096])
-def test_binary_arrangements_equal_plain(cuda, m, k, epilogue):
-    """Both arrangements (gemv at M <= 8, tiles above), with and without
-    split K, at a ragged N = 10."""
+def test_dense_arrangements_equal_plain(cuda, m, k, epilogue, kernel):
+    """Both arrangements of the dense core (gemv at M <= 8, tiles above),
+    with and without split K, at a ragged N = 10, for its three kernels;
+    activations in [-300, 300) (the packed kernel's int8 wrap)."""
     n = 10
-    plan = mvu_binary.binary_launch_plan(m, n, k)
+    plan = dense_mvu.dense_launch_plan(m, n, k, dense_mvu.CODING[kernel])
     assert plan.arrangement == ("gemv" if m <= 8 else "tiled")
     g = torch.Generator().manual_seed(m + k)
     a = torch.randint(-300, 300, (m, k), generator=g, dtype=torch.int32).to(cuda)
-    bits = torch.randint(0, 2, (n, k), generator=g, dtype=torch.int8).to(cuda)
+    fn, plain, args = _dense_operands(kernel, a, g, n, k)
     _, _, t, s = _inputs(1, n, 1, 0, 1, cuda, seed=k)
-    kw = _epilogue_kw(epilogue, t * k, s)
-    launches = mvu_binary.LAUNCHES
-    got = mvu_binary.mvu_binary(a, bits, **kw)
-    assert mvu_binary.LAUNCHES == launches + 1
-    want = mvu_binary.mvu_binary_plain(a, bits, **kw)
+    kw = _epilogue_kw(epilogue, t * k * (128 if kernel == "mvu_int" else 1), s)
+    launches = ops.launch_counts()[kernel]
+    got = fn(*args, **kw)
+    assert ops.launch_counts()[kernel] == launches + 1
+    want = plain(*args, **kw)
     torch.cuda.synchronize()
     assert got.dtype == want.dtype and torch.equal(got, want)
 
 
+@pytest.mark.parametrize("kernel", ["mvu_int", "mvu_binary"])
 @pytest.mark.parametrize("m", [1, 5, 128, 300])
-def test_binary_wraps_mod_2_32(cuda, m):
+def test_dense_wraps_mod_2_32(cuda, m, kernel):
     """int32 activations near 2^30 (and any int8 weight): the sums wrap mod
     2^32 in both arrangements, through the cluster sum too; misaligned
     operands take the narrow loads."""
@@ -268,11 +285,33 @@ def test_binary_wraps_mod_2_32(cuda, m):
     a[:, ::3] *= -1
     w = torch.randint(-128, 128, (33, 600), generator=g, dtype=torch.int8)
     a, w = a.to(cuda), w.to(cuda)
-    want = mvu_binary.mvu_binary_plain(a, w)
+    fn, plain = ((K.mvu_int, K.mvu_int_plain) if kernel == "mvu_int"
+                 else (mvu_binary.mvu_binary, mvu_binary.mvu_binary_plain))
+    want = plain(a, w)
     for aa, ww in ((a, w), (_misaligned(a), _misaligned(w))):
-        got = mvu_binary.mvu_binary(aa, ww)
+        got = fn(aa, ww)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("k", [27, 64, 600])
+@pytest.mark.parametrize("m", [1, 9, 128])
+def test_binary_packed_ignores_pad_bits(cuda, m, k):
+    """Bitplanes whose pad bits in the last word are all 1, two words more
+    a row than K needs (Wd > ceil(K/32)), activations up to 299 (the int8
+    wrap), both arrangements; misaligned activations take the narrow
+    loads."""
+    g = torch.Generator().manual_seed(m * 100 + k)
+    bits = torch.randint(0, 2, (33, k), generator=g, dtype=torch.int8)
+    wp = packing.pack_bits_pad_set(bits, 2, g).to(cuda)
+    a = torch.randint(-8, 300, (m, k), generator=g, dtype=torch.int32).to(cuda)
+    _, _, t, _ = _inputs(1, 33, 1, 0, 1, cuda, seed=k)
+    for kw in ({}, {"thresholds": t * k}):
+        want = mvu_packed.mvu_binary_packed_plain(a, wp, k, **kw)
+        for aa in (a, _misaligned(a)):
+            got = mvu_packed.mvu_binary_packed(aa, wp, k, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("variant", ["xnor", "binary", "standard"])
