@@ -8,11 +8,10 @@ Phases, each printing its own line(s); any failure exits non-zero:
 1. env     torch and CUDA versions, the card's name and power limit.
 2. build   the six kernels from ``src/repro_torch/kernels/csrc/`` (five
            sources): one nvcc per source, all started together, and beside
-           them ``nvcc -Xptxas -v`` on the four sources of the
-           Hopper-designed kernels (``conv_mvu.cu``, and ``mvu_int.cu``,
-           ``mvu_binary.cu``, ``mvu_packed.cu`` on the dense core
-           ``dense_mvu.cuh``): registers, shared memory and spills of each
-           kernel instance.
+           them ``nvcc -Xptxas -v`` on the five sources (``conv_mvu.cu``,
+           and ``mvu_int.cu``, ``mvu_binary.cu``, ``mvu_packed.cu``,
+           ``mvu_xnor.cu`` on the dense core ``dense_mvu.cuh``): registers,
+           shared memory and spills of each kernel instance.
 3. kernel  ``mvu_int`` against ``mvu_int_plain`` on the card at every
            (N, K) of the NID path, M in {1, 3, 128, 4096}, and at the
            FULL CNV's dense (N, K) at M = 1 (its one image a microbatch),
@@ -22,26 +21,30 @@ Phases, each printing its own line(s); any failure exits non-zero:
            exact here since |acc| < 2^24), beside the least time the card
            needs (bytes at 3.35 TB/s or operations at the 1,979 TOP/s int8
            tensor-core peak, whichever is larger).
-   kernel  the same for ``mvu_xnor``, ``mvu_binary``, ``mvu_binary_packed``
-           and ``mvu_int2_packed`` at M in {1, 128, 4096} (``mvu_xnor`` and
-           ``mvu_binary`` also at the CNV's dense shapes, M = 1),
-           activations up to 299 (the packed kernels narrow them to int8
-           with a wrap); the yardstick multiplies the unpacked +/-1 or
-           integer operands.  The timed layers of the three kernels on the
-           dense core and of ``conv_mvu`` print their launch plan
+   kernel  the same for ``mvu_xnor`` (both entries: packed words, and
+           ``mvu_xnor_bits`` on int32 activations, which the engine runs),
+           ``mvu_binary``, ``mvu_binary_packed`` and ``mvu_int2_packed`` at
+           M in {1, 128, 4096} (``mvu_xnor`` and ``mvu_binary`` also at
+           the CNV's dense shapes, M = 1), activations up to 299 (the
+           packed kernels narrow them to int8 with a wrap; the xnor bit
+           entry takes their LSBs); the yardstick multiplies the unpacked
+           +/-1 or integer operands.  The timed layers of the kernels on
+           the dense core and of ``conv_mvu`` print their launch plan
            (arrangement, tile, K splits = cluster size, dynamic shared
            memory).  Each layer is timed with its own epilogue: thresholds
            (as many as its variant's activation levels) or, on a
            classifier head, the scale.
-   kernel  the dense core's arrangements: ``mvu_int``, ``mvu_binary`` and
-           ``mvu_binary_packed`` at N = 10 (ragged), M in
+   kernel  the dense core's arrangements: its six entry points
+           (``dense_mvu.CODING``) at N = 10 (ragged), M in
            {1, 9, 100, 128, 4096} x K in {27, 64, 600, 2304} (gemv and
-           tiled, with and without split K), activations in [-300, 300)
-           (the packed kernel's int8 wrap), all three epilogues;
-           ``mvu_int`` and ``mvu_binary`` with activations near 2^30 and
-           any int8 weight (the uint32 wrap); ``mvu_binary_packed`` with
-           every pad bit of the last word set and two words more a row
-           than K needs.
+           tiled, with and without split K; NID fc0's 150-byte 2-bit rows
+           at K = 600; xnor bits with K not a multiple of 32), activations
+           in [-300, 300) (the packed kernels' int8 wrap, the xnor bit
+           entry's LSBs), all three epilogues; ``mvu_int`` and
+           ``mvu_binary`` with activations near 2^30 and any int8 weight
+           (the uint32 wrap); ``mvu_binary_packed`` and ``mvu_int2_packed``
+           with every pad bit or lane of the last word or byte set and two
+           words or bytes more a row than K needs.
    kernel  ``conv_mvu`` against ``conv_mvu_plain`` at each of the FULL
            CNV's six conv shapes in the three modes, at 1 and 32 images,
            all three epilogues (1 image: K split in a cluster on
@@ -58,15 +61,17 @@ Phases, each printing its own line(s); any failure exits non-zero:
            seed=1)`` must equal ``acc.interpret(x)`` and the JAX package's
            golden digest, and, with every launch counter set to 0 just
            before it, must launch the variant's kernel exactly
-           4 x n_micro times and no other kernel; flows/s at batch 4096
-           (and 65536 for the standard variant), host clock, synchronised.
+           4 x n_micro times and no other kernel (the xnor variant: and
+           call ``packing.pack_bits`` no time, its stages packing in the
+           kernel); flows/s at batch 4096 (and 65536 for the standard
+           variant), host clock, synchronised.
    slice   the FULL CNV built on the card in each variant of its golden
            file (xnor W1A1, binary A2, standard W2A2); ``acc(x)`` on the
            golden batch of numpy-seeded images must equal
            ``acc.interpret(x)`` and the golden digest, and must launch
            ``conv_mvu`` exactly 6 x n_micro times, the variant's dense
-           kernel 3 x n_micro times and nothing else; images/s at batch
-           256 and the build seconds.
+           kernel 3 x n_micro times and nothing else (xnor: no
+           ``pack_bits``); images/s at batch 256 and the build seconds.
 5. the kernels JSON line, the card's ``nvidia-smi`` line, and last the
    result line ``{"ok": true, "device": {...}}``.
 
@@ -106,7 +111,11 @@ CONV_IMAGES = (1, 32)
 # buffer: checked, not timed (the gather arrangement)
 CONV_WIDE = [(1, 8, 1000, 256, 64, 1, 0), (1, 5, 3000, 12, 16, 2, 1)]
 # the sources of the kernels designed for Hopper
-PTXAS_SOURCES = ("conv_mvu.cu", "mvu_int.cu", "mvu_binary.cu", "mvu_packed.cu")
+PTXAS_SOURCES = ("conv_mvu.cu", "mvu_int.cu", "mvu_binary.cu", "mvu_packed.cu", "mvu_xnor.cu")
+# the entry point the engine's xnor stages launch, and the kernel whose
+# launch counter it adds to
+XNOR_PATH_ENTRY = "mvu_xnor_bits"
+COUNTER = {XNOR_PATH_ENTRY: "mvu_xnor"}
 DENSE_MS = (1, 9, 100, 128, 4096)  # the dense core's checks: both arrangements
 DENSE_KS = (27, 64, 600, 2304)
 CNV_DENSE_M = 1  # images a CNV microbatch: the dense layers' M on that path
@@ -170,30 +179,42 @@ def plan_text(plan) -> str:
 
 
 def dense_plan_text(name: str, m: int, n: int, k: int) -> str:
-    """The launch plan of a kernel on the dense core at (M, N, K)."""
+    """The launch plan of an entry point on the dense core at (M, N, K)
+    (packed xnor: K synapses are ceil(K/32) words, its K unit)."""
     from repro_torch.kernels.dense_mvu import CODING, dense_launch_plan
 
-    return plan_text(dense_launch_plan(m, n, k, CODING[name]))
+    units = -(-k // 32) if CODING[name] == "words" else k
+    return plan_text(dense_launch_plan(m, n, units, CODING[name]))
 
 
 def dense_case(name, m, n, k, g, dev):
-    """Operands of one check of a kernel on the dense core:
+    """Operands of one check of an entry point on the dense core:
     ``(wrapper, plain, args)``, both taking ``*args`` plus the epilogue.
-    Activations in [-300, 300) (the packed kernel narrows them with a
-    wrap); ``mvu_int`` takes any int8 weight, the binary kernels {0,1}."""
+    Activations in [-300, 300) (the packed kernels narrow them with a
+    wrap, the xnor bit entry takes their LSBs, the packed xnor entry their
+    packed LSBs); ``mvu_int`` takes any int8 weight, ``mvu_int2_packed``
+    2-bit lanes, the binary and xnor kernels {0,1}."""
     import torch
 
     from repro_torch.kernels import mvu_binary as B, mvu_int as K, mvu_packed as P
-    from repro_torch.kernels import packing
+    from repro_torch.kernels import mvu_xnor as X, packing
 
     a = torch.randint(-300, 300, (m, k), generator=g, dtype=torch.int32)
     if name == "mvu_int":
         w = torch.randint(-128, 128, (n, k), generator=g, dtype=torch.int8)
         fn, plain, args = K.mvu_int, K.mvu_int_plain, (a, w)
+    elif name == "mvu_int2_packed":
+        w2 = torch.randint(-2, 2, (n, k), generator=g, dtype=torch.int8)
+        fn, plain, args = P.mvu_int2_packed, P.mvu_int2_packed_plain, (a, packing.pack_int2(w2), k)
     else:
         bits = torch.randint(0, 2, (n, k), generator=g, dtype=torch.int8)
         if name == "mvu_binary":
             fn, plain, args = B.mvu_binary, B.mvu_binary_plain, (a, bits)
+        elif name == "mvu_xnor":
+            fn, plain = X.mvu_xnor, X.mvu_xnor_plain
+            args = (packing.pack_bits(a), packing.pack_bits(bits), k)
+        elif name == XNOR_PATH_ENTRY:
+            fn, plain, args = X.mvu_xnor_bits, X.mvu_xnor_bits_plain, (a, packing.pack_bits(bits))
         else:
             fn, plain = P.mvu_binary_packed, P.mvu_binary_packed_plain
             args = (a, packing.pack_bits(bits), k)
@@ -269,6 +290,10 @@ def new_kernel_case(name, m, n, k, g, dev):
         ap, wp = packing.pack_bits(a), packing.pack_bits(bits)
         fn, plain, args = X.mvu_xnor, X.mvu_xnor_plain, (ap, wp, k)
         a_f, w_f, nbytes = 2 * (a & 1).float() - 1, bipolar, 4 * (ap.numel() + wp.numel())
+    elif name == XNOR_PATH_ENTRY:  # the activations as int32, packed in the kernel
+        wp = packing.pack_bits(bits)
+        fn, plain, args = X.mvu_xnor_bits, X.mvu_xnor_bits_plain, (a, wp)
+        a_f, w_f, nbytes = 2 * (a & 1).float() - 1, bipolar, 4 * (a.numel() + wp.numel())
     elif name == "mvu_binary":
         fn, plain, args = B.mvu_binary, B.mvu_binary_plain, (a, bits)
         a_f, w_f, nbytes = a.float(), bipolar, 4 * a.numel() + bits.numel()
@@ -366,7 +391,7 @@ def main() -> int:
         classifier head takes the scale)."""
         cases = [(m, n, k, 3 if n > 1 else 0) for n, k in path_nk for m in ms]
         for gd in cnv_golden.values():
-            if ops.kernel_name(gd["build"]["mode"]) == name:
+            if ops.kernel_name(gd["build"]["mode"]) == COUNTER.get(name, name):
                 t = 2 ** gd["build"]["act_bits"] - 1
                 cases += [(CNV_DENSE_M, n, k, t if i < len(cnv_dense) - 1 else 0)
                           for i, (n, k) in enumerate(cnv_dense)]
@@ -400,7 +425,7 @@ def main() -> int:
     # --------------------------------------------------------- 3. kernel
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(0)
-    max_err = dict.fromkeys(KERNELS, 0.0)
+    max_err = dict.fromkeys(KERNELS, 0.0)  # by kernel: both xnor entries in mvu_xnor's
     checked = dict.fromkeys(KERNELS, 0)
     # (kernel, m, n, k) -> (kernel, plain, library, bound) ms on the layer's own
     # epilogue, and what bounds it ("bytes" or "operations")
@@ -448,9 +473,12 @@ def main() -> int:
               f"ms={kms:.5f} plain_ms={pms:.5f} library_ms={lms:.5f} "
               f"bound_ms={bms:.6f} ({bby}) {dense_plan_text('mvu_int', m, n, k)}", flush=True)
 
-    for name in ("mvu_xnor", "mvu_binary", "mvu_binary_packed", "mvu_int2_packed"):
+    for name in ("mvu_xnor", XNOR_PATH_ENTRY, "mvu_binary", "mvu_binary_packed",
+                 "mvu_int2_packed"):
+        kernel = COUNTER.get(name, name)
         for m, n, k, n_thr in dense_cases(name, NEW_KERNEL_MS):
-            thr = torch.sort(torch.randint(-300 * k, 300 * k, (n, n_thr or 3), generator=g,
+            span = k if kernel == "mvu_xnor" else 300 * k  # an xnor dot lies in [-K, K]
+            thr = torch.sort(torch.randint(-span, span, (n, n_thr or 3), generator=g,
                                            dtype=torch.int32), dim=1).values.to(dev)
             scale = (torch.rand(n, generator=g) + 0.01).to(dev)
             fn, plain, args, af, wf, nbytes = new_kernel_case(name, m, n, k, g, dev)
@@ -461,8 +489,8 @@ def main() -> int:
                 check(got.dtype == want.dtype and torch.equal(got, want),
                       f"{name} != its plain version at M={m} N={n} K={k} "
                       f"thresholds={t is not None} scale={s is not None}")
-                max_err[name] = max(max_err[name], err(got, want))
-                checked[name] += 1
+                max_err[kernel] = max(max_err[kernel], err(got, want))
+                checked[kernel] += 1
             t, s = (thr, None) if n_thr else (None, scale)
             tf = None if t is None else t.float()
 
@@ -479,21 +507,21 @@ def main() -> int:
             bms, bby = bound_of(nbytes + (t.numel() if t is not None else n) * 4
                                 + m * n * 4, 2 * m * n * k)
             timing[(name, m, n, k)] = (kms, pms, lms, bms, bby)
-            plan_s = f" {dense_plan_text(name, m, n, k)}" if name in dense_mvu.CODING else ""
             print(f"kernel: {name} M={m} N={n} K={k} "
                   f"{f'{n_thr} thresholds' if t is not None else 'scale'}: "
                   f"ms={kms:.5f} plain_ms={pms:.5f} library_ms={lms:.5f} "
-                  f"bound_ms={bms:.6f} ({bby}){plan_s}", flush=True)
+                  f"bound_ms={bms:.6f} ({bby}) {dense_plan_text(name, m, n, k)}", flush=True)
 
     # the dense core: both arrangements, split K or not, at a ragged N
     n = 10
     for name in dense_mvu.CODING:
+        kernel = COUNTER.get(name, name)
         for m in DENSE_MS:
             for k in DENSE_KS:
-                thr = torch.sort(torch.randint(-300 * k, 300 * k, (n, 3), generator=g,
+                # the dot's range: full int8 products, +/-1 (xnor), else 300 a synapse
+                span = {"mvu_int": 128 * 300 * k, "mvu_xnor": k}.get(kernel, 300 * k)
+                thr = torch.sort(torch.randint(-span, span, (n, 3), generator=g,
                                                dtype=torch.int32), dim=1).values.to(dev)
-                if name == "mvu_int":  # products of full int8 weights
-                    thr *= 128
                 scale = (torch.rand(n, generator=g) + 0.01).to(dev)
                 fn, plain, args = dense_case(name, m, n, k, g, dev)
                 for t, s in ((None, None), (thr, None), (None, scale)):
@@ -503,8 +531,8 @@ def main() -> int:
                           f"{name} != its plain version at M={m} N={n} K={k} "
                           f"({dense_plan_text(name, m, n, k)}) "
                           f"thresholds={t is not None} scale={s is not None}")
-                    max_err[name] = max(max_err[name], err(got, want))
-                    checked[name] += 1
+                    max_err[kernel] = max(max_err[kernel], err(got, want))
+                    checked[kernel] += 1
     # the uint32 wrap: activations near 2^30, any int8 weight, both arrangements
     for name, fn, plain in (("mvu_int", K.mvu_int, K.mvu_int_plain),
                             ("mvu_binary", B.mvu_binary, B.mvu_binary_plain)):
@@ -536,6 +564,24 @@ def main() -> int:
                       f"K={k} Wd={wp.shape[1]} ({dense_plan_text('mvu_binary_packed', m, 33, k)})")
                 max_err["mvu_binary_packed"] = max(max_err["mvu_binary_packed"], err(got, want))
                 checked["mvu_binary_packed"] += 1
+    # 2-bit rows whose pad lanes are all set (0b11), two bytes more a row than
+    # K needs: 9-, 18- and 152-byte rows (the byte and the 8-byte staging)
+    for m in (1, 9, 128):
+        for k in (27, 64, 600):
+            a = torch.randint(-300, 300, (m, k), generator=g, dtype=torch.int32)
+            w2 = torch.randint(-2, 2, (33, k), generator=g, dtype=torch.int8)
+            wp = packing.pack_int2_pad_set(w2, 2, g)
+            thr = torch.sort(torch.randint(-300 * k, 300 * k, (33, 3), generator=g,
+                                           dtype=torch.int32), dim=1).values
+            a, wp, thr = a.to(dev), wp.to(dev), thr.to(dev)
+            for t in (None, thr):
+                got = P.mvu_int2_packed(a, wp, k, t)
+                want = P.mvu_int2_packed_plain(a, wp, k, t)
+                torch.cuda.synchronize()
+                check(torch.equal(got, want), f"mvu_int2_packed counts pad lanes at M={m} "
+                      f"K={k} Bd={wp.shape[1]} ({dense_plan_text('mvu_int2_packed', m, 33, k)})")
+                max_err["mvu_int2_packed"] = max(max_err["mvu_int2_packed"], err(got, want))
+                checked["mvu_int2_packed"] += 1
     for name in ("mvu_int", "mvu_xnor", "mvu_binary", "mvu_binary_packed", "mvu_int2_packed"):
         print(f"kernel: {name}: {checked[name]} checks equal to the plain version, "
               f"max_abs_err={max_err[name]}", flush=True)
@@ -595,6 +641,16 @@ def main() -> int:
     golden = nid_mlp.load_golden()
     launches = {}
     plan = None
+    # pack_bits calls, by the wrapper below: an xnor acc(x) on the card
+    # packs its stages' inputs in the kernel and must make none
+    pack_calls = [0]
+    pack_bits = packing.pack_bits
+
+    def counted_pack_bits(x):
+        pack_calls[0] += 1
+        return pack_bits(x)
+
+    packing.pack_bits = counted_pack_bits
     for variant in ("standard", *sorted(v for v in golden if v != "standard")):
         gd = golden[variant]
         kw = gd["build"]
@@ -607,12 +663,15 @@ def main() -> int:
         x = torch.from_numpy(nid.make_dataset(batch, seed=gd["data_seed"])[0]).to(dev)
         plan = acc.plan(batch)
         ops.reset_launch_counts()
+        pack_calls[0] = 0
         y = acc(x)
         torch.cuda.synchronize()
         counts = ops.launch_counts()
         check(counts == {k: 4 * plan.n_micro if k == kernel else 0 for k in counts},
               f"{variant}: acc(x) launched {counts}, want {kernel} 4 x {plan.n_micro} "
               f"times and nothing else")
+        check(pack_calls[0] == 0, f"{variant}: acc(x) called packing.pack_bits "
+              f"{pack_calls[0]} times, want 0")
         launches[kernel] = counts[kernel]
         check(y.is_cuda and y.dtype == torch.float32 and tuple(y.shape) == (batch, 1)
               and bool(torch.isfinite(y).all()), f"{variant}: bad output {y.dtype} "
@@ -624,7 +683,8 @@ def main() -> int:
               "golden digest")
         print(f"slice: {variant}: acc(x) at batch {batch} equals acc.interpret(x) and the "
               f"golden digest; {counts[kernel]} {kernel} launches = 4 x n_micro="
-              f"{plan.n_micro}, no other kernel", flush=True)
+              f"{plan.n_micro}, no other kernel; pack_bits called {pack_calls[0]} times",
+              flush=True)
         for b in (4096, 65536) if variant == "standard" else (4096,):
             xb = torch.from_numpy(nid.make_dataset(b, seed=gd["data_seed"])[0]).to(dev)
             med = acc_seconds(acc, xb)
@@ -647,6 +707,7 @@ def main() -> int:
         check(cplan.microbatch == CNV_DENSE_M, f"cnv {variant}: {cplan.microbatch} images "
               f"a microbatch, but the dense kernels were checked at M={CNV_DENSE_M}")
         ops.reset_launch_counts()
+        pack_calls[0] = 0
         y = acc(x)
         torch.cuda.synchronize()
         counts = ops.launch_counts()
@@ -654,6 +715,8 @@ def main() -> int:
         want["conv_mvu"], want[dense] = 6 * cplan.n_micro, 3 * cplan.n_micro
         check(counts == want, f"cnv {variant}: acc(x) launched {counts}, want conv_mvu "
               f"6 x {cplan.n_micro} and {dense} 3 x {cplan.n_micro} times and nothing else")
+        check(pack_calls[0] == 0, f"cnv {variant}: acc(x) called packing.pack_bits "
+              f"{pack_calls[0]} times, want 0")
         cnv_runs[variant] = (kw["mode"], dense, cplan.n_micro, counts)
         check(y.is_cuda and y.dtype == torch.float32 and tuple(y.shape) == (batch, 10)
               and bool(torch.isfinite(y).all()), f"cnv {variant}: bad output {y.dtype} "
@@ -665,13 +728,15 @@ def main() -> int:
               "golden digest")
         print(f"slice: cnv {variant}: acc(x) at batch {batch} equals acc.interpret(x) and "
               f"the golden digest; {counts['conv_mvu']} conv_mvu launches = 6 x n_micro="
-              f"{cplan.n_micro}, {counts[dense]} {dense} = 3 x n_micro, no other kernel",
-              flush=True)
+              f"{cplan.n_micro}, {counts[dense]} {dense} = 3 x n_micro, no other kernel; "
+              f"pack_bits called {pack_calls[0]} times", flush=True)
         xb = torch.from_numpy(cnv_bnn.images(CNV_BATCH, kw["act_bits"], gd["data_seed"])).to(dev)
         med = acc_seconds(acc, xb)
         print(f"slice: cnv {variant}: batch {CNV_BATCH}: {CNV_BATCH / med:.1f} images/s "
               f"(median of 7 acc(x), {med * 1e3:.3f} ms; n_micro="
               f"{acc.plan(CNV_BATCH).n_micro})", flush=True)
+
+    packing.pack_bits = pack_bits
 
     # -------------------------------------------------------- 5. results
     mb = plan.microbatch
@@ -686,13 +751,24 @@ def main() -> int:
         else:
             # one NID acc(x) launches each layer once per microbatch, at
             # M = microbatch; the CNV acc(x) of the variant that runs this
-            # kernel (if one does) each dense layer once per image
-            rows = [timing[(name, mb, n, k)] for k, n, _, _ in nid_mlp.LAYERS] * plan.n_micro
+            # kernel (if one does) each dense layer once per image; xnor's
+            # engine stages launch its bit entry
+            entry = XNOR_PATH_ENTRY if name == "mvu_xnor" else name
+            rows = [timing[(entry, mb, n, k)] for k, n, _, _ in nid_mlp.LAYERS] * plan.n_micro
             n_launches = launches[name]
             for _, dense, n_micro, counts in cnv_runs.values():
                 if dense == name:
-                    rows += [timing[(name, CNV_DENSE_M, n, k)] for n, k in cnv_dense] * n_micro
+                    rows += [timing[(entry, CNV_DENSE_M, n, k)] for n, k in cnv_dense] * n_micro
                     n_launches += counts[name]
+            if name == "mvu_xnor":  # the packed entry on the same launches, beside it
+                packed = [timing[(name, mb, n, k)] for k, n, _, _ in nid_mlp.LAYERS]
+                packed = packed * plan.n_micro + [
+                    timing[(name, CNV_DENSE_M, n, k)] for n, k in cnv_dense] * sum(
+                    r[2] for r in cnv_runs.values() if r[1] == name)
+                print(f"kernel: mvu_xnor over the path's {len(packed)} launches: bit entry "
+                      f"(launched) ms={sum(r[0] for r in rows):.7f}, packed entry "
+                      f"ms={sum(r[0] for r in packed):.7f} (its bound_ms="
+                      f"{sum(r[3] for r in packed):.7f})", flush=True)
         per_acc = [sum(r[i] for r in rows) for i in range(4)]
         lines.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,

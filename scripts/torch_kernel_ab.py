@@ -1,7 +1,8 @@
-"""Device times of ``conv_mvu`` and the three kernels on the dense core
-(``mvu_binary``, ``mvu_int``, ``mvu_binary_packed``), their ptxas reports,
-and the end-to-end rates, of one source tree, for A/B runs of two trees on
-one card.
+"""Device times of ``conv_mvu`` and the kernels on the dense core
+(``mvu_binary``, ``mvu_int``, ``mvu_binary_packed``, ``mvu_int2_packed``,
+``mvu_xnor`` and, where the tree has it, its bit entry ``mvu_xnor_bits``),
+their ptxas reports, the host's cost of one xnor stage, and the end-to-end
+rates, of one source tree, for A/B runs of two trees on one card.
 
 Usage (from the repo root, on a machine with an NVIDIA GPU and nvcc):
     python scripts/torch_kernel_ab.py <src dir> <label> --out FILE
@@ -12,15 +13,19 @@ shape lists, ``chip_smoke.py`` from the repo root.  It builds the kernels
 there and measures:
 
 * ``conv_mvu`` at the FULL CNV's six conv shapes in the three modes, at 1
-  and 32 images, with the threshold epilogue, and ``mvu_binary`` at the
-  CNV's dense shapes at M = 1 and the NID-MLP's layers at M = 128 and
+  and 32 images, with the threshold epilogue, and the dense kernels at the
+  CNV's dense shapes at M = 1 and the NID-MLP's layers at M = 1, 128 and
   4096 (thresholds; the 1- and 10-wide heads take the scale): device ms a
   launch, ``chip_smoke.device_ms`` (CUDA events, median of 7 trials of
-  100 back-to-back launches); and, for the layers the main paths launch
-  most (conv1 at one image, the CNV's fc0 at M = 1 and the NID's fc0 at
+  100 back-to-back launches), beside a float32 ``torch.matmul`` +
+  epilogue yardstick; and, for the layers the main paths launch most
+  (conv1 at one image, the CNV's fc0 at M = 1 and the NID's fc0 at
   M = 128), the host's µs a call: 2,000 calls back to back, host clock,
   to the card's last result -- the wrapper's checks, plan and ctypes
   launch, or the device time where that is longer;
+* the host's µs a call of one engine xnor stage (``dataflow.node_runner``
+  of NID fc0, M = 128, and of the CNV's fc0, M = 1, on int32 levels): the
+  parent's ``pack_bits`` plus packed launch, or the bit entry's launch;
 * flows/s of each NID-MLP variant of the golden file at batch 4096 and
   images/s of each FULL CNV variant at batch ``chip_smoke.CNV_BATCH``:
   ``chip_smoke.acc_seconds`` (host clock to the card's last result,
@@ -56,9 +61,12 @@ def main() -> int:
     import torch
 
     from repro_torch.configs import cnv_bnn, nid_mlp
+    from repro_torch.core import dataflow
+    from repro_torch.core.ir import Node
+    from repro_torch.core.mvu import MVUConfig, MVUParams
     from repro_torch.data import nid
     from repro_torch.kernels import _cuda, mvu_binary as B, mvu_int as K, mvu_packed as P
-    from repro_torch.kernels import packing, ops, swu_mvu as C
+    from repro_torch.kernels import mvu_xnor as X, packing, ops, swu_mvu as C
 
     if not torch.cuda.is_available():
         raise SystemExit("torch_kernel_ab: no CUDA device")
@@ -100,25 +108,44 @@ def main() -> int:
                     rows.append(dict(host="conv_mvu", mode=mode, b=b, h=h, c=c, n=n,
                                      us=host_us(fn)))
     dense = [(1, n, k) for n, k in smoke.dense_shapes(cnv_bnn.FULL)]
-    dense += [(m, n, k) for m in (128, 4096) for k, n, _, _ in nid_mlp.LAYERS]
-    for kernel in ("mvu_binary", "mvu_int", "mvu_binary_packed"):
+    dense += [(m, n, k) for m in (1, 128, 4096) for k, n, _, _ in nid_mlp.LAYERS]
+    kernels = ["mvu_binary", "mvu_int", "mvu_binary_packed", "mvu_int2_packed", "mvu_xnor"]
+    if hasattr(X, "mvu_xnor_bits"):
+        kernels.append("mvu_xnor_bits")
+    for kernel in kernels:
         for m, n, k in dense:
             a = torch.randint(0, 4, (m, k), generator=g, dtype=torch.int32)
-            if kernel == "mvu_int":
+            af = a.float()
+            if kernel in ("mvu_int", "mvu_int2_packed"):
                 w = torch.randint(-1, 2, (n, k), generator=g, dtype=torch.int8)
-                fn, wf = K.mvu_int, w.float()
+                wf = w.float()
+                if kernel == "mvu_int":
+                    fn = K.mvu_int
+                else:
+                    w = packing.pack_int2(w)
+                    fn = lambda a, w, t, s, k=k: P.mvu_int2_packed(a, w, k, t, s)  # noqa: E731
             else:
                 w = torch.randint(0, 2, (n, k), generator=g, dtype=torch.int8)
                 wf = 2 * w.float() - 1
                 if kernel == "mvu_binary":
                     fn = B.mvu_binary
-                else:
+                elif kernel == "mvu_binary_packed":
                     w = packing.pack_bits(w)
                     fn = lambda a, w, t, s, k=k: P.mvu_binary_packed(a, w, k, t, s)  # noqa: E731
+                else:  # xnor: the activations' LSBs, packed here or in the kernel
+                    w = packing.pack_bits(w)
+                    af = 2 * (a & 1).float() - 1
+                    if kernel == "mvu_xnor":
+                        a = packing.pack_bits(a)
+                        fn = lambda a, w, t, s, k=k: X.mvu_xnor(a, w, k, t, s)  # noqa: E731
+                    else:
+                        fn = X.mvu_xnor_bits
             t = torch.sort(torch.randint(-300, 300, (n, 3), generator=g, dtype=torch.int32),
                            1).values
+            if kernel.startswith("mvu_xnor"):
+                t = t * k // 300  # an xnor dot lies in [-K, K]
             s = torch.rand(n, generator=g) + 0.01
-            a, w, t, s, af, wf = (v.to(dev) for v in (a, w, t, s, a.float(), wf))
+            a, w, t, s, af, wf = (v.to(dev) for v in (a, w, t, s, af, wf))
             t, s = (None, s) if n in (1, 10) else (t, None)
             tf = None if t is None else t.float()
 
@@ -131,7 +158,18 @@ def main() -> int:
             rows.append(dict(kernel=kernel, m=m, n=n, k=k, ms=ms(run), library_ms=ms(library)))
             if (m, n, k) in ((1, 512, 256), (128, 64, 600)):
                 rows.append(dict(host=kernel, m=m, n=n, k=k, us=host_us(run)))
-    for source in ("mvu_binary.cu", "mvu_int.cu", "mvu_packed.cu"):
+    # one engine xnor stage as node_runner runs it, on int32 levels
+    for m, n, k in ((128, 64, 600), (1, 512, 256)):
+        cfg = MVUConfig(k, n, mode="xnor", weight_bits=1, act_bits=1)
+        wp = packing.pack_bits(torch.randint(0, 2, (n, k), generator=g))
+        t = torch.sort(torch.randint(-k, k, (n, 1), generator=g, dtype=torch.int32), 1).values
+        params, stage = dataflow.node_runner(
+            Node("mvu", "fc", attrs={"config": cfg},
+                 params={"mvu": MVUParams(wp.to(dev), t.to(dev), None)}))
+        x = torch.randint(0, 2, (m, k), generator=g, dtype=torch.int32).to(dev)
+        rows.append(dict(host="xnor_stage", m=m, n=n, k=k,
+                         us=host_us(lambda: stage(params, x))))
+    for source in ("mvu_binary.cu", "mvu_int.cu", "mvu_packed.cu", "mvu_xnor.cu"):
         for line in smoke.ptxas_lines(_cuda.ptxas_report(source)):
             rows.append(dict(ptxas=source, line=line))
 

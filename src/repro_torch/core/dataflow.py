@@ -18,7 +18,7 @@ from repro_torch.core import ir, swu as swu_mod
 from repro_torch.core.ir import Graph
 from repro_torch.core.mvu import MVUConfig, MVULayer, MVUParams
 from repro_torch.core.resource_model import NOMINAL_CLOCK_HZ, MVUResources
-from repro_torch.kernels import ops, packing
+from repro_torch.kernels import mvu_xnor, ops, packing
 
 
 @dataclasses.dataclass
@@ -221,7 +221,13 @@ def node_runner(node):
         def run_xnor(p, x):
             # activations stream between nodes as integer levels (int32, as
             # packed words are, so the dtype cannot tell the two apart): an
-            # xnor stage packs its input's LSBs itself
+            # xnor stage packs its input's LSBs itself -- on the card in the
+            # kernel (mvu_xnor_bits), on the CPU by pack_bits and the packed
+            # plain version
+            if cfg.backend == "cuda" and x.device.type != "cpu":
+                out = mvu_xnor.mvu_xnor_bits(x.reshape(-1, x.shape[-1]), p.weights,
+                                             p.thresholds, p.out_scale)
+                return out.reshape(*x.shape[:-1], cfg.out_features)
             return layer(p, packing.pack_bits(x))
 
         return node.params["mvu"], run_xnor

@@ -125,9 +125,9 @@ def to_gpu_blocks() -> dict[str, int]:
 
     Every kernel in ``kernels/csrc/`` is compiled for one tile, whatever the
     folding, mode or packing; ``block_k`` counts synapses a K step (32-bit
-    words for the xnor kernel, which stages them as they are; the packed
-    kernels unpack a block_k-synapse weight tile into shared memory).  The
-    folding keeps describing the FPGA schedule (cycles, memory depths).
+    words for the xnor kernel's packed entry, which stages them as they
+    are; the packed kernels stage a step's weights in their packed form).
+    The folding keeps describing the FPGA schedule (cycles, memory depths).
     Tile choice per layer is the autotuner's job (ROADMAP queue A item 6).
     """
     from repro_torch.kernels._cuda import BLOCK_K, BLOCK_M, BLOCK_N

@@ -4,26 +4,25 @@ Each kernel source in ``csrc/`` (``mvu_int.cu``, ``mvu_xnor.cu``, ...) is
 compiled with ``nvcc`` into a shared library of its own, at first use,
 into ``_build/`` beside this file, and loaded with ``ctypes``.  A library
 is ``<source>.cu`` plus ``binding.cpp`` (the error-string helper); the
-sources include ``epilogue.cuh`` and, besides it, ``mvu_tile.cuh`` (the
-shared K loop that ``mvu_xnor`` and ``mvu_int2_packed`` still run),
-``cluster_reduce.cuh`` (cp.async and the cluster split K of the
-Hopper-designed kernels) or ``dense_mvu.cuh`` (the CUDA-core dense core,
-on ``cluster_reduce.cuh``, of ``mvu_int``, ``mvu_binary`` and
-``mvu_binary_packed``).  The library's name carries a hash of those files
+sources include ``cluster_reduce.cuh`` (cp.async, the cluster split K and
+the epilogue of one output, on ``epilogue.cuh``'s codes) and, for the five
+dense MVU kernels, ``dense_mvu.cuh`` (their CUDA-core dense core, on
+``cluster_reduce.cuh``).  The library's name carries a hash of those files
 and the flags, so an edited source never loads a stale build.
 :func:`build_all` starts one ``nvcc`` per source at once.
 
-Every MVU kernel exports one C function of the same shape::
+Every dense MVU entry point has one C signature::
 
     int repro_<kernel>(const void* a, const void* w, const void* thr,
                        const void* scale, void* out, int m, int n, int k,
-                       int w_cols, int n_thr, int epilogue, void* stream)
+                       int w_cols, int n_thr, int epilogue, int arrangement,
+                       int tile_m, int tile_n, int splits, int smem,
+                       void* stream)
 
-(:meth:`Library.launch`, ``ARGTYPES``); the three on ``dense_mvu.cuh``
-add their launch plan before the stream (the ``plan`` of
-:meth:`Library.launch`, ``PLAN_ARGTYPES``), and the conv kernel's takes
-the image geometry and its plan (``kernels/swu_mvu.py``, through
-:meth:`Library.run`).  Each returns the launch's CUDA error code.
+(:meth:`Library.launch`, ``PLAN_ARGTYPES``; the five ints after the
+epilogue are the launch plan of ``kernels/dense_mvu.py``), and the conv
+kernel's takes the image geometry and its plan (``kernels/swu_mvu.py``,
+through :meth:`Library.run`).  Each returns the launch's CUDA error code.
 Importing this module builds nothing and imports nothing CUDA-only.
 """
 
@@ -37,12 +36,12 @@ import threading
 
 import torch
 
-# The one tile every kernel is compiled for (passed to nvcc as -D flags);
-# per-layer tiles come with the autotuner (ROADMAP queue A item 3).
+# The output tile and K step of the kernels' tiled arrangements (the dense
+# core's TILE, conv_mvu's 32 x 32 tile); per-layer tiles come with the
+# autotuner (ROADMAP queue A item 3).
 BLOCK_M = 32
 BLOCK_N = 32
-BLOCK_K = 32  # synapses per K step (32-bit words for the xnor kernel)
-THREADS = 256
+BLOCK_K = 32  # synapses per K step (32-bit words for packed xnor operands)
 
 # The Hopper-designed kernels' launch plans (kernels/swu_mvu.py,
 # kernels/dense_mvu.py; csrc/cluster_reduce.cuh): shared memory a block
@@ -54,12 +53,11 @@ FILL_BLOCKS = 2 * 132
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
-_SHARED = ("binding.cpp", "epilogue.cuh", "mvu_tile.cuh", "cluster_reduce.cuh",
-           "dense_mvu.cuh")
+_SHARED = ("binding.cpp", "epilogue.cuh", "cluster_reduce.cuh", "dense_mvu.cuh")
 EPILOGUE = {"raw": 0, "thresholds": 1, "scale": 2}
-# the MVU entry point's arguments, and with a launch plan (five ints)
-ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-PLAN_ARGTYPES = ARGTYPES[:-1] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+# a dense MVU entry point's arguments: five pointers, six ints, the launch
+# plan's five ints and the stream
+PLAN_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
 
 
 def split_k(tiles: int, steps: int) -> int:
@@ -82,9 +80,7 @@ def k_slices(steps: int, splits: int, step: int, k: int) -> list[tuple[int, int]
 
 def nvcc_flags() -> list[str]:
     return ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-            "-shared", "-Xcompiler", "-fPIC",
-            f"-DMVU_BM={BLOCK_M}", f"-DMVU_BN={BLOCK_N}",
-            f"-DMVU_BK={BLOCK_K}", f"-DMVU_THREADS={THREADS}"]
+            "-shared", "-Xcompiler", "-fPIC"]
 
 
 def _nvcc() -> str:
@@ -156,11 +152,11 @@ class Library:
 
     def launch(self, fn: str, a: torch.Tensor, w: torch.Tensor,
                thresholds: torch.Tensor | None, out_scale: torch.Tensor | None,
-               epi: str, *, n: int, k: int, plan: tuple[int, ...] = ()) -> torch.Tensor:
+               epi: str, *, n: int, k: int, plan: tuple[int, ...]) -> torch.Tensor:
         """Launch ``fn`` on ``a``'s device and current stream; returns the
         (M, N) output (int32, float32 for the scale epilogue).  ``k`` is the
         kernel's reduction length argument, ``n`` the output width, ``plan``
-        the launch plan's int arguments of a kernel that takes one.  Raises
+        the launch plan's int arguments (``DensePlan.c_args``).  Raises
         for a device that is not CUDA, and when the launch fails."""
         if not a.is_cuda:
             raise ValueError(f"{fn.removeprefix('repro_')} runs on CUDA or CPU "

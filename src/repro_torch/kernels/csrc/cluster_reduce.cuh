@@ -1,5 +1,6 @@
 // What the Hopper-designed kernels (conv_mvu.cu, and the dense core
-// dense_mvu.cuh of mvu_int.cu, mvu_binary.cu and mvu_packed.cu) share:
+// dense_mvu.cuh of mvu_int.cu, mvu_binary.cu, mvu_packed.cu and
+// mvu_xnor.cu) share:
 // asynchronous copies into shared memory, the K slices of split K, the
 // sum of those slices through a thread-block cluster's distributed shared
 // memory, and the epilogue of one output at a time (epilogue.cuh's
@@ -33,13 +34,16 @@ namespace repro {
 constexpr int MAX_SPLITS = 8;            // the portable cluster size
 constexpr int MAX_SMEM_BYTES = 232448;   // the H100's opt-in shared memory a block
 
-// cp.async of `bytes` (4 or 16) from global to shared memory, zero-filling
+// cp.async of `bytes` (4, 8 or 16) from global to shared memory, zero-filling
 // the destination past `src_bytes` (0 copies nothing and writes zeros).
 template <int BYTES>
 __device__ __forceinline__ void cp_async(void* smem, const void* gmem, int src_bytes) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   if (BYTES == 16) {
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
+                 "r"(src_bytes));
+  } else if (BYTES == 8) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(gmem),
                  "r"(src_bytes));
   } else {
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(gmem),
@@ -66,7 +70,7 @@ __device__ __forceinline__ void k_slice(int steps, int splits, int slice, int& l
 
 // Write one output through the epilogue: v is the int32 accumulator of
 // the output at offset o, t its column's n_thr thresholds, s its scale
-// (the arithmetic of epilogue.cuh's store_tile).
+// (epilogue.cuh's three forms).
 template <int EPI>
 __device__ __forceinline__ void store_value(int32_t v, size_t o, const int32_t* t, int n_thr,
                                             float s, void* __restrict__ out) {

@@ -1,44 +1,58 @@
-// The CUDA-core dense MVU of three kernels (mvu_int.cu, mvu_binary.cu and
-// mvu_packed.cu's mvu_binary_packed), for Hopper (sm_90a):
+// The CUDA-core dense MVU of five kernels -- mvu_int.cu, mvu_binary.cu,
+// mvu_packed.cu's mvu_binary_packed and mvu_int2_packed, and mvu_xnor.cu
+// (its packed-word and its bit entry) -- for Hopper (sm_90a):
 //
-//   out[M, N] = epilogue(finish(sum_k a(A[m, k]) * w(W[n, k])))
+//   out[M, N] = epilogue(finish(sum_k a(A[m, k]) op w(W[n, k])))
 //
-// An operand policy (Coding below) says three things:
+// An operand coding (the structs below) says four things:
 // * how an A element is read: int32 as it is, or narrowed to int8 by the
-//   wrapping cast of the JAX packed kernels (mvu_packed.py:152);
-// * how W is stored and staged: int8 rows (N, K), or 32-bit bitplanes
-//   (N, w_cols >= ceil(K/32)) of the {0,1} coding, one word a column a
-//   32-synapse step;
-// * how the sum is finished: acc (the integer datapath), or
-//   2 * acc - rowsum(A) for {0,1}-coded +/-1 weights (the gemv
-//   arrangement multiplies by 2w - 1 instead).
-// The activations are int32 and the products of full width, so the kernels
-// stay on the CUDA cores; sums are uint32 and wrap mod 2^32 like XLA's
-// int32 dot.
+//   wrapping cast of the JAX packed kernels (mvu_packed.py:152, :280);
+// * how W is stored and staged, a 32-unit K step at a time: int8 rows
+//   (N, K); 32-bit bitplanes (N, w_cols >= ceil(K/32)) of the {0,1}
+//   coding, one word a column a step; uint8 rows (N, w_cols >= ceil(K/4))
+//   of four signed 2-bit lanes a byte, eight bytes a column a step;
+//   packed xnor words (N, Wd), staged like the int32 A tile;
+// * the K unit: a synapse, or for XnorWords a 32-bit word of 32 synapses
+//   (A is then (M, Wd) packed words too);
+// * how the sum is finished: acc (the integer datapaths), 2 * acc -
+//   rowsum(A) for {0,1}-coded +/-1 weights (the gemv arrangement
+//   multiplies by 2w - 1 instead), or K - 2 * acc for xnor, where acc
+//   counts the disagreeing bits popc(a ^ w).  That equals the XNOR
+//   identity 2 * popc(~(a ^ w)) - pad_correction(K, Wd * 32) of the JAX
+//   kernel (mvu_xnor.py:63-69), and a zero pad word or bit of both
+//   operands adds nothing to it.  Its constant K is applied once, after
+//   the K slices are summed.
+// The multiplying datapaths take int32 activations and full-width
+// products, so the kernels stay on the CUDA cores; sums are uint32 and
+// wrap mod 2^32 like XLA's int32 dot.
 //
 // Two arrangements, chosen by the Python plan (kernels/dense_mvu.py::
 // dense_launch_plan) and checked by dense::launch:
 //
 // * gemv, M <= 8 (the CNV's dense layers at one image a microbatch).  A
 //   warp owns one output column n for all M rows; its lanes stride K four
-//   synapses at a time with 16-byte loads of A and one 4-byte load of W
-//   (four int8, or the word whose four bits they are), sum in uint32 and
-//   reduce with __shfl_xor_sync; lane i runs the epilogue of row i.
+//   synapses at a time with 16-byte loads of A and one load of W (four
+//   int8, the word whose four bits they are, or the byte of four 2-bit
+//   lanes), sum in uint32 and reduce with __shfl_xor_sync; lane i runs
+//   the epilogue of row i.  XnorWords: a lane takes a word at a time;
+//   XnorBits: a lane takes one bit (or four) of A's LSBs and of W's word.
 // * tiled, M > 8 (the NID path's M = 128 and larger).  32 x 32 output
 //   tiles, 256 threads of a 2 x 2 register tile each, A and W staged 32
-//   synapses a step through two cp.async buffers, so the next step loads
+//   units a step through two cp.async buffers, so the next step loads
 //   while this one multiplies.  When the output has too few tiles to fill
 //   the card, K is split across a thread-block cluster and the slices are
 //   summed through distributed shared memory in the same launch
 //   (cluster_reduce.cuh): fc0 of the NID path at M = 128 (8 tiles of 19
-//   steps) becomes 64 blocks.
+//   steps) becomes 64 blocks.  XnorBits packs a step's A words where it
+//   reads them: two __ballot_sync of the staged int32 tile's LSBs give a
+//   warp the words of its two rows.
 //
 // A lane past K reads A as 0 (masked loads, zero-filled copies), so it
-// adds nothing to either term whatever its W lane holds: pad bits of a
-// bitplane word never count.  The epilogue operand is staged in shared
-// memory by cp.async while K runs, and up to 16 thresholds a column are
-// held in registers for the outputs a thread stores (tiled without split
-// K).
+// adds nothing to a multiplying datapath whatever its W lane holds: pad
+// bits of a bitplane word and pad lanes of a 2-bit byte never count.  The
+// epilogue operand is staged in shared memory by cp.async while K runs,
+// and up to 16 thresholds a column are held in registers for the outputs
+// a thread stores (tiled without split K).
 
 #pragma once
 
@@ -48,19 +62,24 @@ namespace repro {
 namespace dense {
 
 enum Arrangement : int { kGemv = 0, kTiled = 1 };
+// how W is stored (kernels/dense_mvu.py CODING)
+enum WCoding : int { kInt8Rows, kBitplanes, kInt2Lanes, kXnorWords, kXnorBits };
 
 constexpr int GEMV_MAX_M = 8;  // rows a gemv warp keeps
 constexpr int GEMV_WARPS = 8;  // columns a gemv block
-constexpr int TILE = 32;       // tiled: output tile, and synapses a step
+constexpr int TILE = 32;       // tiled: output tile, and K units a step
 constexpr int THREADS = 256;
 constexpr int TX = 16;              // tiled: threads along N (2 x 2 outputs each)
 constexpr int A_PITCH = TILE + 4;   // int32 words a staged A row (16-byte rows)
 constexpr int W_PITCH = TILE + 16;  // bytes a staged int8 W row
 constexpr int A_STAGE = TILE * A_PITCH * 4;
+constexpr int INT2_STEP_BYTES = TILE / 4;  // a column's 2-bit lanes of one step
 
 template <bool NARROW_A, bool BITPLANES, bool BINARY>
 struct Coding {
+  static constexpr WCoding coding = BITPLANES ? kBitplanes : kInt8Rows;
   static constexpr bool bitplanes = BITPLANES;
+  static constexpr bool xnor = false;
   using W = typename std::conditional<BITPLANES, uint32_t, int8_t>::type;
   // a step's W: 32 int8 rows of W_PITCH bytes, or one word a column
   static constexpr int W_STAGE = BITPLANES ? TILE * 4 : TILE * W_PITCH;
@@ -91,7 +110,63 @@ using IntRows = Coding<false, false, false>;        // mvu_int
 using BinaryRows = Coding<false, false, true>;      // mvu_binary
 using BinaryBitplanes = Coding<true, true, true>;   // mvu_binary_packed
 
-// w_cols: bitplane words a W row (int8 rows: unused, the row is k bytes)
+// mvu_int2_packed: A narrowed to int8, W four signed 2-bit lanes a byte
+// (lane e of a byte in bits 2e..2e+1, 0b10 -> -2, 0b11 -> -1), acc
+struct Int2Lanes {
+  static constexpr WCoding coding = kInt2Lanes;
+  static constexpr bool bitplanes = false;
+  static constexpr bool xnor = false;
+  using W = uint8_t;
+  static constexpr int W_STAGE = TILE * INT2_STEP_BYTES;  // 8 bytes a column
+  static constexpr int TILED_SMEM = EPI_STAGE_BYTES + 2 * (A_STAGE + W_STAGE);
+
+  __device__ static __forceinline__ uint32_t a(int32_t x) {
+    return static_cast<uint32_t>(static_cast<int32_t>(static_cast<int8_t>(x)));
+  }
+  // lane e of the 2-bit lanes in the low bits of chunk, sign-extended
+  __device__ static __forceinline__ uint32_t w(uint32_t chunk, int e) {
+    return static_cast<uint32_t>(static_cast<int32_t>(chunk << (30 - 2 * e)) >> 30);
+  }
+  __device__ static __forceinline__ uint32_t factor(int32_t v) {
+    return static_cast<uint32_t>(v);
+  }
+  __device__ static __forceinline__ uint32_t finish(uint32_t acc, uint32_t) { return acc; }
+};
+
+// mvu_xnor: A (M, Wd) and W (N, Wd) packed words; the K unit is a word.
+// The kernels' w_cols carries the true bit count K (both rows are k words).
+struct XnorWords {
+  static constexpr WCoding coding = kXnorWords;
+  static constexpr bool bitplanes = false;
+  static constexpr bool xnor = true;
+  using W = uint32_t;
+  static constexpr int W_STAGE = A_STAGE;  // 32 rows of 32 words, like A
+  static constexpr int TILED_SMEM = EPI_STAGE_BYTES + 2 * (A_STAGE + W_STAGE);
+
+  __device__ static __forceinline__ uint32_t finish(uint32_t acc, uint32_t) { return acc; }
+};
+
+// mvu_xnor's bit entry: A (M, K) int32 activations of which the LSB is the
+// stored bit, packed here; W (N, ceil(K/32)) words staged as bitplanes
+struct XnorBits {
+  static constexpr WCoding coding = kXnorBits;
+  static constexpr bool bitplanes = true;
+  static constexpr bool xnor = true;
+  using W = uint32_t;
+  static constexpr int W_STAGE = TILE * 4;  // one word a column
+  static constexpr int TILED_SMEM = EPI_STAGE_BYTES + 2 * (A_STAGE + W_STAGE);
+
+  __device__ static __forceinline__ uint32_t finish(uint32_t acc, uint32_t) { return acc; }
+};
+
+// the true bit count K of an xnor coding from the kernels' (k, w_cols)
+template <typename C>
+__device__ __forceinline__ uint32_t xnor_bits(int k, int w_cols) {
+  return static_cast<uint32_t>(C::coding == kXnorWords ? w_cols : k);
+}
+
+// w_cols: W row width in its storage units (bitplane words, 2-bit bytes;
+// int8 rows: unused, the row is k bytes; XnorWords: the bit count K)
 template <typename C, int EPI>
 __global__ void __launch_bounds__(GEMV_WARPS * 32)
 gemv(const int32_t* __restrict__ a, const typename C::W* __restrict__ w,
@@ -100,16 +175,59 @@ gemv(const int32_t* __restrict__ a, const typename C::W* __restrict__ w,
   const int lane = threadIdx.x & 31;
   const int col = static_cast<int>(blockIdx.x) * GEMV_WARPS + (threadIdx.x >> 5);
   if (col >= n) return;  // the whole warp
-  const typename C::W* wr = w + static_cast<size_t>(col) * (C::bitplanes ? w_cols : k);
+  const typename C::W* wr =
+      w + static_cast<size_t>(col) *
+              (C::bitplanes || C::coding == kInt2Lanes ? w_cols : k);
   uint32_t acc[GEMV_MAX_M];
 #pragma unroll
   for (int i = 0; i < GEMV_MAX_M; ++i) acc[i] = 0u;
-  if (vec) {  // K % 4 == 0, A 16-byte and W 4-byte aligned
+  if constexpr (C::coding == kXnorWords) {  // a word a lane: disagreeing bits
+    for (int kk = lane; kk < k; kk += 32) {
+      const uint32_t wq = __ldg(wr + kk);
+#pragma unroll
+      for (int i = 0; i < GEMV_MAX_M; ++i) {
+        if (i >= m) break;
+        acc[i] += __popc(static_cast<uint32_t>(__ldg(a + static_cast<size_t>(i) * k + kk)) ^ wq);
+      }
+    }
+  } else if constexpr (C::coding == kXnorBits) {
+    // a bit a lane (four with vec) over all w_cols words: A's LSB, read as
+    // 0 past K, against W's bit there, pad bits too (as pack_bits pads A)
+    const int kp = w_cols * 32;
+    if (vec) {
+      for (int kk = lane * 4; kk < kp; kk += 128) {
+        const uint32_t wq = __ldg(wr + kk / 32) >> (kk & 31);
+#pragma unroll
+        for (int i = 0; i < GEMV_MAX_M; ++i) {
+          if (i >= m) break;
+          const int4 av = kk < k ? __ldg(reinterpret_cast<const int4*>(
+                                       a + static_cast<size_t>(i) * k + kk))
+                                 : make_int4(0, 0, 0, 0);
+          acc[i] += ((static_cast<uint32_t>(av.x) ^ wq) & 1u) +
+                    ((static_cast<uint32_t>(av.y) ^ (wq >> 1)) & 1u) +
+                    ((static_cast<uint32_t>(av.z) ^ (wq >> 2)) & 1u) +
+                    ((static_cast<uint32_t>(av.w) ^ (wq >> 3)) & 1u);
+        }
+      }
+    } else {
+      for (int kk = lane; kk < kp; kk += 32) {
+        const uint32_t wb = __ldg(wr + kk / 32) >> (kk & 31);
+#pragma unroll
+        for (int i = 0; i < GEMV_MAX_M; ++i) {
+          if (i >= m) break;
+          const int32_t x = kk < k ? __ldg(a + static_cast<size_t>(i) * k + kk) : 0;
+          acc[i] += (static_cast<uint32_t>(x) ^ wb) & 1u;
+        }
+      }
+    }
+  } else if (vec) {  // K % 4 == 0, A 16-byte and W 4-byte aligned
     for (int kk = lane * 4; kk < k; kk += 128) {
-      // four synapses: four int8, or four bits of one word
-      const uint32_t wq = C::bitplanes
-                              ? __ldg(reinterpret_cast<const uint32_t*>(wr) + kk / 32) >> (kk & 31)
-                              : __ldg(reinterpret_cast<const uint32_t*>(wr + kk));
+      // four synapses: four int8, four bits of one word, or one byte of lanes
+      const uint32_t wq =
+          C::coding == kInt2Lanes
+              ? static_cast<uint32_t>(__ldg(reinterpret_cast<const uint8_t*>(wr) + kk / 4))
+          : C::bitplanes ? __ldg(reinterpret_cast<const uint32_t*>(wr) + kk / 32) >> (kk & 31)
+                         : __ldg(reinterpret_cast<const uint32_t*>(wr + kk));
       uint32_t f[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) f[e] = C::factor(static_cast<int32_t>(C::w(wq, e)));
@@ -123,7 +241,10 @@ gemv(const int32_t* __restrict__ a, const typename C::W* __restrict__ w,
   } else {
     for (int kk = lane; kk < k; kk += 32) {
       const uint32_t f = C::factor(
-          C::bitplanes
+          C::coding == kInt2Lanes
+              ? static_cast<int32_t>(
+                    C::w(reinterpret_cast<const uint8_t*>(wr)[kk / 4], kk & 3))
+          : C::bitplanes
               ? static_cast<int32_t>(C::w(reinterpret_cast<const uint32_t*>(wr)[kk / 32], kk & 31))
               : static_cast<int32_t>(wr[kk]));
 #pragma unroll
@@ -139,8 +260,13 @@ gemv(const int32_t* __restrict__ a, const typename C::W* __restrict__ w,
     for (int off = 16; off > 0; off >>= 1) acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], off);
 #pragma unroll
   for (int i = 0; i < GEMV_MAX_M; ++i)
-    if (i < m && lane == i)
-      store_one<EPI>(static_cast<int32_t>(acc[i]), i, col, n, thr, n_thr, scale, out);
+    if (i < m && lane == i) {
+      if constexpr (C::xnor)
+        store_one<EPI>(static_cast<int32_t>(xnor_bits<C>(k, w_cols) - 2u * acc[i]), i, col, n,
+                       thr, n_thr, scale, out);
+      else
+        store_one<EPI>(static_cast<int32_t>(acc[i]), i, col, n, thr, n_thr, scale, out);
+    }
 }
 
 template <typename C, int EPI, bool VEC>
@@ -157,6 +283,12 @@ tiled(const int32_t* __restrict__ a, const typename C::W* __restrict__ w,
   const int steps = (k + TILE - 1) / TILE;
   int s_lo, s_hi;
   k_slice(steps, splits, static_cast<int>(blockIdx.z), s_lo, s_hi);
+  // 2-bit lanes: whole 8-byte steps by cp.async where every row starts
+  // 8-byte aligned, else a byte a thread through a register (w_reg),
+  // stored after this step's arithmetic (put)
+  const bool w8 = C::coding == kInt2Lanes &&
+                  ((reinterpret_cast<uintptr_t>(w) | static_cast<uintptr_t>(w_cols)) & 7u) == 0;
+  uint32_t w_reg = 0u;
 
   auto a_stage = [&](int q) { return reinterpret_cast<int32_t*>(stages + q * A_STAGE); };
   auto w_stage = [&](int q) { return stages + 2 * A_STAGE + q * C::W_STAGE; };
@@ -164,16 +296,19 @@ tiled(const int32_t* __restrict__ a, const typename C::W* __restrict__ w,
     const int k0 = s * TILE;
     int32_t* as = a_stage(q);
     unsigned char* ws = w_stage(q);
-    // ok_w and v[] stay outside the `if constexpr (!C::bitplanes)` blocks, unused by
-    // BinaryBitplanes, so that mvu_binary's register allocation is the parent's
+    // ok_w and v[] stay outside the int8-row blocks, unused by the other
+    // codings, so that mvu_binary's register allocation is the parent's
     if (VEC) {  // K % 4 == 0: one 16-byte A chunk (and one 4-byte W chunk) a thread
       const int r = tid >> 3, c = (tid & 7) * 4, gk = k0 + c;
       const bool ok_a = m0 + r < m && gk < k, ok_w = n0 + r < n && gk < k;
       cp_async<16>(as + r * A_PITCH + c, ok_a ? a + static_cast<size_t>(m0 + r) * k + gk : a,
                    ok_a ? 16 : 0);
-      if constexpr (!C::bitplanes) {
+      if constexpr (C::coding == kInt8Rows) {
         cp_async<4>(ws + r * W_PITCH + c, ok_w ? w + static_cast<size_t>(n0 + r) * k + gk : w,
                     ok_w ? 4 : 0);
+      } else if constexpr (C::coding == kXnorWords) {
+        cp_async<16>(reinterpret_cast<int32_t*>(ws) + r * A_PITCH + c,
+                     ok_w ? w + static_cast<size_t>(n0 + r) * k + gk : w, ok_w ? 16 : 0);
       }
     } else {
       unsigned char v[TILE * TILE / THREADS];  // the W loads all in flight at once
@@ -183,14 +318,17 @@ tiled(const int32_t* __restrict__ a, const typename C::W* __restrict__ w,
         const bool ok_a = m0 + r < m && gk < k, ok_w = n0 + r < n && gk < k;
         cp_async<4>(as + r * A_PITCH + c, ok_a ? a + static_cast<size_t>(m0 + r) * k + gk : a,
                     ok_a ? 4 : 0);
-        if constexpr (!C::bitplanes) {
+        if constexpr (C::coding == kInt8Rows) {
           v[j] = ok_w ? static_cast<unsigned char>(
                             __ldg(reinterpret_cast<const int8_t*>(w) +
                                   static_cast<size_t>(n0 + r) * k + gk))
                       : 0;
+        } else if constexpr (C::coding == kXnorWords) {
+          cp_async<4>(reinterpret_cast<int32_t*>(ws) + r * A_PITCH + c,
+                      ok_w ? w + static_cast<size_t>(n0 + r) * k + gk : w, ok_w ? 4 : 0);
         }
       }
-      if constexpr (!C::bitplanes) {
+      if constexpr (C::coding == kInt8Rows) {
 #pragma unroll
         for (int j = 0; j < TILE * TILE / THREADS; ++j) {
           const int i = tid + j * THREADS;
@@ -204,12 +342,33 @@ tiled(const int32_t* __restrict__ a, const typename C::W* __restrict__ w,
         cp_async<4>(ws + tid * 4, ok_w ? w + static_cast<size_t>(n0 + tid) * w_cols + s : w,
                     ok_w ? 4 : 0);
       }
+    } else if constexpr (C::coding == kInt2Lanes) {
+      // step s is bytes [8s, 8s + 8) of each row; bytes past the row read 0
+      if (w8) {  // an aligned row holds whole steps (w_cols >= 8 * steps)
+        if (tid < TILE) {
+          const bool ok_w = n0 + tid < n;
+          cp_async<8>(ws + tid * INT2_STEP_BYTES,
+                      ok_w ? w + static_cast<size_t>(n0 + tid) * w_cols + s * INT2_STEP_BYTES : w,
+                      ok_w ? INT2_STEP_BYTES : 0);
+        }
+      } else {  // byte tid: row tid / 8, byte tid % 8 of the step
+        const int r = tid / INT2_STEP_BYTES, gb = s * INT2_STEP_BYTES + tid % INT2_STEP_BYTES;
+        w_reg = n0 + r < n && gb < w_cols ? __ldg(w + static_cast<size_t>(n0 + r) * w_cols + gb)
+                                          : 0u;
+      }
     }
+  };
+  // the byte a thread loaded for stage q (2-bit lanes, unaligned rows)
+  auto put = [&](int q) {
+    if (!w8) w_stage(q)[tid] = static_cast<unsigned char>(w_reg);
   };
 
   uint32_t acc[2][2] = {{0u, 0u}, {0u, 0u}}, rowsum[2] = {0u, 0u};
   stage_epilogue<EPI>(stage, n0, TILE, n, thr, n_thr, scale);
-  if (s_lo < s_hi) load(s_lo, 0);
+  if (s_lo < s_hi) {
+    load(s_lo, 0);
+    if constexpr (C::coding == kInt2Lanes) put(0);
+  }
   cp_async_commit();
   for (int s = s_lo; s < s_hi; ++s) {
     const int i = s - s_lo;
@@ -224,30 +383,77 @@ tiled(const int32_t* __restrict__ a, const typename C::W* __restrict__ w,
 #pragma unroll
       for (int c = 0; c < 2; ++c) words[c] = reinterpret_cast<const uint32_t*>(ws)[tx + c * 16];
     }
-#pragma unroll
-    for (int kk = 0; kk < TILE; kk += 4) {
-      int4 av[2];
-      uint32_t wv[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        av[r] = *reinterpret_cast<const int4*>(as + (ty + r * 16) * A_PITCH + kk);
-        rowsum[r] += C::a(av[r].x) + C::a(av[r].y) + C::a(av[r].z) + C::a(av[r].w);
-      }
+    uint32_t lanes[2][2];  // 2-bit lanes: this step's 8 bytes of each column
+    if constexpr (C::coding == kInt2Lanes) {
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
-        if constexpr (C::bitplanes)
-          wv[c] = words[c] >> kk;
-        else
-          wv[c] = *reinterpret_cast<const uint32_t*>(ws + (tx + c * 16) * W_PITCH + kk);
+        const uint2 v = reinterpret_cast<const uint2*>(ws)[tx + c * 16];
+        lanes[c][0] = v.x;
+        lanes[c][1] = v.y;
       }
+    }
+    if constexpr (C::coding == kXnorWords) {
 #pragma unroll
-      for (int r = 0; r < 2; ++r)
+      for (int kk = 0; kk < TILE; kk += 4) {
+        int4 av[2], wv[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          av[r] = *reinterpret_cast<const int4*>(as + (ty + r * 16) * A_PITCH + kk);
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          wv[c] = *reinterpret_cast<const int4*>(reinterpret_cast<const int32_t*>(ws) +
+                                                 (tx + c * 16) * A_PITCH + kk);
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            acc[r][c] += __popc(av[r].x ^ wv[c].x) + __popc(av[r].y ^ wv[c].y) +
+                         __popc(av[r].z ^ wv[c].z) + __popc(av[r].w ^ wv[c].w);
+      }
+    } else if constexpr (C::coding == kXnorBits) {
+      // lane L = tx + 16 (ty & 1) of the warp: ballot bit L is synapse tx
+      // of row ty, for the warp's even row in the low half, odd in the high
+      const int half = 16 * (ty & 1);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int32_t* row = as + (ty + r * 16) * A_PITCH;
+        const uint32_t lo = __ballot_sync(0xffffffffu, row[tx] & 1);
+        const uint32_t hi = __ballot_sync(0xffffffffu, row[tx + 16] & 1);
+        const uint32_t aw = ((lo >> half) & 0xffffu) | (((hi >> half) & 0xffffu) << 16);
+#pragma unroll
+        for (int c = 0; c < 2; ++c) acc[r][c] += __popc(aw ^ words[c]);
+      }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < TILE; kk += 4) {
+        int4 av[2];
+        uint32_t wv[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          av[r] = *reinterpret_cast<const int4*>(as + (ty + r * 16) * A_PITCH + kk);
+          rowsum[r] += C::a(av[r].x) + C::a(av[r].y) + C::a(av[r].z) + C::a(av[r].w);
+        }
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
-          const uint32_t x[4] = {C::a(av[r].x), C::a(av[r].y), C::a(av[r].z), C::a(av[r].w)};
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[r][c] += x[e] * C::w(wv[c], e);
+          if constexpr (C::bitplanes)
+            wv[c] = words[c] >> kk;
+          else if constexpr (C::coding == kInt2Lanes)
+            wv[c] = lanes[c][kk / 16] >> (2 * (kk % 16));
+          else
+            wv[c] = *reinterpret_cast<const uint32_t*>(ws + (tx + c * 16) * W_PITCH + kk);
         }
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const uint32_t x[4] = {C::a(av[r].x), C::a(av[r].y), C::a(av[r].z), C::a(av[r].w)};
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[r][c] += x[e] * C::w(wv[c], e);
+          }
+      }
+    }
+    if constexpr (C::coding == kInt2Lanes) {
+      if (s + 1 < s_hi) put((i + 1) & 1);  // that stage was last read a step ago
     }
     __syncthreads();
   }
@@ -269,7 +475,9 @@ tiled(const int32_t* __restrict__ a, const typename C::W* __restrict__ w,
       for (int c = 0; c < 2; ++c) {
         const int gm = m0 + ty + r * 16, gn = n0 + tx + c * 16;
         if (gm >= m || gn >= n) continue;
-        const int32_t v = static_cast<int32_t>(C::finish(acc[r][c], rowsum[r]));
+        uint32_t total = C::finish(acc[r][c], rowsum[r]);
+        if constexpr (C::xnor) total = xnor_bits<C>(k, w_cols) - 2u * total;
+        const int32_t v = static_cast<int32_t>(total);
         if (in_regs)
           static_cast<int32_t*>(out)[static_cast<size_t>(gm) * n + gn] = level_of(v, th[c], n_thr);
         else
@@ -284,6 +492,7 @@ tiled(const int32_t* __restrict__ a, const typename C::W* __restrict__ w,
     for (int c = 0; c < 2; ++c)
       part[(ty + r * 16) * TILE + tx + c * 16] = C::finish(acc[r][c], rowsum[r]);
   cluster_reduce_store(part, TILE, TILE, [&](int r, int c, uint32_t v) {
+    if constexpr (C::xnor) v = xnor_bits<C>(k, w_cols) - 2u * v;  // once, on the sum
     if (m0 + r < m && n0 + c < n)
       store_staged<EPI>(static_cast<int32_t>(v), m0 + r, c, n0, n, stage, thr, n_thr, out);
   });
@@ -291,23 +500,39 @@ tiled(const int32_t* __restrict__ a, const typename C::W* __restrict__ w,
 
 // Launch coding C's kernel on the plan (arrangement, tile_m x tile_n
 // outputs a block, splits K slices, smem bytes) of kernels/dense_mvu.py::
-// dense_launch_plan; a plan it cannot run, or W of the wrong width (int8
-// rows: w_cols == k; bitplanes: w_cols >= ceil(k/32)), returns
-// cudaErrorInvalidValue.
+// dense_launch_plan; a plan it cannot run, or W of the wrong width,
+// returns cudaErrorInvalidValue.  k is the synapse count K and w_cols the
+// W row's width in its storage: int8 rows w_cols == K; bitplanes
+// w_cols >= ceil(K/32); 2-bit lanes w_cols >= ceil(K/4); XnorBits
+// w_cols == ceil(K/32); XnorWords (A and W both Wd = w_cols words, the
+// plan's K unit a word) K <= 32 * w_cols.
 template <typename C>
 int launch(const void* a, const void* w, const void* thr, const void* scale, void* out,
            int m, int n, int k, int w_cols, int n_thr, int epilogue, int arrangement,
            int tile_m, int tile_n, int splits, int smem, void* stream) {
-  const int steps = (k + TILE - 1) / TILE;
-  if (C::bitplanes ? w_cols < steps : w_cols != k) return static_cast<int>(cudaErrorInvalidValue);
+  if (k < 0 || w_cols < 0) return static_cast<int>(cudaErrorInvalidValue);
+  // the kernels' (k, w_cols): XnorWords runs on Wd words and carries K
+  const int units = C::coding == kXnorWords ? w_cols : k;
+  const int wk = C::coding == kXnorWords ? k : w_cols;
+  const int steps = (units + TILE - 1) / TILE;
+  const long long wide = w_cols;
+  const bool w_ok = C::coding == kInt8Rows     ? w_cols == k
+                    : C::coding == kBitplanes  ? w_cols >= steps
+                    : C::coding == kInt2Lanes  ? 4 * wide >= k
+                    : C::coding == kXnorBits   ? w_cols == steps
+                                               : k <= 32 * wide;
+  if (!w_ok) return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   const auto a32 = static_cast<const int32_t*>(a);
   const auto wc = static_cast<const typename C::W*>(w);
   const auto t32 = static_cast<const int32_t*>(thr);
   const auto sc = static_cast<const float*>(scale);
-  // 16-byte A rows and, for int8 rows, 4-byte W chunks (a word is aligned)
-  const bool vec = k % 4 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
-                   (C::bitplanes || reinterpret_cast<uintptr_t>(w) % 4 == 0);
+  // 16-byte A rows and, for int8 rows, 4-byte W chunks (a word is aligned;
+  // 2-bit rows pick their copy width in the kernel); xnor words: 16-byte
+  // rows of both
+  const uintptr_t w_align = C::coding == kXnorWords ? 16 : C::coding == kInt8Rows ? 4 : 1;
+  const bool vec = units % 4 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(w) % w_align == 0;
   if (arrangement == kGemv) {
     if (m > GEMV_MAX_M || tile_m != GEMV_MAX_M || tile_n != GEMV_WARPS || splits != 1 ||
         smem != 0)
@@ -315,7 +540,7 @@ int launch(const void* a, const void* w, const void* thr, const void* scale, voi
     const dim3 grid((n + GEMV_WARPS - 1) / GEMV_WARPS);
     return static_cast<int>(with_epilogue(epilogue, [&](auto e) {
       gemv<C, decltype(e)::value><<<grid, GEMV_WARPS * 32, 0, s>>>(
-          a32, wc, t32, sc, out, m, n, k, n_thr, vec ? 1 : 0, w_cols);
+          a32, wc, t32, sc, out, m, n, units, n_thr, vec ? 1 : 0, wk);
       return cudaGetLastError();
     }));
   }
@@ -325,10 +550,10 @@ int launch(const void* a, const void* w, const void* thr, const void* scale, voi
   const dim3 grid((m + TILE - 1) / TILE, (n + TILE - 1) / TILE, splits);
   return static_cast<int>(with_epilogue(epilogue, [&](auto e) {
     return vec ? launch_cluster(tiled<C, decltype(e)::value, true>, grid, THREADS, smem, splits,
-                                s, a32, wc, t32, sc, out, m, n, k, n_thr, splits, w_cols)
+                                s, a32, wc, t32, sc, out, m, n, units, n_thr, splits, wk)
                : launch_cluster(tiled<C, decltype(e)::value, false>, grid, THREADS, smem,
-                                splits, s, a32, wc, t32, sc, out, m, n, k, n_thr, splits,
-                                w_cols);
+                                splits, s, a32, wc, t32, sc, out, m, n, units, n_thr, splits,
+                                wk);
   }));
 }
 

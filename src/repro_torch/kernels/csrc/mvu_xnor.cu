@@ -1,75 +1,75 @@
 // XNOR-popcount MVU (paper Fig. 4a) for Hopper (sm_90a), CUDA cores.
 //
-//   acc[m, n] = sum_w popcount(~(a[m, w] ^ w[n, w]))       (a, w: 32-bit words)
-//   out[m, n] = epilogue(2 * acc - pad_correction(K, Wd * 32))
+//   out[m, n] = epilogue(2 * sum_w popcount(~(a[m, w] ^ w[n, w]))
+//                        - pad_correction(K, Wd * 32))     (a, w: 32-bit words)
 //
-// Replaces src/repro/kernels/mvu_xnor.py::mvu_xnor_pallas (the pallas_call
-// at mvu_xnor.py:121); the packed-xnor path of the JAX package
-// (mvu_packed.py:388-393) runs the same kernel.  Both operands hold 32
-// bipolar synapses per word, LSB-first, with zero pad bits past K
-// (repro_torch.kernels.packing.pack_bits).
+// the bipolar dot over the true K synapses.  Replaces src/repro/kernels/
+// mvu_xnor.py::mvu_xnor_pallas (def at mvu_xnor.py:74, the pallas_call at
+// :121); the packed-xnor path of the JAX package (mvu_packed.py:388-393)
+// runs the same kernel.  Two entry points, one kernel function:
 //
-// The pad correction.  The JAX kernel pads both operands with zero words
-// up to whole blocks and subtracts the correction for its block-padded
-// width.  Here words past Wd are never loaded: a missing word is read as
-// a = 0 against w = ~0 (mvu_tile.cuh's pad value), whose XNOR is 0, so
-// only the Wd real words count and the correction is the one for Wd * 32
-// bits.  Both land on the same bipolar dot over the true K synapses.
+//   repro_mvu_xnor        a (M, Wd) packed words, as mvu_xnor_pallas takes
+//                         them (repro_torch.kernels.packing.pack_bits:
+//                         LSB-first, zero pad bits past K); coding XnorWords
+//   repro_mvu_xnor_bits   a (M, K) int32 activations as they stream between
+//                         the engine's nodes: the kernel forms each A word
+//                         from the LSBs of 32 of them where it reads them,
+//                         pad bits 0, so it computes
+//                         repro_mvu_xnor(pack_bits(a), w, K) and the host
+//                         launches no pack; coding XnorBits
 //
-// What bounds it on the H100 at the NID path's shapes (M <= 128 per
-// microbatch, Wd in {19, 2}, N in {64, 1}): latency.  One launch reads at
-// most ~20 KB and does ~0.16 M word operations; a whole (M, Wd) x (N, Wd)
-// tile fits one K step (BK = 32 words = 1024 synapses), so each block
-// loads once, waits at one barrier and runs 32 XOR/NOT/POPC/ADD rounds.
-// The grid is as small as mvu_int's (4 x 2 blocks at M = 128); the kernel
-// is simple and right first, and the design is the standard kernel's K
-// loop (mvu_tile.cuh) with the multiply-add replaced by __popc(~(a ^ w)).
+// w is (N, Wd) words, Wd = ceil(K/32) for the bit entry.  Both run
+// dense_mvu.cuh's core on the plan of kernels/dense_mvu.py::
+// dense_launch_plan: a warp a column at M <= 8, double-buffered 32 x 32
+// tiles with K split across a cluster above.  The sum counts the
+// disagreeing bits, acc = sum popc(a ^ w), and is finished once, after the
+// K slices are summed, as K - 2 * acc, which equals the identity above:
+// popc(~x) = 32 - popc(x) on each of Wd words.  So a word (or bit) that is
+// zero in both operands adds nothing: the words past Wd that the tiled
+// arrangement stages as zeros, whatever JAX's padded width (mvu_xnor.py
+// pads to whole blocks and corrects for it).  For the packed entry the K
+// unit is a word (32 words a step, both operands staged like the int32 A
+// tile); for the bit entry a synapse (a step is one word of W a column,
+// and two __ballot_sync of the staged activations' LSBs give a warp its
+// two rows' words).
 //
-// The sum is an exact integer: it is at most Wd * 32 < 2^30 (the wrapper
-// holds Wd < 2^25), so 2 * sum - correction fits int32.
+// What bounds it on the H100 at the main path's shapes (NID: M = 128 a
+// microbatch, K in {600, 64}, N in {64, 1}; CNV xnor: its dense layers at
+// M = 1, K in {256, 512}): latency.  A packed launch reads at most ~20 KB;
+// the bit entry reads the activations as int32, 32x the bytes of packed
+// words (0.3 MB at NID fc0, M = 128), which still takes < 0.1 us at the
+// card's memory rate.  What counts is one block's chain of launch, K
+// steps, cluster sum and epilogue, as for the other dense kernels; the
+// bit entry's gain is on the host, which no longer runs pack_bits' ~10
+// tensor ops before each xnor stage.
+//
+// The sum is an exact integer: acc <= Wd * 32 < 2^30 (the wrapper holds
+// Wd < 2^25), so K - 2 * acc fits int32.
 
-#include "mvu_tile.cuh"
-
-namespace {
-
-using namespace repro;
-
-// one word pair's share of the popcount: agreeing bits count
-struct XnorPopc {
-  __device__ __forceinline__ uint32_t operator()(uint32_t a, uint32_t w) const {
-    return static_cast<uint32_t>(__popc(~(a ^ w)));
-  }
-};
-
-template <int EPI>
-__global__ void __launch_bounds__(THREADS)
-mvu_xnor_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ w,
-                const int32_t* __restrict__ thr, const float* __restrict__ scale,
-                void* __restrict__ out, int m, int n, int k_bits, int wd, int n_thr) {
-  uint32_t acc[RM][RN];
-  mvu_tile(
-      m, n, wd, [&](int gm, int gw) { return a[static_cast<size_t>(gm) * wd + gw]; },
-      [&](int gn, int gw) { return w[static_cast<size_t>(gn) * wd + gw]; }, ~0u, XnorPopc{},
-      acc);
-  // bipolar dot over the true K bits (packing.pad_correction)
-  const int32_t correction = 2 * wd * 32 - k_bits;
-  store_tile<EPI>(
-      [&](int i, int j) { return 2 * static_cast<int32_t>(acc[i][j]) - correction; }, m, n,
-      thr, n_thr, scale, out);
-}
-
-}  // namespace
+#include "dense_mvu.cuh"
 
 // a (M, Wd) and w (N, Wd) 32-bit words: k is the true synapse count K,
-// w_cols is Wd (0 <= K <= Wd * 32, checked by the wrapper).
+// w_cols is Wd (0 <= K <= Wd * 32, checked by the wrapper); the plan is
+// dense_launch_plan's for Wd units of the coding "words".  A plan this
+// kernel cannot run returns cudaErrorInvalidValue.
 extern "C" int repro_mvu_xnor(const void* a, const void* w, const void* thr,
                               const void* scale, void* out, int m, int n, int k,
-                              int w_cols, int n_thr, int epilogue, void* stream) {
-  return static_cast<int>(dispatch_epilogue(epilogue, [&](auto e) {
-    mvu_xnor_kernel<decltype(e)::value>
-        <<<grid_for(m, n), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-            static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(w),
-            static_cast<const int32_t*>(thr), static_cast<const float*>(scale), out, m,
-            n, k, w_cols, n_thr);
-  }));
+                              int w_cols, int n_thr, int epilogue, int arrangement,
+                              int tile_m, int tile_n, int splits, int smem, void* stream) {
+  return repro::dense::launch<repro::dense::XnorWords>(a, w, thr, scale, out, m, n, k, w_cols,
+                                                       n_thr, epilogue, arrangement, tile_m,
+                                                       tile_n, splits, smem, stream);
+}
+
+// a (M, K) int32 activations (their LSBs are the bits), w (N, Wd) words,
+// w_cols = Wd = ceil(K/32); the plan is dense_launch_plan's for the
+// coding "bits".
+extern "C" int repro_mvu_xnor_bits(const void* a, const void* w, const void* thr,
+                                   const void* scale, void* out, int m, int n, int k,
+                                   int w_cols, int n_thr, int epilogue, int arrangement,
+                                   int tile_m, int tile_n, int splits, int smem,
+                                   void* stream) {
+  return repro::dense::launch<repro::dense::XnorBits>(a, w, thr, scale, out, m, n, k, w_cols,
+                                                      n_thr, epilogue, arrangement, tile_m,
+                                                      tile_n, splits, smem, stream);
 }

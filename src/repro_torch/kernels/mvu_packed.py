@@ -3,11 +3,11 @@
 The weights stay in their packed storage -- 32-bit bitplanes of the {0,1}
 coding (``packing.pack_bits``, int32 bit patterns) or four signed 2-bit
 lanes per uint8 byte (``packing.pack_int2``) -- and are never unpacked
-into device memory (``csrc/mvu_packed.cu``).  ``mvu_binary_packed`` runs
-the dense core of ``csrc/dense_mvu.cuh`` on bitplanes, in the arrangement
-that :func:`~repro_torch.kernels.dense_mvu.dense_launch_plan` picks for
-the ``"bitplanes"`` coding; ``mvu_int2_packed`` unpacks one tile at a time
-in shared memory on the shared K loop ``csrc/mvu_tile.cuh``:
+into device memory (``csrc/mvu_packed.cu``).  Both run the dense core of
+``csrc/dense_mvu.cuh``, in the arrangement that
+:func:`~repro_torch.kernels.dense_mvu.dense_launch_plan` picks for their
+W coding (``"bitplanes"``, ``"int2"``), and read a W lane where they
+multiply it:
 
     mvu_binary_packed   2 * (A8 . W01^T) - rowsum(A8)   replaces
                         mvu_packed.py::mvu_binary_packed_pallas (:124, pallas_call :177)
@@ -37,12 +37,12 @@ from repro_torch.kernels._common import (
     int_dot,
     narrow_int8,
 )
-from repro_torch.kernels._cuda import ARGTYPES, PLAN_ARGTYPES, Library
+from repro_torch.kernels._cuda import PLAN_ARGTYPES, Library
 from repro_torch.kernels.dense_mvu import CODING, dense_launch_plan
 from repro_torch.kernels.mvu_xnor import mvu_xnor, mvu_xnor_plain
 
 LIB = Library("mvu_packed.cu", {"repro_mvu_binary_packed": PLAN_ARGTYPES,
-                                "repro_mvu_int2_packed": ARGTYPES})
+                                "repro_mvu_int2_packed": PLAN_ARGTYPES})
 
 # Kernel launches since import (or since a caller reset them to 0).
 BINARY_LAUNCHES = 0
@@ -109,8 +109,9 @@ def mvu_int2_packed(a: torch.Tensor, w_packed: torch.Tensor, k_bits: int,
     _check_k("mvu_int2_packed", a, k_bits)
     if a.device.type == "cpu":
         return mvu_int2_packed_plain(a, w_packed, k_bits, thresholds, out_scale)
+    (m, k), n = a.shape, w_packed.shape[0]
     out = LIB.launch("repro_mvu_int2_packed", a, w_packed, thresholds, out_scale, epi,
-                     n=w_packed.shape[0], k=k_bits)
+                     n=n, k=k, plan=dense_launch_plan(m, n, k, CODING["mvu_int2_packed"]).c_args)
     if out.numel():  # an empty output launches nothing
         INT2_LAUNCHES += 1
     return out

@@ -7,9 +7,22 @@ word (int32 bit patterns, ``packing.pack_bits``) and computes
 
 the bipolar dot product over the true K = ``k_bits`` synapses.  It
 replaces ``src/repro/kernels/mvu_xnor.py::mvu_xnor_pallas`` (``pallas_call``
-at line 121); the source is ``csrc/mvu_xnor.cu``.  Like every wrapper: a
-CUDA tensor launches the kernel or raises, a CPU tensor takes the plain
-version :func:`mvu_xnor_plain`, and ``LAUNCHES`` counts launches.
+at line 121); the source is ``csrc/mvu_xnor.cu``, the dense core of
+``csrc/dense_mvu.cuh`` in the arrangement that
+:func:`~repro_torch.kernels.dense_mvu.dense_launch_plan` picks.  Two entry
+points, one kernel and one launch counter:
+
+* :func:`mvu_xnor`, on packed (M, Wd) activation words, the counterpart of
+  ``mvu_xnor_pallas`` (coding ``"words"``, K counted in words);
+* :func:`mvu_xnor_bits`, on the (M, K) int32 activations as they stream
+  between the engine's nodes: the kernel packs their LSBs where it reads
+  them, so it computes ``mvu_xnor(pack_bits(a), w, K)`` with no pack on
+  the host (coding ``"bits"``).  The engine's xnor stages call it on the
+  card (``core/dataflow.py``).
+
+Like every wrapper: a CUDA tensor launches the kernel or raises, a CPU
+tensor takes the plain version (:func:`mvu_xnor_plain`,
+:func:`mvu_xnor_bits_plain`), and ``LAUNCHES`` counts launches.
 """
 
 from __future__ import annotations
@@ -19,11 +32,13 @@ import torch
 from repro_torch.kernels import packing
 from repro_torch.kernels import _common
 from repro_torch.kernels._common import check_operands, epilogue_value
-from repro_torch.kernels._cuda import ARGTYPES, Library
+from repro_torch.kernels._cuda import PLAN_ARGTYPES, Library
+from repro_torch.kernels.dense_mvu import CODING, dense_launch_plan
 
-LIB = Library("mvu_xnor.cu", {"repro_mvu_xnor": ARGTYPES})
+LIB = Library("mvu_xnor.cu", {"repro_mvu_xnor": PLAN_ARGTYPES,
+                              "repro_mvu_xnor_bits": PLAN_ARGTYPES})
 
-# Kernel launches since import (or since a caller reset it to 0).
+# Kernel launches since import (or since a caller reset it to 0), both entries.
 LAUNCHES = 0
 
 
@@ -46,11 +61,36 @@ def mvu_xnor(a_packed: torch.Tensor, w_packed: torch.Tensor, k_bits: int,
     global LAUNCHES
     a, epi = check_operands("mvu_xnor", a_packed, w_packed, thresholds, out_scale,
                             w_dtype=torch.int32, words=True)
-    _check_k(k_bits, a.shape[1])
+    (m, wd), n = a.shape, w_packed.shape[0]
+    _check_k(k_bits, wd)
     if a.device.type == "cpu":
         return mvu_xnor_plain(a, w_packed, k_bits, thresholds, out_scale)
-    out = LIB.launch("repro_mvu_xnor", a, w_packed, thresholds, out_scale, epi,
-                     n=w_packed.shape[0], k=k_bits)
+    out = LIB.launch("repro_mvu_xnor", a, w_packed, thresholds, out_scale, epi, n=n,
+                     k=k_bits, plan=dense_launch_plan(m, n, wd, CODING["mvu_xnor"]).c_args)
+    if out.numel():  # an empty output launches nothing
+        LAUNCHES += 1
+    return out
+
+
+def mvu_xnor_bits(a: torch.Tensor, w_packed: torch.Tensor,
+                  thresholds: torch.Tensor | None = None,
+                  out_scale: torch.Tensor | None = None) -> torch.Tensor:
+    """``mvu_xnor(pack_bits(a), w_packed, K)`` with the pack made in the
+    kernel: a (M, K) integer activations, of which only the LSB counts
+    (int8/uint8/int16 are widened); w_packed (N, ceil(K/32)) int32 words.
+    """
+    global LAUNCHES
+    a, epi = check_operands("mvu_xnor_bits", a, w_packed, thresholds, out_scale,
+                            w_dtype=torch.int32, lanes_per_col=packing.WORD_BITS)
+    (m, k), (n, wd) = a.shape, w_packed.shape
+    if wd != packing.num_words(k):
+        raise ValueError(f"mvu_xnor_bits: w {tuple(w_packed.shape)} must hold "
+                         f"ceil(K/32) = {packing.num_words(k)} words a row for K = {k}")
+    _check_k(k, wd)
+    if a.device.type == "cpu":
+        return mvu_xnor_bits_plain(a, w_packed, thresholds, out_scale)
+    out = LIB.launch("repro_mvu_xnor_bits", a, w_packed, thresholds, out_scale, epi, n=n,
+                     k=k, plan=dense_launch_plan(m, n, k, CODING["mvu_xnor_bits"]).c_args)
     if out.numel():  # an empty output launches nothing
         LAUNCHES += 1
     return out
@@ -75,3 +115,11 @@ def mvu_xnor_plain(a_packed: torch.Tensor, w_packed: torch.Tensor, k_bits: int,
                                                 device=a_packed.device)
     dot = 2 * pc - packing.pad_correction(k_bits, wd * packing.WORD_BITS)
     return epilogue_value(dot.to(torch.int32), thresholds, out_scale)
+
+
+def mvu_xnor_bits_plain(a: torch.Tensor, w_packed: torch.Tensor,
+                        thresholds: torch.Tensor | None = None,
+                        out_scale: torch.Tensor | None = None) -> torch.Tensor:
+    """The bit entry's function in plain PyTorch: pack the LSBs of a, then
+    :func:`mvu_xnor_plain` over its K = a.shape[1] synapses."""
+    return mvu_xnor_plain(packing.pack_bits(a), w_packed, a.shape[1], thresholds, out_scale)

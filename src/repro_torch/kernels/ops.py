@@ -21,10 +21,9 @@ package's ``("pallas", "xla")``:
 Packed words are int32 bit patterns (``kernels/packing.py``).  The JAX
 package's tile kwargs (``block_m``/``block_n``/``block_k``/``block_kw``)
 are accepted for a like signature and ignored: the CUDA kernels are
-compiled for one tile (``conv_mvu`` and the three kernels on the dense
-core -- ``mvu_int``, ``mvu_binary``, ``mvu_binary_packed`` -- pick their
-arrangement and K splits from the shape), and tuned per-layer tiles come
-with the autotuner (ROADMAP queue A item 3).
+compiled for one tile (``conv_mvu`` and the five kernels on the dense
+core pick their arrangement and K splits from the shape), and tuned
+per-layer tiles come with the autotuner (ROADMAP queue A item 3).
 """
 
 from __future__ import annotations

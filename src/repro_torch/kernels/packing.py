@@ -152,6 +152,20 @@ def pack_int2(values: torch.Tensor) -> torch.Tensor:
     return (f << shifts).sum(-1).to(torch.uint8)
 
 
+def pack_int2_pad_set(values: torch.Tensor, extra_bytes: int,
+                      generator: torch.Generator | None = None) -> torch.Tensor:
+    """``pack_int2(values)`` for (N, K) lanes in [-2, 1] with every pad lane
+    of the last byte set (0b11) and ``extra_bytes`` random bytes more a row:
+    a 2-bit operand (``Bd > ceil(K/4)``) of which a kernel must count
+    neither part."""
+    n, k = values.shape
+    lanes = pack_int2(values)
+    if k % INT2_PER_BYTE:
+        lanes[:, -1] |= (0xFF << (2 * (k % INT2_PER_BYTE))) & 0xFF  # the lanes past K
+    extra = torch.randint(0, 256, (n, extra_bytes), generator=generator, dtype=torch.uint8)
+    return torch.cat([lanes, extra.to(lanes.device)], 1).contiguous()
+
+
 def unpack_int2(bytes_: torch.Tensor, count: int) -> torch.Tensor:
     """Inverse of :func:`pack_int2`: (..., B) uint8 -> (..., count) int32 in [-2, 1].
 

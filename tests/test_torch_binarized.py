@@ -7,6 +7,12 @@ JAX package, on the CPU, with tolerance 0 (``np.array_equal``, dtypes too).
   plain versions) against the JAX Pallas kernels in interpret mode, at
   N in {1, 7, 64}, K in {1, 33, 64, 600}, M in {1, 3, 128} and all three
   epilogues; ``backend="torch"`` against the same numbers.
+* ``mvu_xnor``'s two entries at the dense core's sweep (N = 10, M in
+  {1, 9, 100, 128, 4096}, K in {27, 64, 600, 2304}, all three
+  epilogues): the packed one against ``mvu_xnor_pallas``, the bit one
+  (multi-bit and negative activations, whose LSB alone counts) against
+  JAX ``pack_bits`` followed by ``mvu_xnor_pallas``; the engine's xnor
+  stage packs on the CPU and raises on a meta tensor.
 * The slice: the NID-MLP built at full width in the xnor and binary
   variants by both packages, ``acc(x)`` and ``acc.interpret(x)`` against
   the JAX engine at B in {1, 3, 257}, and the weight storage carried across.
@@ -28,7 +34,8 @@ from repro_torch.build import BuildError, build as tbuild
 from repro_torch.configs import nid_mlp as tnid
 from repro_torch.core import dataflow as tdf
 from repro_torch.core.engine import FusedEngine
-from repro_torch.core.mvu import MVUConfig, MVULayer
+from repro_torch.core.ir import Node
+from repro_torch.core.mvu import MVUConfig, MVULayer, MVUParams
 from repro_torch.kernels import (
     _common,
     mvu_binary as B,
@@ -174,6 +181,87 @@ def test_mvu_xnor_matches_jax_pallas(n, k, m, epilogue):
                   backend="torch"), want)
     _same(ops.mvu(tap, twp, "xnor", k_bits=k, thresholds=_t(t), out_scale=_t(s),
                   packed=True, backend="torch"), want)
+
+
+# the dense core's sweep (tests/test_torch_dense.py)
+SWEEP_MS = (1, 9, 100, 128, 4096)
+SWEEP_KS = (27, 64, 600, 2304)
+
+
+@pytest.mark.parametrize("epilogue", EPILOGUES)
+@pytest.mark.parametrize("k", SWEEP_KS)
+@pytest.mark.parametrize("m", SWEEP_MS)
+def test_mvu_xnor_matches_jax_pallas_at_the_dense_sweep(m, k, epilogue):
+    rng = np.random.default_rng(8000 + 10 * m + k)
+    ab = rng.integers(0, 2, (m, k)).astype(np.int32)
+    wb = rng.integers(0, 2, (10, k)).astype(np.int32)
+    t, s = _epilogue(10, k, epilogue, rng)
+    jap, jwp = jpacking.pack_bits(_j(ab)), jpacking.pack_bits(_j(wb))
+    want = jops.mvu(jap, jwp, "xnor", k_bits=k, thresholds=_j(t), out_scale=_j(s))
+    tap, twp = _t(_np(jap)), _t(_np(jwp))
+    launches = X.LAUNCHES
+    _same(X.mvu_xnor(tap, twp, k, _t(t), _t(s)), want)
+    assert X.LAUNCHES == launches  # a CPU tensor takes the plain version
+    _same(X.mvu_xnor_plain(tap, twp, k, _t(t), _t(s)), want)
+
+
+@pytest.mark.parametrize("epilogue", EPILOGUES)
+@pytest.mark.parametrize("k", SWEEP_KS)
+@pytest.mark.parametrize("m", SWEEP_MS)
+def test_mvu_xnor_bits_matches_jax_pack_then_pallas_at_the_dense_sweep(m, k, epilogue):
+    """Activations in [-300, 300): only the LSB of each counts, a negative
+    one's too (two's complement), and none leaks into the pad bits."""
+    rng = np.random.default_rng(9000 + 10 * m + k)
+    a = rng.integers(-300, 300, (m, k)).astype(np.int32)
+    wb = rng.integers(0, 2, (10, k)).astype(np.int32)
+    t, s = _epilogue(10, k, epilogue, rng)
+    jwp = jpacking.pack_bits(_j(wb))
+    want = jops.mvu(jpacking.pack_bits(_j(a)), jwp, "xnor", k_bits=k, thresholds=_j(t),
+                    out_scale=_j(s))
+    twp = _t(_np(jwp))
+    launches = X.LAUNCHES
+    _same(X.mvu_xnor_bits(_t(a), twp, _t(t), _t(s)), want)
+    assert X.LAUNCHES == launches  # a CPU tensor takes the plain version
+    _same(X.mvu_xnor_bits_plain(_t(a), twp, _t(t), _t(s)), want)
+
+
+def _xnor_stage(k=600, n=7):
+    cfg = MVUConfig(k, n, mode="xnor", weight_bits=1, act_bits=1)
+    g = torch.Generator().manual_seed(k)
+    params = MVUParams(packing.pack_bits(torch.randint(0, 2, (n, k), generator=g)),
+                       torch.sort(torch.randint(-k, k, (n, 1), generator=g,
+                                                dtype=torch.int32), 1).values, None)
+    return tdf.node_runner(Node("mvu", "fc0", attrs={"config": cfg},
+                                params={"mvu": params}))
+
+
+def test_xnor_stage_packs_on_the_cpu(monkeypatch):
+    """On the CPU the engine's xnor stage packs its input with pack_bits
+    and runs the packed plain version; no launch."""
+    params, run = _xnor_stage()
+    x = torch.randint(-300, 300, (2, 3, 600), generator=torch.Generator().manual_seed(1),
+                      dtype=torch.int32)
+    calls = []
+    pack = packing.pack_bits
+    monkeypatch.setattr(packing, "pack_bits", lambda v: calls.append(v.shape) or pack(v))
+    launches = X.LAUNCHES
+    y = run(params, x)
+    assert calls == [(2, 3, 600)] and X.LAUNCHES == launches
+    want = X.mvu_xnor_plain(pack(x.reshape(6, 600)), params.weights, 600, params.thresholds)
+    _same(y, want.reshape(2, 3, 7))
+
+
+def test_xnor_stage_raises_on_a_meta_tensor(monkeypatch):
+    """Off the CPU the stage takes the bit entry, which launches the kernel
+    or raises: no pack_bits, no fallback."""
+    params, run = _xnor_stage()
+    meta = MVUParams(*(None if v is None else v.to("meta")
+                       for v in (params.weights, params.thresholds, params.out_scale)))
+    monkeypatch.setattr(packing, "pack_bits", lambda v: pytest.fail("pack_bits was called"))
+    launches = X.LAUNCHES
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        run(meta, torch.empty((4, 600), dtype=torch.int32, device="meta"))
+    assert X.LAUNCHES == launches
 
 
 @pytest.mark.parametrize("epilogue", EPILOGUES)

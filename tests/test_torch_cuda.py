@@ -55,8 +55,8 @@ def test_kernel_equals_plain(cuda, m, n, k, epilogue):
         assert got.dtype == want.dtype and torch.equal(got, want)
 
 
-@pytest.mark.parametrize("kernel", ["mvu_xnor", "mvu_binary", "mvu_binary_packed",
-                                    "mvu_int2_packed"])
+@pytest.mark.parametrize("kernel", ["mvu_xnor", "mvu_xnor_bits", "mvu_binary",
+                                    "mvu_binary_packed", "mvu_int2_packed"])
 @pytest.mark.parametrize("epilogue", ["raw", "thresholds", "scale"])
 @pytest.mark.parametrize("n,k", [(64, 600), (64, 64), (1, 64), (33, 95), (7, 1)])
 @pytest.mark.parametrize("m", [1, 3, 128, 257])
@@ -70,6 +70,9 @@ def test_new_kernels_equal_plain(cuda, kernel, m, n, k, epilogue):
     if kernel == "mvu_xnor":
         fn, plain = mvu_xnor.mvu_xnor, mvu_xnor.mvu_xnor_plain
         args = (packing.pack_bits(a), packing.pack_bits(bits), k)
+    elif kernel == "mvu_xnor_bits":
+        fn, plain = mvu_xnor.mvu_xnor_bits, mvu_xnor.mvu_xnor_bits_plain
+        args = (a, packing.pack_bits(bits))
     elif kernel == "mvu_binary":
         fn, plain = mvu_binary.mvu_binary, mvu_binary.mvu_binary_plain
         args = (a, bits)
@@ -80,12 +83,18 @@ def test_new_kernels_equal_plain(cuda, kernel, m, n, k, epilogue):
         fn, plain = mvu_packed.mvu_int2_packed, mvu_packed.mvu_int2_packed_plain
         w2 = torch.randint(-2, 2, (n, k), generator=g, dtype=torch.int8).to(cuda)
         args = (a, packing.pack_int2(w2), k)
-    launches = ops.launch_counts()[kernel]
+    launches = ops.launch_counts()[_counter(kernel)]
     got = fn(*args, **kw)
-    assert ops.launch_counts()[kernel] == launches + 1 and got.is_cuda
+    assert ops.launch_counts()[_counter(kernel)] == launches + 1 and got.is_cuda
     want = plain(*args, **kw)
     torch.cuda.synchronize()
     assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+def _counter(entry):
+    """The launch counter (ops.KERNELS) of a wrapper: both of mvu_xnor's
+    entries count in mvu_xnor's."""
+    return "mvu_xnor" if entry == "mvu_xnor_bits" else entry
 
 
 def test_kernel_wraps_and_widens(cuda):
@@ -238,14 +247,26 @@ def test_conv_kernel_gather_equals_plain(cuda, b, h, w, c, n, kd, stride, pad, m
 
 
 def _dense_operands(kernel, a, g, n, k):
-    """(wrapper, plain, args) of a kernel on the dense core: mvu_int takes
-    any int8 weight, the binary kernels {0,1} (bitplanes for the packed)."""
+    """(wrapper, plain, args) of an entry point on the dense core: mvu_int
+    takes any int8 weight, mvu_int2_packed 2-bit lanes, the binary and xnor
+    kernels {0,1} (bitplanes or words where packed); mvu_xnor packs the
+    activations' LSBs first, mvu_xnor_bits takes them as they are."""
     if kernel == "mvu_int":
         w = torch.randint(-128, 128, (n, k), generator=g, dtype=torch.int8).to(a.device)
         return K.mvu_int, K.mvu_int_plain, (a, w)
+    if kernel == "mvu_int2_packed":
+        w2 = torch.randint(-2, 2, (n, k), generator=g, dtype=torch.int8)
+        return (mvu_packed.mvu_int2_packed, mvu_packed.mvu_int2_packed_plain,
+                (a, packing.pack_int2(w2).to(a.device), k))
     bits = torch.randint(0, 2, (n, k), generator=g, dtype=torch.int8).to(a.device)
     if kernel == "mvu_binary":
         return mvu_binary.mvu_binary, mvu_binary.mvu_binary_plain, (a, bits)
+    if kernel == "mvu_xnor":
+        return (mvu_xnor.mvu_xnor, mvu_xnor.mvu_xnor_plain,
+                (packing.pack_bits(a), packing.pack_bits(bits), k))
+    if kernel == "mvu_xnor_bits":
+        return (mvu_xnor.mvu_xnor_bits, mvu_xnor.mvu_xnor_bits_plain,
+                (a, packing.pack_bits(bits)))
     return (mvu_packed.mvu_binary_packed, mvu_packed.mvu_binary_packed_plain,
             (a, packing.pack_bits(bits), k))
 
@@ -256,8 +277,9 @@ def _dense_operands(kernel, a, g, n, k):
 @pytest.mark.parametrize("m", [1, 9, 100, 128, 4096])
 def test_dense_arrangements_equal_plain(cuda, m, k, epilogue, kernel):
     """Both arrangements of the dense core (gemv at M <= 8, tiles above),
-    with and without split K, at a ragged N = 10, for its three kernels;
-    activations in [-300, 300) (the packed kernel's int8 wrap)."""
+    with and without split K, at a ragged N = 10, for its six entry points;
+    activations in [-300, 300) (the packed kernels' int8 wrap; the xnor
+    bit entry's LSBs, K not a multiple of 32 among them)."""
     n = 10
     plan = dense_mvu.dense_launch_plan(m, n, k, dense_mvu.CODING[kernel])
     assert plan.arrangement == ("gemv" if m <= 8 else "tiled")
@@ -265,10 +287,11 @@ def test_dense_arrangements_equal_plain(cuda, m, k, epilogue, kernel):
     a = torch.randint(-300, 300, (m, k), generator=g, dtype=torch.int32).to(cuda)
     fn, plain, args = _dense_operands(kernel, a, g, n, k)
     _, _, t, s = _inputs(1, n, 1, 0, 1, cuda, seed=k)
-    kw = _epilogue_kw(epilogue, t * k * (128 if kernel == "mvu_int" else 1), s)
-    launches = ops.launch_counts()[kernel]
+    span = {"mvu_int": 128 * k, "mvu_xnor": 0, "mvu_xnor_bits": 0}.get(kernel, k)
+    kw = _epilogue_kw(epilogue, t * span if span else t * k // 300, s)
+    launches = ops.launch_counts()[_counter(kernel)]
     got = fn(*args, **kw)
-    assert ops.launch_counts()[kernel] == launches + 1
+    assert ops.launch_counts()[_counter(kernel)] == launches + 1
     want = plain(*args, **kw)
     torch.cuda.synchronize()
     assert got.dtype == want.dtype and torch.equal(got, want)
@@ -312,6 +335,65 @@ def test_binary_packed_ignores_pad_bits(cuda, m, k):
             got = mvu_packed.mvu_binary_packed(aa, wp, k, **kw)
             torch.cuda.synchronize()
             assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("k", [27, 64, 600])
+@pytest.mark.parametrize("m", [1, 9, 128])
+def test_int2_packed_ignores_pad_lanes(cuda, m, k):
+    """2-bit rows whose pad lanes in the last byte are all set (0b11), two
+    bytes more a row than K needs (Bd > ceil(K/4): 9-, 18- and 152-byte
+    rows, so the unaligned and the 8-byte staging), activations up to 299
+    (the int8 wrap), both arrangements; misaligned activations and rows
+    take the narrow loads."""
+    g = torch.Generator().manual_seed(m * 100 + k + 1)
+    w2 = torch.randint(-2, 2, (33, k), generator=g, dtype=torch.int8)
+    wp = packing.pack_int2_pad_set(w2, 2, g).to(cuda)
+    a = torch.randint(-8, 300, (m, k), generator=g, dtype=torch.int32).to(cuda)
+    _, _, t, _ = _inputs(1, 33, 1, 0, 1, cuda, seed=k)
+    for kw in ({}, {"thresholds": t * k}):
+        want = mvu_packed.mvu_int2_packed_plain(a, wp, k, **kw)
+        for aa, ww in ((a, wp), (_misaligned(a), _misaligned(wp))):
+            got = mvu_packed.mvu_int2_packed(aa, ww, k, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("m", [1, 128, 4096])
+def test_int2_packed_at_the_nid_fc0_rows(cuda, m):
+    """NID fc0: K = 600 in 150-byte rows (no row but the first 8-byte
+    aligned), N = 64, at the path's M, with its threshold epilogue."""
+    g = torch.Generator().manual_seed(m)
+    w2 = torch.randint(-2, 2, (64, 600), generator=g, dtype=torch.int8)
+    wp = packing.pack_int2(w2).to(cuda)
+    assert tuple(wp.shape) == (64, 150)
+    a = torch.randint(0, 4, (m, 600), generator=g, dtype=torch.int32).to(cuda)
+    t = torch.sort(torch.randint(-300, 300, (64, 3), generator=g, dtype=torch.int32),
+                   1).values.to(cuda)
+    for kw in ({}, {"thresholds": t}):
+        got = mvu_packed.mvu_int2_packed(a, wp, 600, **kw)
+        want = mvu_packed.mvu_int2_packed_plain(a, wp, 600, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("k", [1, 27, 64, 600, 2304])
+@pytest.mark.parametrize("m", [1, 9, 128])
+def test_xnor_bits_equals_pack_then_packed_entry(cuda, m, k):
+    """The bit entry equals the packed entry on pack_bits of the same
+    activations (multi-bit and negative, K not a multiple of 32 among
+    them), and both their plain version; misaligned activations take the
+    narrow loads."""
+    g = torch.Generator().manual_seed(m * 10 + k)
+    a = torch.randint(-300, 300, (m, k), generator=g, dtype=torch.int32).to(cuda)
+    wp = packing.pack_bits(torch.randint(0, 2, (17, k), generator=g)).to(cuda)
+    want = mvu_xnor.mvu_xnor_bits_plain(a, wp)
+    for aa in (a, _misaligned(a)):
+        got = mvu_xnor.mvu_xnor_bits(aa, wp)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    got = mvu_xnor.mvu_xnor(packing.pack_bits(a), wp, k)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("variant", ["xnor", "binary", "standard"])

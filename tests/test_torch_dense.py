@@ -1,19 +1,21 @@
-"""The dense MVU core (``csrc/dense_mvu.cuh``) of ``mvu_int``, ``mvu_binary``
-and ``mvu_binary_packed``, on the CPU, with tolerance 0 (``np.array_equal``,
-dtypes too).
+"""The dense MVU core (``csrc/dense_mvu.cuh``) of ``mvu_int``, ``mvu_binary``,
+``mvu_binary_packed``, ``mvu_int2_packed`` and ``mvu_xnor``, on the CPU,
+with tolerance 0 (``np.array_equal``, dtypes too).
 
 * ``kernels/dense_mvu.py::dense_launch_plan``, the one launch plan of the
-  three kernels: within the H100's 232,448 bytes of shared memory a block
+  five kernels: within the H100's 232,448 bytes of shared memory a block
   and the portable cluster of 8, its K slices covering [0, K) in rank
-  order, a function of the shape and the weight coding alone, and the two
-  codings apart only in shared memory.
-* ``mvu_int`` and ``mvu_binary_packed`` on CPU tensors (their plain
-  versions) against the JAX Pallas kernels in interpret mode at the card
-  checks' sweep: N = 10, M in {1, 9, 100, 128, 4096}, K in
-  {27, 64, 600, 2304}, all three epilogues, activations in [-300, 300)
-  (the packed kernel's int8 wrap), full int8 weights for ``mvu_int`` and,
-  for ``mvu_binary_packed``, every pad bit of the last word set and two
-  words more a row than K needs.
+  order, a function of the shape and the weight coding alone, and the
+  five codings apart only in shared memory.
+* ``mvu_int``, ``mvu_binary_packed`` and ``mvu_int2_packed`` on CPU
+  tensors (their plain versions) against the JAX Pallas kernels in
+  interpret mode at the card checks' sweep: N = 10, M in
+  {1, 9, 100, 128, 4096}, K in {27, 64, 600, 2304}, all three epilogues,
+  activations in [-300, 300) (the packed kernels' int8 wrap), full int8
+  weights for ``mvu_int`` and, for the packed kernels, every pad bit or
+  pad lane of the last word or byte set and two words or bytes more a row
+  than K needs.  (``mvu_xnor``'s two entries at the same sweep:
+  ``tests/test_torch_binarized.py``.)
 """
 
 import numpy as np
@@ -26,7 +28,7 @@ from repro_torch.configs import nid_mlp
 from repro_torch.kernels import dense_mvu as D, mvu_binary as B, mvu_int as K
 from repro_torch.kernels import mvu_packed as P, packing
 
-CODINGS = ("int8", "bitplanes")
+CODINGS = ("int8", "bitplanes", "int2", "words", "bits")
 SWEEP_MS = (1, 9, 100, 128, 4096)
 SWEEP_KS = (27, 64, 600, 2304)
 EPILOGUES = ("raw", "thresholds", "scale")
@@ -94,14 +96,28 @@ def test_dense_launch_plan_fits_and_covers_k(coding, m, n, k):
         assert plan.splits == 8
 
 
+# a K step's W stage by coding: 32 int8 rows of 48 bytes, a word a column
+# (bitplanes, and the xnor bit entry), 8 bytes of 2-bit lanes a column,
+# 32 rows of 36 words (xnor words, staged like A)
+W_STAGE = {"int8": 1536, "bitplanes": 128, "int2": 256, "words": 4608, "bits": 128}
+
+
 @pytest.mark.parametrize("m,n,k", PLAN_SHAPES)
 def test_codings_differ_only_in_shared_memory(m, n, k):
-    """A bitplane W stage is 128 bytes against 1,536 for int8 rows: the
-    tiled plans differ by twice that, and in nothing else."""
-    rows, bits = (D.dense_launch_plan(m, n, k, c) for c in CODINGS)
+    """Each coding's tiled plan differs from the int8 rows' by twice the
+    difference of their W stages, and in nothing else; every entry point
+    on the core has a coding."""
+    rows = D.dense_launch_plan(m, n, k, "int8")
     assert B.binary_launch_plan(m, n, k) == rows
-    assert bits._replace(smem_bytes=rows.smem_bytes) == rows
-    assert rows.smem_bytes - bits.smem_bytes == (0 if m <= 8 else 2 * (1536 - 128))
+    assert set(D.CODING) == {"mvu_int", "mvu_binary", "mvu_binary_packed",
+                             "mvu_int2_packed", "mvu_xnor", "mvu_xnor_bits"}
+    assert set(D.CODING.values()) == set(CODINGS) == set(D.W_STAGE_BYTES)
+    for coding in CODINGS:
+        plan = D.dense_launch_plan(m, n, k, coding)
+        assert D.W_STAGE_BYTES[coding] == W_STAGE[coding]
+        assert plan._replace(smem_bytes=rows.smem_bytes) == rows
+        assert rows.smem_bytes - plan.smem_bytes == (
+            0 if m <= 8 else 2 * (W_STAGE["int8"] - W_STAGE[coding]))
     assert rows.c_args == (D.ARRANGEMENTS.index(rows.arrangement), rows.tile_m, rows.tile_n,
                            rows.splits, rows.smem_bytes)
 
@@ -151,3 +167,34 @@ def test_mvu_binary_packed_matches_jax_pallas_at_the_dense_sweep(m, k, epilogue)
     _same(P.mvu_binary_packed(_t(a), tw, k, _t(t), _t(s)), want)
     assert P.BINARY_LAUNCHES == launches  # a CPU tensor takes the plain version
     _same(P.mvu_binary_packed_plain(_t(a), tw, k, _t(t), _t(s)), want)
+
+
+@pytest.mark.parametrize("epilogue", EPILOGUES)
+@pytest.mark.parametrize("k", SWEEP_KS)
+@pytest.mark.parametrize("m", SWEEP_MS)
+def test_mvu_int2_packed_matches_jax_pallas_at_the_dense_sweep(m, k, epilogue):
+    rng = np.random.default_rng(7000 + 10 * m + k)
+    a = rng.integers(-300, 300, (m, k)).astype(np.int32)
+    w2 = rng.integers(-2, 2, (10, k)).astype(np.int8)
+    g = torch.Generator().manual_seed(m + k)
+    lanes = packing.pack_int2_pad_set(torch.from_numpy(w2), 2, g).numpy()
+    nb = -(-k // 4)
+    assert lanes.shape[1] == nb + 2
+    t, s = _epilogue(10, 256 * k, epilogue, rng)
+    want = jops.mvu(_j(a), _j(lanes), "standard", k_bits=k, thresholds=_j(t),
+                    out_scale=_j(s), packed=True)
+    # the pad lanes do not count in JAX either: the same as clean lanes
+    clean = np.asarray(jmp.pack_mvu_weights(_j(w2), "standard"))
+    pad = (0xFF << (2 * (k % 4))) & 0xFF if k % 4 else 0
+    assert np.array_equal(lanes[:, nb - 1] & pad, np.full(10, pad, np.uint8))  # every pad lane set
+    lanes_in_k = lanes[:, :nb].copy()
+    lanes_in_k[:, -1] &= ~np.uint8(pad)
+    assert np.array_equal(lanes_in_k, clean)  # JAX's 2-bit lanes below K
+    assert np.array_equal(np.asarray(want), np.asarray(
+        jops.mvu(_j(a), _j(clean), "standard", k_bits=k, thresholds=_j(t), out_scale=_j(s),
+                 packed=True)))
+    tw = torch.from_numpy(lanes)
+    launches = P.INT2_LAUNCHES
+    _same(P.mvu_int2_packed(_t(a), tw, k, _t(t), _t(s)), want)
+    assert P.INT2_LAUNCHES == launches  # a CPU tensor takes the plain version
+    _same(P.mvu_int2_packed_plain(_t(a), tw, k, _t(t), _t(s)), want)
