@@ -72,6 +72,40 @@ Phases, each printing its own line(s); any failure exits non-zero:
            ``conv_mvu`` exactly 6 x n_micro times, the variant's dense
            kernel 3 x n_micro times and nothing else (xnor: no
            ``pack_bits``); images/s at batch 256 and the build seconds.
+   slice   the residual MLP (``configs/residual_mlp.py``: 600->64->64,
+           a skip join ``add``, ->1; standard, 2-bit, Table 6 folding)
+           built on the card; ``acc(x)`` on ``nid.make_dataset(4096,
+           seed=1)`` must equal ``acc.interpret(x)`` and the JAX golden
+           digest and launch ``mvu_int`` exactly 3 x n_micro times and no
+           other kernel; flows/s at batch 4096.
+   slice   the deterministic random-DAG sweep of the JAX package's
+           ``tests/test_dag_build.py`` (``tests/torch_random_dag.py``:
+           seeds and depths (0, 3), (1, 4), (2, 6); skip joins add / sub /
+           mul re-quantized) in the standard, binary and xnor datapaths:
+           ``FusedEngine(g)(x)`` must equal ``dataflow.execute(g, x)``,
+           both on the card, launching the mode's kernel once a stage.
+   profile ``acc.profile(x, Tracer(), drift=...)`` on the NID standard
+           build at 4096 and the CNV standard build at 256: equal to
+           ``acc(x)``, n_micro x len(engine.graph) node spans nested in
+           ``engine.profile``, every scheduled stage fed to the drift
+           monitor; the median span of each node (host + device: the card
+           is synchronised after every node, so these are not ``acc(x)``
+           times).
+   trace   one ``torch.profiler`` trace (CPU and CUDA activities) of one
+           NID standard ``acc(x)`` at 4096 and one CNV standard ``acc(x)``
+           at 256, after two untraced calls and one traced step whose
+           events are dropped (CUPTI's first-launch set-up): the window
+           (host clock from the call to the end of
+           ``torch.cuda.synchronize()``, and the same as the trace's
+           annotation), device busy time (the union of kernel, memcpy and
+           memset intervals), the device idle share 1 - busy / window
+           (and against the untraced ``acc(x)`` time), the host split of
+           the window (torch ops, CUDA runtime calls, the rest: Python)
+           with the top-level torch ops, the five device ops with the
+           most time and the five longest idle gaps with the host op
+           under each.  The trace's kernel events of each hand kernel
+           must equal its launch counter for that call.  The Chrome traces
+           are saved as ``chiprun_out/trace_{nid,cnv}_standard.json.gz``.
 5. the kernels JSON line, the card's ``nvidia-smi`` line, and last the
    result line ``{"ok": true, "device": {...}}``.
 
@@ -90,6 +124,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
+sys.path.insert(1, os.path.join(HERE, "tests"))  # torch_random_dag: the DAG generator
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core peak
@@ -120,6 +155,19 @@ DENSE_MS = (1, 9, 100, 128, 4096)  # the dense core's checks: both arrangements
 DENSE_KS = (27, 64, 600, 2304)
 CNV_DENSE_M = 1  # images a CNV microbatch: the dense layers' M on that path
 CNV_BATCH = 256  # images per acc(x) for the images/s line
+TRACE_DIR = os.path.join(HERE, "chiprun_out")
+DRIFT_S_PER_CYCLE = 1e-8  # any fixed cycle time: the profile phase checks only the keys
+# the hand kernel a device function of the trace belongs to: a substring of
+# its demangled name (spaces removed) -> the kernel's launch counter
+TRACE_KERNELS = {
+    "conv_mvu_kernel": "conv_mvu",
+    "Coding<false,false,false>": "mvu_int",
+    "Coding<false,false,true>": "mvu_binary",
+    "Coding<true,true,true>": "mvu_binary_packed",
+    "Int2Lanes": "mvu_int2_packed",
+    "XnorWords": "mvu_xnor",
+    "XnorBits": "mvu_xnor",
+}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -368,13 +416,141 @@ def conv_case(mode, b, h, c, n, kd, g, dev, hi=300, width=None):
             w_f.to(dev), nbytes)
 
 
+def union(intervals) -> list[tuple[float, float]]:
+    """The union of ``(start, end)`` intervals as sorted disjoint ones."""
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1] = (out[-1][0], max(out[-1][1], b))
+        else:
+            out.append((a, b))
+    return out
+
+
+def covered(intervals, lo: float, hi: float) -> float:
+    """Length of the union of ``intervals`` inside ``[lo, hi]``."""
+    return sum(max(0.0, min(b, hi) - max(a, lo)) for a, b in union(intervals))
+
+
+def hand_kernel(name: str) -> str | None:
+    """The hand kernel (launch counter name) of a traced device function."""
+    flat = name.replace(" ", "")
+    return next((k for sub, k in TRACE_KERNELS.items() if sub in flat), None)
+
+
+def trace_acc(acc, x, label: str) -> dict:
+    """One ``torch.profiler`` trace of ``acc(x)`` after two warm-up calls:
+    the window, device busy time and idle share, the host split, the top
+    device ops, the longest idle gaps and the hand kernels' events beside
+    their launch counters.  Saves the Chrome trace under ``TRACE_DIR``."""
+    import gzip
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function, schedule
+
+    from repro_torch.kernels import ops
+
+    for _ in range(2):
+        acc(x)
+    torch.cuda.synchronize()
+    # one traced warm-up step whose events are dropped: the first launch of
+    # each kernel under a fresh trace pays CUPTI's set-up
+    os.makedirs(TRACE_DIR, exist_ok=True)
+    path = os.path.join(TRACE_DIR, f"trace_{label}.json.gz")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: p.export_chrome_trace(path)) as prof:
+        for step in range(2):
+            if step == 1:
+                ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            with record_function("chip_smoke.acc"):
+                acc(x)
+                torch.cuda.synchronize()
+            host_window_ms = (time.perf_counter() - t0) * 1e3
+            prof.step()
+    counts = ops.launch_counts()
+    with gzip.open(path, "rt") as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+
+    def cat(e):
+        return str(e.get("cat", "")).lower()
+
+    def span(e):
+        return (float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+
+    marks = [e for e in events if e.get("name") == "chip_smoke.acc" and cat(e) == "user_annotation"]
+    check(len(marks) == 1, f"trace {label}: {len(marks)} chip_smoke.acc annotations, want 1")
+    w0, w1 = span(marks[0])
+    device = [e for e in events if cat(e) in ("kernel", "gpu_memcpy", "gpu_memset")]
+    kernels = [e for e in device if cat(e) == "kernel"]
+    busy = union(span(e) for e in device)
+    busy_us = covered(busy, w0, w1)
+    cpu_ops = [span(e) for e in events if cat(e) == "cpu_op"]
+    runtime = [span(e) for e in events if cat(e) in ("cuda_runtime", "cuda_driver")]
+    torch_us = covered(cpu_ops, w0, w1)
+    runtime_us = covered(cpu_ops + runtime, w0, w1) - torch_us
+    # the hand kernels the trace saw, against the wrappers' counters
+    seen = dict.fromkeys(counts, 0)
+    for e in kernels:
+        if (k := hand_kernel(e["name"])) is not None:
+            seen[k] += 1
+    # idle gaps inside the window, each with the host event under most of it
+    gaps, prev = [], w0
+    for a, b in busy + [(w1, w1)]:
+        if a > prev:
+            gaps.append((prev, min(a, w1)))
+        prev = max(prev, b)
+    host = [(span(e), e["name"]) for e in events
+            if cat(e) in ("cpu_op", "cuda_runtime", "cuda_driver")]
+
+    def under(g0, g1):
+        best = max(((min(b, g1) - max(a, g0), -(b - a), name) for (a, b), name in host
+                    if min(b, g1) > max(a, g0)), default=None)
+        return (best[2], best[0]) if best else ("(no traced host op: Python)", 0.0)
+
+    totals: dict[str, list] = {}
+    for e in device:
+        t = totals.setdefault(e["name"], [0.0, 0])
+        t[0] += float(e["dur"])
+        t[1] += 1
+    # the host's torch ops not nested in another: where torch's own time goes
+    host_ops: dict[str, list] = {}
+    top_end = float("-inf")
+    for e in sorted((e for e in events if cat(e) == "cpu_op"),
+                    key=lambda e: (float(e["ts"]), -float(e["dur"]))):
+        a, b = span(e)
+        if a >= top_end and w0 <= a < w1:
+            top_end = b
+            t = host_ops.setdefault(e["name"], [0.0, 0])
+            t[0] += b - a
+            t[1] += 1
+    return {
+        "host_window_ms": host_window_ms, "window_us": w1 - w0, "busy_us": busy_us,
+        "idle_share": 1.0 - busy_us / (w1 - w0), "torch_ops_us": torch_us,
+        "runtime_us": runtime_us, "python_us": (w1 - w0) - torch_us - runtime_us,
+        "device_events": len(device), "counts": counts, "seen": seen,
+        "top": sorted(totals.items(), key=lambda kv: -kv[1][0])[:5],
+        "host_ops": sorted(host_ops.items(), key=lambda kv: -kv[1][0])[:6],
+        "gaps": [(g1 - g0, g0 - w0, *under(g0, g1))
+                 for g0, g1 in sorted(gaps, key=lambda g: g[0] - g[1])[:5]],
+        "n_gaps": len(gaps), "path": path,
+    }
+
+
 def main() -> int:
     import torch
 
     import torch.nn.functional as F
 
-    from repro_torch.configs import cnv_bnn, golden as golden_mod, nid_mlp
+    from repro_torch.build import build
+    from repro_torch.configs import cnv_bnn, golden as golden_mod, nid_mlp, residual_mlp
+    from repro_torch.core import dataflow
+    from repro_torch.core.engine import FusedEngine
     from repro_torch.data import nid
+    from repro_torch.telemetry import DriftMonitor, Tracer
+    import torch_random_dag
     from repro_torch.kernels import _cuda, dense_mvu, ops, packing
     from repro_torch.kernels import mvu_binary as B, mvu_int as K, mvu_packed as P
     from repro_torch.kernels import swu_mvu as C
@@ -639,6 +815,7 @@ def main() -> int:
 
     # ---------------------------------------------------------- 4. slice
     golden = nid_mlp.load_golden()
+    path_accs = {}  # (config, variant) -> its Accelerator, for the later phases
     launches = {}
     plan = None
     # pack_bits calls, by the wrapper below: an xnor acc(x) on the card
@@ -657,6 +834,7 @@ def main() -> int:
         kernel = ops.kernel_name(kw["mode"], packed=kw.get("pack") == "always")
         t0 = time.perf_counter()
         acc = nid_accelerator(gd)
+        path_accs[("nid", variant)] = acc
         print(f"slice: {variant} {kw}: built {acc.report.step_names} in "
               f"{time.perf_counter() - t0:.2f} s", flush=True)
         batch = gd["batch"]
@@ -698,6 +876,7 @@ def main() -> int:
         dense = ops.kernel_name(kw["mode"])
         t0 = time.perf_counter()
         acc = cnv_accelerator(gd)
+        path_accs[("cnv", variant)] = acc
         torch.cuda.synchronize()
         print(f"slice: cnv {variant} {kw}: built {acc.report.step_names} in "
               f"{time.perf_counter() - t0:.2f} s", flush=True)
@@ -737,6 +916,134 @@ def main() -> int:
               f"{acc.plan(CNV_BATCH).n_micro})", flush=True)
 
     packing.pack_bits = pack_bits
+
+    # the residual MLP: fan-out and fan-in on the card
+    gd = residual_mlp.load_golden()
+    t0 = time.perf_counter()
+    acc = build(residual_mlp.build_graph(gd["seed"]), target="engine", tune="off",
+                folding=residual_mlp.foldings(), device="cuda", **gd["build"])
+    print(f"slice: residual {gd['build']}: built {acc.report.step_names} in "
+          f"{time.perf_counter() - t0:.2f} s; joins {acc.report.schedule['joins']}",
+          flush=True)
+    batch = gd["batch"]
+    x = torch.from_numpy(nid.make_dataset(batch, seed=gd["data_seed"])[0]).to(dev)
+    rplan = acc.plan(batch)
+    ops.reset_launch_counts()
+    y = acc(x)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    check(counts == {k: 3 * rplan.n_micro if k == "mvu_int" else 0 for k in counts},
+          f"residual: acc(x) launched {counts}, want mvu_int 3 x {rplan.n_micro} times "
+          "and nothing else")
+    check(y.is_cuda and y.dtype == torch.float32 and tuple(y.shape) == (batch, 1)
+          and bool(torch.isfinite(y).all()), f"residual: bad output {y.dtype} {tuple(y.shape)}")
+    check(torch.equal(y, acc.interpret(x)), "residual: acc(x) differs from acc.interpret(x)")
+    check(golden_mod.digest_like(gd, y.cpu().numpy(), acc.graph) == gd,
+          "residual: the card's output differs from the JAX package's golden digest")
+    med = acc_seconds(acc, x)
+    print(f"slice: residual: acc(x) at batch {batch} equals acc.interpret(x) and the golden "
+          f"digest; {counts['mvu_int']} mvu_int launches = 3 x n_micro={rplan.n_micro}, no "
+          f"other kernel; {batch / med:.1f} flows/s (median of 7 acc(x), "
+          f"{med * 1e3:.3f} ms)", flush=True)
+
+    # the random-DAG sweep: engine against interpreter, both on the card
+    n_dags = 0
+    for mode, bits in torch_random_dag.MODES:
+        kernel = ops.kernel_name(mode)
+        for seed, depth in torch_random_dag.SWEEP:
+            low, xd = torch_random_dag.dag_case(seed, depth, mode, bits)
+            low = dataflow.graph_to(low, dev)
+            xd = torch.from_numpy(xd).to(dev)
+            eng = FusedEngine(low)
+            n_stages = sum(n.op == "mvu" for n in eng.graph) * eng.plan(xd.shape[0]).n_micro
+            ops.reset_launch_counts()
+            got = eng(xd)
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            check(counts == {k: n_stages if k == kernel else 0 for k in counts},
+                  f"random DAG {mode} seed={seed} depth={depth}: launched {counts}, want "
+                  f"{kernel} {n_stages} times and nothing else")
+            want = dataflow.execute(low, xd)
+            torch.cuda.synchronize()
+            check(got.is_cuda and got.dtype == want.dtype and torch.equal(got, want),
+                  f"random DAG {mode} seed={seed} depth={depth}: the engine differs from "
+                  "dataflow.execute")
+            joins = [n.name for n in low if n.op in ("add", "sub", "mul")]
+            print(f"slice: random DAG {mode} seed={seed} depth={depth}: engine equals "
+                  f"dataflow.execute on the card; joins {joins}; {n_stages} {kernel} "
+                  "launches", flush=True)
+            n_dags += 1
+    print(f"slice: random DAGs: {n_dags} graphs equal in standard, binary and xnor",
+          flush=True)
+
+    # profile: per-node spans, bit-exact with acc(x)
+    prof_inputs = {
+        "nid": torch.from_numpy(nid.make_dataset(4096, seed=golden["standard"]["data_seed"])[0]),
+        "cnv": torch.from_numpy(cnv_bnn.images(
+            CNV_BATCH, cnv_golden["standard"]["build"]["act_bits"],
+            cnv_golden["standard"]["data_seed"])),
+    }
+    for cfg_name, xp in prof_inputs.items():
+        acc = path_accs[(cfg_name, "standard")]
+        xp = xp.to(dev)
+        tr = Tracer()
+        drift = DriftMonitor.from_schedule(acc.schedule, DRIFT_S_PER_CYCLE)
+        yp, pplan = acc.profile(xp, tr, drift=drift)
+        check(torch.equal(yp, acc(xp)), f"profile {cfg_name}: differs from acc(x)")
+        outer = tr.spans(name="engine.profile")
+        nodes = tr.spans(cat="node")
+        check(len(outer) == 1 and len(nodes) == pplan.n_micro * len(acc.engine.graph),
+              f"profile {cfg_name}: {len(nodes)} node spans, want n_micro={pplan.n_micro} x "
+              f"{len(acc.engine.graph)} nodes")
+        check(all(outer[0]["t0"] <= sp["t0"] and sp["t1"] <= outer[0]["t1"]
+                  and sp["depth"] == 2 for sp in nodes),
+              f"profile {cfg_name}: node spans do not nest in engine.profile > micro")
+        stages = {st.name for st in acc.schedule.stages}
+        check(set(drift.status()["keys"]) == stages,
+              f"profile {cfg_name}: the drift monitor saw {sorted(drift.status()['keys'])}, "
+              f"want every scheduled stage {sorted(stages)}")
+        med = {n.name: statistics.median(sp["dur"] for sp in nodes if sp["name"] == n.name)
+               for n in acc.engine.graph}
+        print(f"profile: {cfg_name} standard batch {xp.shape[0]}: equals acc(x); "
+              f"{len(nodes)} node spans = n_micro={pplan.n_micro} x {len(acc.engine.graph)} "
+              f"nodes, nested; drift fed {len(stages)} stages; engine.profile "
+              f"{outer[0]['dur'] * 1e3:.3f} ms", flush=True)
+        print(f"profile: {cfg_name} median node span, us (host + device, the card "
+              "synchronised after each node, so not acc(x) time): "
+              + ", ".join(f"{k} {v * 1e6:.1f}" for k, v in med.items()), flush=True)
+
+    # trace: torch.profiler of one acc(x) each, after warm-up
+    for cfg_name, xp in prof_inputs.items():
+        acc = path_accs[(cfg_name, "standard")]
+        xp = xp.to(dev)
+        untraced = acc_seconds(acc, xp)
+        r = trace_acc(acc, xp, f"{cfg_name}_standard")
+        check(r["seen"] == r["counts"], f"trace {cfg_name}: the trace's hand-kernel events "
+              f"{r['seen']} differ from the launch counters {r['counts']} (does CUPTI see "
+              "the ctypes launches?)")
+        print(f"trace: {cfg_name} standard batch {xp.shape[0]}: window "
+              f"{r['host_window_ms']:.3f} ms host clock ({r['window_us'] / 1e3:.3f} ms in the "
+              f"trace; untraced acc(x) {untraced * 1e3:.3f} ms, median of 7); device busy "
+              f"{r['busy_us'] / 1e3:.4f} ms ({r['device_events']} device events); device "
+              f"idle share {r['idle_share'] * 100:.2f}% (against the untraced acc(x) time: "
+              f"{(1 - r['busy_us'] / 1e3 / (untraced * 1e3)) * 100:.2f}%)", flush=True)
+        print(f"trace: {cfg_name} host split of the window: torch ops "
+              f"{r['torch_ops_us'] / 1e3:.3f} ms, CUDA runtime calls outside them "
+              f"{r['runtime_us'] / 1e3:.3f} ms, no traced op (Python: stage loop, wrapper "
+              f"checks, ctypes) {r['python_us'] / 1e3:.3f} ms", flush=True)
+        print(f"trace: {cfg_name} top-level torch ops on the host: " + ", ".join(
+            f"{name} {us / 1e3:.3f} ms in {n}" for name, (us, n) in r["host_ops"]), flush=True)
+        print(f"trace: {cfg_name} hand-kernel events equal the launch counters: "
+              f"{ {k: v for k, v in r['seen'].items() if v} }", flush=True)
+        for name, (us, n) in r["top"]:
+            print(f"trace: {cfg_name} top device op: {us / 1e3:.4f} ms in {n} events: "
+                  f"{name[:160]}", flush=True)
+        print(f"trace: {cfg_name} {r['n_gaps']} idle gaps; the five longest:", flush=True)
+        for dur, at, host_op, host_us in r["gaps"]:
+            print(f"trace: {cfg_name} gap {dur:.1f} us at +{at:.1f} us: {host_op[:100]} "
+                  f"({host_us:.1f} us of it)", flush=True)
+        print(f"trace: {cfg_name} Chrome trace saved to {os.path.relpath(r['path'], HERE)}",
+              flush=True)
 
     # -------------------------------------------------------- 5. results
     mb = plan.microbatch

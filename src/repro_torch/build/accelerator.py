@@ -3,6 +3,7 @@
     acc = repro_torch.build.build(graph, target="engine", device="cuda", ...)
     y   = acc.interpret(x)     # eager reference (bit-exact contract)
     y   = acc(x)               # fused streaming engine
+    y, plan = acc.profile(x, Tracer())   # per-node spans, bit-exact with acc(x)
     acc.report                  # the BuildReport (JSON-serializable)
 
 Both facings run on the build's device: the constructor moves the
@@ -37,6 +38,9 @@ class Accelerator:
         ref = state.ref_graph if state.ref_graph is not None else state.graph
         self.ref_graph = dataflow.graph_to(ref, self.device)
         self.report: BuildReport = state.report
+        # build-step Tracer when cfg.telemetry was set (None otherwise);
+        # its summary is already embedded in report.telemetry
+        self.tracer = state.tracer
         self._engine = state.engine
         if self.config.output_dir:
             self.save_report()
@@ -60,9 +64,26 @@ class Accelerator:
     def __call__(self, x) -> torch.Tensor:
         return self.engine(x) if self._engine is not None else self.interpret(x)
 
-    def dispatch(self, x):
+    def dispatch(self, x, *, tracer=None):
         """Non-blocking engine submit (see ``FusedEngine.dispatch``)."""
-        return self.engine.dispatch(x)
+        return self.engine.dispatch(x, tracer=tracer)
+
+    def profile(self, x, tracer, *, drift=None):
+        """Traced per-node eager re-execution (``FusedEngine.profile``):
+        bit-exact with ``acc(x)``, one span per node, optionally feeding a
+        :class:`~repro_torch.telemetry.DriftMonitor`."""
+        return self.engine.profile(x, tracer, drift=drift)
+
+    def drift_monitor(self, **kwargs):
+        """A :class:`~repro_torch.telemetry.DriftMonitor` primed with the
+        build's per-stage predicted intervals needs a *calibrated* cycle
+        time (the serving target's ``calibrate`` step, ROADMAP queue A item
+        4): against the nominal clock the measured/predicted ratios are
+        meaningless.  No step of the port calibrates yet, so this raises."""
+        raise BuildError(
+            "drift_monitor() needs a calibrated cycle time; rebuild with "
+            "target='serving' (the 'calibrate' step, ROADMAP queue A item 4) so "
+            "per-stage predictions reflect measured seconds, not the nominal clock")
 
     @property
     def schedule(self):
@@ -73,10 +94,7 @@ class Accelerator:
         return self.engine.plan(batch)
 
     def serve(self, *args, **kwargs):
-        raise NotImplementedError("serving is ROADMAP queue A item 7")
-
-    def profile(self, *args, **kwargs):
-        return self.engine.profile(*args, **kwargs)
+        raise NotImplementedError("serving is ROADMAP queue A item 4")
 
     def as_pipeline(self, *args, **kwargs):
         return self.engine.as_pipeline(*args, **kwargs)

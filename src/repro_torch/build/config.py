@@ -78,6 +78,10 @@ class BuildConfig:
     name / output_dir: report identity; the BuildReport is written to
         ``<output_dir>/<name>_build_report.json`` only when ``output_dir``
         is set.
+    telemetry: trace every build step with a
+        :class:`repro_torch.telemetry.Tracer` (one ``step.<name>`` span
+        each, ``cat="build"``) and embed the span summary in
+        ``BuildReport.telemetry`` (zero cost when False).
     device: where the built design runs.  None means ``"cuda"``, and the
         build raises when CUDA is absent (pass ``device="cpu"`` to run the
         kernels' plain versions on the CPU).
@@ -107,6 +111,7 @@ class BuildConfig:
     steps: Sequence[Any] | None = None
     name: str = "build"
     output_dir: str | None = None
+    telemetry: bool = False
     device: str | torch.device | None = None
     graph: Any = None
 
@@ -129,10 +134,10 @@ class BuildConfig:
         if self.target in ("pipeline", "serving"):
             raise NotImplementedError(
                 f"target={self.target!r} is a later slice: ROADMAP queue A "
-                f"item {9 if self.target == 'pipeline' else 7}")
+                f"item {6 if self.target == 'pipeline' else 4}")
         if self.tune != "off":
             raise NotImplementedError(
-                f"tune={self.tune!r}: the autotuner is ROADMAP queue A item 6")
+                f"tune={self.tune!r}: the autotuner is ROADMAP queue A item 3")
 
     def resolved_device(self) -> torch.device:
         """The device the built design runs on (see the ``device`` field)."""

@@ -29,6 +29,7 @@ engine, on the build's device, is held to the same output.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from collections import Counter
@@ -48,6 +49,7 @@ from repro_torch.build.report import BuildReport, NodeReport
 from repro_torch.core import dataflow, ir, lowering
 from repro_torch.core.ir import Graph
 from repro_torch.core.mvu import MVUConfig, MVULayer
+from repro_torch.telemetry import Tracer
 
 
 # ------------------------------------------------------------------- state
@@ -65,6 +67,7 @@ class BuildState:
     report: BuildReport
     device: torch.device
     engine: Any = None  # FusedEngine after the "engine" step
+    tracer: Any = None  # the build-step Tracer when cfg.telemetry is set
     ref_graph: Graph | None = None
     probe: torch.Tensor | None = None
     probe_out: np.ndarray | None = None
@@ -231,7 +234,7 @@ def step_dataflow(state: BuildState) -> None:
             pe=fold.pe, simd=fold.simd, n_pixels=px, cycles=res.cycles,
             lut_bytes=res.lut_bytes, ff_bytes=res.ff_bytes,
             bram_bytes=res.bram_bytes, backend=mcfg.backend,
-            tuned=False,  # no tuned tiles before the autotuner (queue A item 6)
+            tuned=False,  # no tuned tiles before the autotuner (queue A item 3)
             inputs=list(node.inputs),
             branch=branches.get(node.name, "main"),
             packed=mcfg.packed,
@@ -393,13 +396,20 @@ def run_pipeline(graph: Graph, cfg: BuildConfig) -> BuildState:
                          config=cfg.snapshot())
     state = BuildState(graph=dataflow.graph_to(graph, "cpu"), cfg=cfg,
                        report=report, device=device)
+    tracer = None
+    if cfg.telemetry:
+        tracer = Tracer(meta={"build": cfg.name, "target": cfg.target})
     steps = cfg.steps if cfg.steps is not None else DEFAULT_STEPS[cfg.target]
     t_build = time.perf_counter()
     for step in steps:
         fn = resolve_step(step)
         name = step_name(step)
+        # the span covers the step alone: the verification hook runs after it
+        span = (tracer.span(f"step.{name}", cat="build") if tracer is not None
+                else contextlib.nullcontext())
         t0 = time.perf_counter()
-        out = fn(state)
+        with span:
+            out = fn(state)
         if isinstance(out, BuildState):
             state = out
         elif isinstance(out, list):  # a custom step returned a graph
@@ -410,6 +420,9 @@ def run_pipeline(graph: Graph, cfg: BuildConfig) -> BuildState:
                     if cfg.verify != "off" else None)
         report.record_step(name, wall, verified, _op_histogram(state.graph))
     report.total_wall_s = time.perf_counter() - t_build
+    if tracer is not None:
+        report.telemetry = tracer.summary()
+        state.tracer = tracer
     if state.ref_graph is None and _executable(state.graph):
         state.ref_graph = state.graph
     return state

@@ -12,7 +12,7 @@ a lowered node (``mvu``, ``conv_mvu``), ``params["mvu"]`` is a dict
 of ``weights`` / ``thresholds`` / ``out_scale`` arrays (None where absent)
 and ``attrs["config"]`` a dict of :class:`MVUConfig` fields, ``folding`` as
 ``{"pe", "simd"}``.  A tuned kernel tile (``blocks``) must be None: the
-CUDA kernel runs one tile until the autotuner (ROADMAP queue A item 6).
+CUDA kernel runs one tile until the autotuner (ROADMAP queue A item 3).
 The JAX package's backend names map to the port's: ``pallas`` -> ``cuda``,
 ``xla`` -> ``torch``.  Packed uint32 words arrive as the port's int32 bit
 patterns (see :func:`_tensor`).  Whoever holds the JAX graph makes the
@@ -51,7 +51,7 @@ def _config(d: dict) -> MVUConfig:
         raise NotImplementedError(
             "a tuned kernel tile (blocks) cannot be carried across: the CUDA "
             "kernel is compiled for one tile; per-layer tiles come with the "
-            "autotuner (ROADMAP queue A item 6)")
+            "autotuner (ROADMAP queue A item 3)")
     d["backend"] = BACKEND_NAMES[d.get("backend", "cuda")]
     return MVUConfig(**d)
 

@@ -80,7 +80,7 @@ class FusedEngine(nn.Module):
         super().__init__()
         if tune != "off":
             raise NotImplementedError(
-                f"tune={tune!r}: the autotuner is ROADMAP queue A item 6")
+                f"tune={tune!r}: the autotuner is ROADMAP queue A item 3")
         g = lowering.fuse_epilogues(graph) if fuse else ir.as_graph(graph)
         self.graph = lowering.fuse_swu(g) if fuse else g
         self.schedule = dataflow.schedule(self.graph)
@@ -143,22 +143,81 @@ class FusedEngine(nn.Module):
         ys = [self._chain(params, xs[i * mb:(i + 1) * mb]) for i in range(n_micro)]
         return torch.cat(ys)[:b]
 
-    def dispatch(self, x) -> tuple[torch.Tensor, StreamPlan]:
+    def dispatch(self, x, *, tracer=None) -> tuple[torch.Tensor, StreamPlan]:
         """Non-blocking submit: enqueue one batch, return the output tensor
         (on the engine's device, not yet synchronised) and the stream plan
-        it runs under.  ``x`` is moved to the engine's device first."""
+        it runs under.  ``x`` is moved to the engine's device first.
+
+        ``tracer`` (a :class:`repro_torch.telemetry.Tracer`) records the
+        host-side enqueue as an ``engine.dispatch`` span -- on the card its
+        duration is submit cost, not compute (the call does not
+        synchronise); per-node spans come from :meth:`profile`.
+        """
         x = torch.as_tensor(x, device=self.device).contiguous()
         plan = self.plan(int(x.shape[0]))
         params = [sp.value() for sp in self.stage_params]
-        return self._stream(params, x, plan.n_micro), plan
+        if tracer is None:
+            return self._stream(params, x, plan.n_micro), plan
+        with tracer.span("engine.dispatch", cat="engine",
+                         batch=int(x.shape[0]), n_micro=plan.n_micro,
+                         microbatch=plan.microbatch,
+                         interval_cycles=plan.interval_cycles):
+            out = self._stream(params, x, plan.n_micro)
+        return out, plan
 
     def forward(self, x) -> torch.Tensor:
         return self.dispatch(x)[0]
 
-    def profile(self, *args, **kwargs):
-        raise NotImplementedError(
-            "FusedEngine.profile needs the telemetry port: ROADMAP queue A item 7")
+    def profile(self, x, tracer, *, drift=None) -> tuple[torch.Tensor, StreamPlan]:
+        """Instrumented run: per-node, per-microbatch duration spans.
+
+        Re-runs the SAME node runners (``dataflow.node_runner``) as
+        :meth:`dispatch`, microbatch by microbatch, and on a CUDA engine
+        synchronises the card after each node, so a node's span covers its
+        host dispatch and its device work.  Every op is per-sample, so the
+        output is bit-exact with :meth:`dispatch`; only the timing differs
+        (each node pays a synchronisation, so the spans do not add up to
+        an ``acc(x)`` time).  Span tree::
+
+            engine.profile
+              micro0
+                <node name>   one span per graph node, cat="node"
+              micro1
+                ...
+
+        ``drift`` (a :class:`repro_torch.telemetry.DriftMonitor`) receives
+        each node span duration keyed by node name -- with predictions
+        from ``DriftMonitor.from_schedule(engine.schedule, s_per_cycle)``
+        this compares measured per-node intervals against the cycle model
+        online.
+        """
+        x = torch.as_tensor(x, device=self.device).contiguous()
+        b = int(x.shape[0])
+        plan = self.plan(b)
+        mb = plan.microbatch
+        xs = pad_to(x, 0, plan.n_micro * mb)
+        params = [sp.value() for sp in self.stage_params]
+        dev = self.device
+        sync = ((lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda"
+                else (lambda: None))
+        outs = []
+        with tracer.span("engine.profile", cat="engine", batch=b,
+                         n_micro=plan.n_micro, microbatch=mb):
+            for m in range(plan.n_micro):
+                with tracer.span(f"micro{m}", cat="engine"):
+                    env: dict = {}
+                    for name, ins, p, fn in zip(self._names, self._in_names,
+                                                params, self._fns):
+                        with tracer.span(name, cat="node", micro=m) as sp:
+                            args = ((xs[m * mb:(m + 1) * mb],) if not ins
+                                    else tuple(env[s] for s in ins))
+                            env[name] = fn(p, *args)
+                            sync()
+                        if drift is not None:
+                            drift.observe(name, sp.dur)
+                    outs.append(env[self._out_name])
+        return torch.cat(outs)[:b], plan
 
     def as_pipeline(self, *args, **kwargs):
         raise NotImplementedError(
-            "FusedEngine.as_pipeline is the multi-device slice: ROADMAP queue A item 9")
+            "FusedEngine.as_pipeline is the multi-device slice: ROADMAP queue A item 6")

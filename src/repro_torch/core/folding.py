@@ -128,7 +128,7 @@ def to_gpu_blocks() -> dict[str, int]:
     words for the xnor kernel's packed entry, which stages them as they
     are; the packed kernels stage a step's weights in their packed form).
     The folding keeps describing the FPGA schedule (cycles, memory depths).
-    Tile choice per layer is the autotuner's job (ROADMAP queue A item 6).
+    Tile choice per layer is the autotuner's job (ROADMAP queue A item 3).
     """
     from repro_torch.kernels._cuda import BLOCK_K, BLOCK_M, BLOCK_N
 

@@ -3,7 +3,7 @@
 :class:`MVULayer` is the faithful FINN unit: integer tensors in, integer
 activations out through the fused multi-threshold epilogue (or a float32
 dequant scale on the last layer).  ``quantized_linear``, the LM facing,
-comes with the LM slice (ROADMAP queue A item 10).
+comes with the LM slice (ROADMAP queue A item 7).
 """
 
 from __future__ import annotations

@@ -9,7 +9,7 @@ Conventions
 
 ``torch.round`` rounds half to even, as ``jnp.round`` does, so the integer
 weights equal the JAX reference's.  Fake-quantizers and straight-through
-estimators come with the QAT slice (ROADMAP queue A item 10).
+estimators come with the QAT slice (ROADMAP queue A item 7).
 """
 
 from __future__ import annotations

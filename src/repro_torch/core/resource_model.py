@@ -100,3 +100,64 @@ def mvu_resources(
         weight_bytes=weight_resident_bytes(n, k, mode, packed),
         canonical_weight_bytes=weight_resident_bytes(n, k, mode, False),
     )
+
+
+# ---------------------------------------------------------- calibration
+def fit_cycle_time(cycles, seconds) -> float:
+    """Least-squares seconds-per-cycle over paired (cycles, measured s).
+
+    The analytic model predicts *cycles*; turning them into wall-clock
+    needs a realized cycle time.  Fitting one scalar across a whole sweep
+    (every node of every design point) is the calibration the paper does
+    implicitly when it reads its RTL cycle counts against a known clock:
+    ``argmin_s sum_i (c_i * s - m_i)^2  =  sum(c*m) / sum(c^2)``.
+    """
+    c = [float(v) for v in cycles]
+    m = [float(v) for v in seconds]
+    if len(c) != len(m) or not c:
+        raise ValueError("fit_cycle_time needs equal, non-empty sequences")
+    denom = sum(v * v for v in c)
+    if denom <= 0:
+        raise ValueError("fit_cycle_time needs at least one non-zero cycle count")
+    return sum(cv * mv for cv, mv in zip(c, m)) / denom
+
+
+def cycle_model_errors(cycles, seconds, s_per_cycle: float | None = None
+                       ) -> list[float]:
+    """Signed relative error of the calibrated cycle model per sample:
+    ``(predicted - measured) / measured`` with ``predicted = c * s``."""
+    if s_per_cycle is None:
+        s_per_cycle = fit_cycle_time(cycles, seconds)
+    out = []
+    for c, m in zip(cycles, seconds):
+        m = float(m)
+        if m <= 0:
+            raise ValueError("measured seconds must be positive")
+        out.append((float(c) * s_per_cycle - m) / m)
+    return out
+
+
+def error_summary(errors) -> dict:
+    """Distribution summary of signed relative errors (JSON-safe).
+
+    ``p50/p90/max`` are over |error|: the claim is "the calibrated model
+    lands within X% of the measurement for 90% of (node, design) pairs",
+    not a statement about bias direction.
+    """
+    errs = [float(e) for e in errors]
+    if not errs:
+        return {"n": 0}
+    mags = sorted(abs(e) for e in errs)
+
+    def pct(q: float) -> float:
+        idx = min(len(mags) - 1, max(0, int(round(q * (len(mags) - 1)))))
+        return mags[idx]
+
+    return {
+        "n": len(errs),
+        "mean_abs": sum(mags) / len(mags),
+        "p50_abs": pct(0.50),
+        "p90_abs": pct(0.90),
+        "max_abs": mags[-1],
+        "mean_signed": sum(errs) / len(errs),
+    }

@@ -128,7 +128,7 @@ def test_convert_rejects_a_tuned_kernel_tile(accs):
     convert.graph_from_numpy(nodes)  # blocks=None carries across
     mvu = next(n for n in nodes if n["op"] == "mvu")
     mvu["attrs"]["config"]["blocks"] = {"block_m": 8, "block_n": 128, "block_k": 128}
-    with pytest.raises(NotImplementedError, match="queue A item 6"):
+    with pytest.raises(NotImplementedError, match="queue A item 3"):
         convert.graph_from_numpy(nodes)
 
 

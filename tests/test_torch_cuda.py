@@ -8,12 +8,16 @@ Elsewhere every test here skips.  No JAX: the card's machine has none.
 import pytest
 import torch
 
+import torch_random_dag  # tests/ is on sys.path under pytest
 from repro_torch.build import build
-from repro_torch.configs import cnv_bnn, golden as golden_mod, nid_mlp
+from repro_torch.configs import cnv_bnn, golden as golden_mod, nid_mlp, residual_mlp
+from repro_torch.core import dataflow
+from repro_torch.core.engine import FusedEngine
 from repro_torch.data import nid
 from repro_torch.kernels import dense_mvu, mvu_binary, mvu_int as K, mvu_packed, mvu_xnor
 from repro_torch.kernels import ops, packing
 from repro_torch.kernels import swu_mvu
+from repro_torch.telemetry import DriftMonitor, Tracer
 
 pytestmark = pytest.mark.cuda
 VARIANTS = ["standard", "xnor", "binary", "binary_packed", "standard_packed"]
@@ -411,3 +415,54 @@ def test_cnv_engine_on_the_card(cuda, variant):
     assert ops.launch_counts() == want
     assert y.is_cuda and torch.equal(y, acc.interpret(x))
     assert golden_mod.digest_like(golden, y.cpu().numpy(), acc.graph) == golden
+
+
+def test_residual_engine_on_the_card(cuda):
+    golden = residual_mlp.load_golden()
+    acc = build(residual_mlp.build_graph(golden["seed"]), folding=residual_mlp.foldings(),
+                **golden["build"])
+    x = torch.from_numpy(nid.make_dataset(golden["batch"], seed=golden["data_seed"])[0])
+    n_micro = acc.plan(golden["batch"]).n_micro
+    ops.reset_launch_counts()
+    y = acc(x)
+    want = {k: 0 for k in ops.KERNELS}
+    want["mvu_int"] = 3 * n_micro
+    assert ops.launch_counts() == want
+    assert y.is_cuda and torch.equal(y, acc.interpret(x))
+    assert golden_mod.digest_like(golden, y.cpu().numpy(), acc.graph) == golden
+
+
+@pytest.mark.parametrize("config", ["nid", "residual", "cnv"])
+def test_profile_on_the_card(cuda, config):
+    if config == "cnv":
+        golden = cnv_bnn.load_golden()["standard"]
+        kw = golden["build"]
+        acc = build(cnv_bnn.build_graph(cnv_bnn.spec_for(kw), seed=golden["seed"]), **kw)
+        x = torch.from_numpy(cnv_bnn.images(8, kw["act_bits"], golden["data_seed"]))
+    else:
+        cfg = nid_mlp if config == "nid" else residual_mlp
+        golden = nid_mlp.load_golden()["standard"] if config == "nid" else cfg.load_golden()
+        acc = build(cfg.build_graph(golden["seed"]), folding=cfg.foldings(), **golden["build"])
+        x = torch.from_numpy(nid.make_dataset(300, seed=golden["data_seed"])[0])
+    tr = Tracer()
+    drift = DriftMonitor.from_schedule(acc.schedule, 1e-8)
+    y, plan = acc.profile(x, tr, drift=drift)
+    assert y.is_cuda and torch.equal(y, acc(x))
+    outer = tr.spans(name="engine.profile")[0]
+    nodes = tr.spans(cat="node")
+    assert len(nodes) == plan.n_micro * len(acc.engine.graph)
+    assert all(outer["t0"] <= s["t0"] and s["t1"] <= outer["t1"] and s["depth"] == 2
+               for s in nodes)
+    assert set(drift.status()["keys"]) == {s.name for s in acc.schedule.stages}
+
+
+@pytest.mark.parametrize("mode,bits", torch_random_dag.MODES)
+def test_random_dags_on_the_card(cuda, mode, bits):
+    for seed, depth in torch_random_dag.SWEEP:
+        low, x = torch_random_dag.dag_case(seed, depth, mode, bits)
+        low = dataflow.graph_to(low, cuda)
+        x = torch.from_numpy(x).to(cuda)
+        ops.reset_launch_counts()
+        got = FusedEngine(low)(x)
+        assert sum(ops.launch_counts().values()) > 0
+        assert got.is_cuda and torch.equal(got, dataflow.execute(low, x))

@@ -25,6 +25,7 @@ from repro_torch.core import engine, lowering
 from repro_torch.core.ir import Graph, Node
 from repro_torch.core.mvu import MVUConfig, MVULayer
 from repro_torch.kernels import mvu_int as K, ops
+from repro_torch.telemetry import Tracer
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "src", "repro_torch")
@@ -102,7 +103,7 @@ def _conv_graph():
 
 @pytest.mark.parametrize("what", [
     "tune_cache", "target_pipeline", "target_serving",
-    "engine_profile", "engine_as_pipeline", "engine_tune"])
+    "acc_serve", "engine_as_pipeline", "engine_tune"])
 def test_later_slices_raise_not_implemented(what):
     g = nid_mlp.build_graph(0)
     overrides = {"tune_cache": {"tune": "cache"}, "target_pipeline": {"target": "pipeline"},
@@ -114,15 +115,16 @@ def test_later_slices_raise_not_implemented(what):
             engine.FusedEngine(g, tune="cache")
         else:
             acc = build(g, weight_bits=2, act_bits=2, device="cpu")
-            getattr(acc, what.removeprefix("engine_"))()
+            getattr(acc, what.split("_", 1)[1])()
 
 
 @pytest.mark.parametrize("what", ["mode_binary", "mode_xnor", "pack_always",
-                                  "ops_packed", "ops_xnor", "layer_xnor", "conv_node"])
+                                  "ops_packed", "ops_xnor", "layer_xnor", "conv_node",
+                                  "engine_profile"])
 def test_binarized_and_packed_paths_run(what):
     """What the later-slices test refused before the binarized, packed and
-    conv kernels were ported now runs (on the CPU: the kernels' plain
-    versions)."""
+    conv kernels and the telemetry were ported now runs (on the CPU: the
+    kernels' plain versions)."""
     g = nid_mlp.build_graph(0)
     x = torch.randint(0, 4, (5, 600), dtype=torch.int32)
     a = torch.randint(0, 4, (2, 8), dtype=torch.int32)
@@ -140,6 +142,10 @@ def test_binarized_and_packed_paths_run(what):
         acc = build(g, device="cpu", **kw)
         assert torch.equal(acc(x), acc.interpret(x)) and tuple(acc(x).shape) == (5, 1)
         assert all(n.packed == (what == "pack_always") for n in acc.report.nodes)
+    elif what == "engine_profile":
+        acc = build(g, weight_bits=2, act_bits=2, device="cpu")
+        y, plan = acc.profile(x, Tracer())
+        assert torch.equal(y, acc(x)) and plan == acc.plan(5)
     elif what == "ops_packed":
         w = torch.zeros((4, 2), dtype=torch.uint8)  # 8 zero 2-bit lanes a row
         assert torch.equal(ops.mvu(a, w, packed=True, k_bits=8), torch.zeros((2, 4), dtype=torch.int32))
