@@ -106,6 +106,29 @@ Phases, each printing its own line(s); any failure exits non-zero:
            under each.  The trace's kernel events of each hand kernel
            must equal its launch counter for that call.  The Chrome traces
            are saved as ``chiprun_out/trace_{nid,cnv}_standard.json.gz``.
+   serve   the NID-MLP standard variant built with ``target="serving"`` on
+           the card (its ``calibrate`` step times ``acc(x)`` at 32 flows,
+           synchronised): the calibrated seconds per cycle and the measured
+           interval beside the nominal one.  ``acc.serve(batch_buckets=(1,
+           8, 32, 128), slo_s=0.05)`` (warm-up and golden canary first)
+           then serves the 4,096 flows of ``nid.make_dataset(4096,
+           seed=1)`` as a stream of bursts of 1-128 flows (sizes from a
+           seeded numpy generator; a single flow goes through ``submit``),
+           each burst waiting, polling, for room in the admission queue:
+           the outputs, stacked in request order, must equal ``acc(x)`` and
+           the golden digest, and with every launch counter set to 0 after
+           the warm-up, ``mvu_int`` must launch 4 x the sum of ``n_micro``
+           over the dispatched batches and nothing else.  Printed: flows/s
+           served (first submit to the end of the drain) beside the same
+           build's ``acc(x)`` at 4096, p50/p95/p99 latency, the padding
+           share, and per bucket the dispatches, launches and p50/p99.
+           Then a chaos run on three logical replicas of the card (a seeded
+           ``FaultPlan``: error, straggle and corrupt rates and one replica
+           death): every request resolves, equal to ``acc(x)`` or counted
+           shed, none dropped; the retry, quarantine, probe and recovery
+           counters.  Last a traced run (a ``Tracer`` and
+           ``acc.drift_monitor()`` on the batcher): bit-exact with the
+           untraced run, its span names and the drift monitor's keys.
 5. the kernels JSON line, the card's ``nvidia-smi`` line, and last the
    result line ``{"ok": true, "device": {...}}``.
 
@@ -157,6 +180,10 @@ CNV_DENSE_M = 1  # images a CNV microbatch: the dense layers' M on that path
 CNV_BATCH = 256  # images per acc(x) for the images/s line
 TRACE_DIR = os.path.join(HERE, "chiprun_out")
 DRIFT_S_PER_CYCLE = 1e-8  # any fixed cycle time: the profile phase checks only the keys
+SERVE_BUCKETS = (1, 8, 32, 128)
+SERVE_SLO_S = 0.05
+SERVE_SEED = 0  # the burst sizes
+CHAOS_REPLICAS = 3
 # the hand kernel a device function of the trace belongs to: a substring of
 # its demangled name (spaces removed) -> the kernel's launch counter
 TRACE_KERNELS = {
@@ -303,6 +330,172 @@ def cnv_accelerator(gd):
     kw = gd["build"]
     return build(cnv_bnn.build_graph(cnv_bnn.spec_for(kw), seed=gd["seed"]),
                  target="engine", tune="off", device="cuda", **kw)
+
+
+def burst_sizes(n: int, seed: int) -> list[int]:
+    """Burst sizes of 1-128 flows (single flows included), summing to ``n``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    sizes = []
+    while sum(sizes) < n:
+        sizes.append(min(int(rng.integers(1, 129)), n - sum(sizes)))
+    return sizes
+
+
+def serve_stream(batcher, xs, sizes) -> list[int]:
+    """Submit ``xs`` as bursts of ``sizes`` (a single flow through
+    ``submit``), polling after each; a burst waits, polling, until the
+    admission queue has room for it.  Returns the rids in request order."""
+    rids, at = [], 0
+    for size in sizes:
+        check(size <= batcher.queue.capacity, f"a burst of {size} exceeds the queue")
+        while batcher.queue.depth + size > batcher.queue.capacity:
+            batcher.poll()
+        burst = xs[at:at + size]
+        rids += [batcher.submit(burst[0])] if size == 1 else batcher.submit_batch(burst)
+        at += size
+        batcher.poll()
+    return rids
+
+
+def record_dispatches(pool) -> list[tuple[int, int, list[int]]]:
+    """Wrap ``pool.dispatch`` to log each launched batch: (bucket, its
+    plan's n_micro, its rids)."""
+    log = []
+    dispatch = pool.dispatch
+
+    def logged(xs, entries, n_valid=None, *, exclude=()):
+        pending = dispatch(xs, entries, n_valid, exclude=exclude)
+        log.append((len(xs), pending.plan.n_micro, [e.rid for e in entries]))
+        return pending
+
+    pool.dispatch = logged
+    return log
+
+
+def serve_phase(dev, smi: str) -> None:
+    """The serve phase (see the module doc): the NID standard variant built
+    with ``target="serving"`` on ``dev``, served in bursts, then the chaos
+    run and the traced run."""
+    import numpy as np
+    import torch
+
+    from repro_torch.build import build
+    from repro_torch.configs import golden as golden_mod, nid_mlp
+    from repro_torch.core.autotune import cycle_time_key
+    from repro_torch.data import nid
+    from repro_torch.kernels import ops
+    from repro_torch.serving import FaultEvent, FaultPlan, FaultPolicy, ReplicaPool
+    from repro_torch.telemetry import Tracer
+
+    gd = nid_mlp.load_golden()["standard"]
+    t0 = time.perf_counter()
+    sacc = build(nid_mlp.build_graph(gd["seed"]), target="serving", tune="off",
+                 folding=nid_mlp.foldings(), device=dev, **gd["build"])
+    cal = sacc.calibration
+    check(sacc.report.cycle_time_source == "measured" and cal["s_per_cycle"] > 0
+          and list(sacc.cache.entries) == [cycle_time_key(dev)],
+          f"serve: the serving build did not calibrate on the card: {cal}")
+    print(f"serve: standard {gd['build']} target='serving': built "
+          f"{sacc.report.step_names} in {time.perf_counter() - t0:.2f} s; calibrated "
+          f"s_per_cycle={cal['s_per_cycle']!r} (acc(x) at batch {cal['batch']}, n_micro="
+          f"{cal['n_micro']}, {cal['measured_s'] * 1e3:.4f} ms, min of "
+          f"{sacc.config.calibrate_reps}) under {cycle_time_key(dev)!r}; measured_interval_s="
+          f"{sacc.report.measured_interval_s!r} against the nominal "
+          f"{sacc.report.predicted_interval_s!r} ({smi})", flush=True)
+    xs_np = nid.make_dataset(gd["batch"], seed=gd["data_seed"])[0]
+    want = sacc(torch.from_numpy(xs_np).to(dev)).cpu().numpy()
+    sizes = burst_sizes(len(xs_np), SERVE_SEED)
+    batcher = sacc.serve(batch_buckets=SERVE_BUCKETS, slo_s=SERVE_SLO_S)
+    log = record_dispatches(batcher.pool)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rids = serve_stream(batcher, xs_np, sizes)
+    batcher.drain(timeout=300)
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    n_micro_sum = sum(n for _, n, _ in log)
+    check(counts == {k: 4 * n_micro_sum if k == "mvu_int" else 0 for k in counts},
+          f"serve: {counts} launched, want mvu_int 4 x {n_micro_sum} (the sum of n_micro "
+          "over the dispatched batches) and nothing else")
+    y_served = np.stack([batcher.results[r].out for r in rids])
+    check(y_served.dtype == want.dtype and np.array_equal(y_served, want),
+          "serve: the served outputs differ from acc(x)")
+    check(golden_mod.digest_like(gd, y_served, sacc.graph) == gd,
+          "serve: the served outputs differ from the JAX package's golden digest")
+    snap = batcher.metrics.snapshot()
+    check(snap["completed"] == len(xs_np) and snap["shed"] == 0,
+          f"serve: {snap['completed']} completed, {snap['shed']} shed of {len(xs_np)}")
+    acc_s = acc_seconds(sacc, torch.from_numpy(xs_np).to(dev))
+    print(f"serve: {len(xs_np)} flows in {len(sizes)} bursts of 1-128 "
+          f"({sum(s == 1 for s in sizes)} single flows) equal acc(x) and the golden digest; "
+          f"{counts['mvu_int']} mvu_int launches = 4 x sum(n_micro)={n_micro_sum} over "
+          f"{len(log)} dispatched batches, no other kernel", flush=True)
+    print(f"serve: {len(xs_np) / wall:.1f} flows/s served ({wall * 1e3:.3f} ms, first submit "
+          f"to the end of the drain; metrics samples_per_s {snap['samples_per_s']:.1f}) "
+          f"against acc(x) at {len(xs_np)}: {len(xs_np) / acc_s:.1f} flows/s "
+          f"({acc_s * 1e3:.3f} ms, median of 7); latency p50 {snap['p50_ms']:.4f} ms, p95 "
+          f"{snap['p95_ms']:.4f} ms, p99 {snap['p99_ms']:.4f} ms; padding share "
+          f"{snap['padding_overhead']:.4f}; deadline misses {snap['deadline_misses']}; "
+          f"{smi}", flush=True)
+    for bucket in SERVE_BUCKETS:
+        batches = [(n, r) for b, n, r in log if b == bucket]
+        lat = sorted(batcher.results[rid].latency_s * 1e3 for _, r in batches for rid in r)
+        pct = (lambda q: lat[min(len(lat) - 1, int(q * len(lat)))]) if lat else (lambda q: 0.0)
+        print(f"serve: bucket {bucket}: {len(batches)} batches, "
+              f"{4 * sum(n for n, _ in batches)} mvu_int launches, {len(lat)} flows, "
+              f"p50 {pct(0.50):.4f} ms, p99 {pct(0.99):.4f} ms", flush=True)
+
+    # the chaos run: three logical replicas on the card, seeded faults
+    fault_plan = FaultPlan(seed=SERVE_SEED, rates={"error": 0.05, "straggle": 0.05, "corrupt": 0.05},
+                           events=[FaultEvent("die", replica=CHAOS_REPLICAS - 1,
+                                               at_dispatch=5)],
+                           straggle_delay_s=0.002)
+    policy = FaultPolicy(max_retries=3, probe_backoff_s=0.01)
+    pool = ReplicaPool(sacc.engine, devices=[dev] * CHAOS_REPLICAS, faults=fault_plan,
+                       policy=policy)
+    chaos = sacc.serve(batch_buckets=SERVE_BUCKETS, slo_s=SERVE_SLO_S, pool=pool,
+                       fault_policy=policy)
+    crids = serve_stream(chaos, xs_np, sizes)
+    chaos.drain(timeout=300)
+    check(sorted(chaos.results) == sorted(crids) and len(crids) == len(xs_np),
+          f"chaos: {len(chaos.results)} of {len(crids)} requests resolved")
+    n_shed = 0
+    for i, rid in enumerate(crids):
+        r = chaos.results[rid]
+        if r.shed:
+            n_shed += 1
+        else:
+            check(np.array_equal(r.out, want[i]), f"chaos: request {i} differs from acc(x)")
+    c = chaos.metrics.counters
+    check(c["completed"] + c["shed"] == len(crids) and c["shed"] == n_shed,
+          f"chaos: {c['completed']} completed + {c['shed']} shed != {len(crids)}")
+    check(pool.replicas[-1].health.dead, "chaos: the replica death was not injected")
+    print(f"chaos: {len(crids)} requests on {CHAOS_REPLICAS} logical replicas of the card "
+          f"resolved, {c['completed']} equal to acc(x), {c['shed']} counted shed, none "
+          f"dropped; " + ", ".join(f"{k} {c[k]}" for k in (
+              "dispatch_failures", "retries", "corrupt_batches", "timeouts", "quarantines",
+              "probes", "recoveries", "deadline_misses")) + f"; load {pool.load()}", flush=True)
+
+    # the traced run: request lifecycle spans and the calibrated drift monitor
+    tr = Tracer()
+    drift = sacc.drift_monitor()
+    traced = sacc.serve(batch_buckets=SERVE_BUCKETS, slo_s=SERVE_SLO_S, tracer=tr, drift=drift)
+    t0 = time.perf_counter()
+    trids = serve_stream(traced, xs_np, sizes)
+    traced.drain(timeout=300)
+    traced_wall = time.perf_counter() - t0
+    y_traced = np.stack([traced.results[r].out for r in trids])
+    check(np.array_equal(y_traced, y_served), "trace: the traced run differs from the untraced")
+    begins = sum(e["ph"] == "b" for e in tr.events())
+    check(begins == len(xs_np) and tr.dropped == 0,
+          f"trace: {begins} request intervals, {tr.dropped} events dropped")
+    names = sorted({f"{e['ph']}:{e['name']}" for e in tr.events()})
+    print(f"serve: traced run bit-exact with the untraced one; {len(xs_np) / traced_wall:.1f} "
+          f"flows/s ({traced_wall * 1e3:.3f} ms); {len(tr)} events, "
+          f"{begins} request intervals; names {names}; drift keys "
+          f"{sorted(drift.status()['keys'])}, flagged {drift.status()['flagged']}", flush=True)
 
 
 def bound_of(nbytes: int, ops: int) -> tuple[float, str]:
@@ -1044,6 +1237,8 @@ def main() -> int:
                   f"({host_us:.1f} us of it)", flush=True)
         print(f"trace: {cfg_name} Chrome trace saved to {os.path.relpath(r['path'], HERE)}",
               flush=True)
+
+    serve_phase(dev, smi)
 
     # -------------------------------------------------------- 5. results
     mb = plan.microbatch

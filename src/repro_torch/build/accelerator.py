@@ -1,9 +1,10 @@
 """The Accelerator facade: one object per built dataflow design.
 
-    acc = repro_torch.build.build(graph, target="engine", device="cuda", ...)
+    acc = repro_torch.build.build(graph, target="serving", device="cuda", ...)
     y   = acc.interpret(x)     # eager reference (bit-exact contract)
     y   = acc(x)               # fused streaming engine
     y, plan = acc.profile(x, Tracer())   # per-node spans, bit-exact with acc(x)
+    b   = acc.serve(batch_buckets=(1, 8, 32, 128))   # continuous batcher
     acc.report                  # the BuildReport (JSON-serializable)
 
 Both facings run on the build's device: the constructor moves the
@@ -38,6 +39,8 @@ class Accelerator:
         ref = state.ref_graph if state.ref_graph is not None else state.graph
         self.ref_graph = dataflow.graph_to(ref, self.device)
         self.report: BuildReport = state.report
+        self.cache = state.cache
+        self.calibration = state.calibration
         # build-step Tracer when cfg.telemetry was set (None otherwise);
         # its summary is already embedded in report.telemetry
         self.tracer = state.tracer
@@ -52,8 +55,8 @@ class Accelerator:
         if self._engine is None:
             raise BuildError(
                 f"this build (target={self.config.target!r}) ran no 'engine' "
-                "step; rebuild with target='engine' or a step list "
-                "containing 'engine'")
+                "step; rebuild with target='engine'/'serving' or a step "
+                "list containing 'engine'")
         return self._engine
 
     def interpret(self, x) -> torch.Tensor:
@@ -64,9 +67,9 @@ class Accelerator:
     def __call__(self, x) -> torch.Tensor:
         return self.engine(x) if self._engine is not None else self.interpret(x)
 
-    def dispatch(self, x, *, tracer=None):
+    def dispatch(self, x, *, params=None, tracer=None):
         """Non-blocking engine submit (see ``FusedEngine.dispatch``)."""
-        return self.engine.dispatch(x, tracer=tracer)
+        return self.engine.dispatch(x, params=params, tracer=tracer)
 
     def profile(self, x, tracer, *, drift=None):
         """Traced per-node eager re-execution (``FusedEngine.profile``):
@@ -75,15 +78,21 @@ class Accelerator:
         return self.engine.profile(x, tracer, drift=drift)
 
     def drift_monitor(self, **kwargs):
-        """A :class:`~repro_torch.telemetry.DriftMonitor` primed with the
-        build's per-stage predicted intervals needs a *calibrated* cycle
-        time (the serving target's ``calibrate`` step, ROADMAP queue A item
-        4): against the nominal clock the measured/predicted ratios are
-        meaningless.  No step of the port calibrates yet, so this raises."""
-        raise BuildError(
-            "drift_monitor() needs a calibrated cycle time; rebuild with "
-            "target='serving' (the 'calibrate' step, ROADMAP queue A item 4) so "
-            "per-stage predictions reflect measured seconds, not the nominal clock")
+        """A :class:`~repro_torch.telemetry.DriftMonitor` primed with this
+        build's per-stage predicted intervals (stage cycles x the
+        *calibrated* cycle time).  Requires a ``target="serving"`` build
+        (or any step list that ran ``calibrate``): against the nominal
+        clock the measured/predicted ratios are meaningless."""
+        from repro_torch.telemetry import DriftMonitor
+
+        s_per_cycle = (self.calibration or {}).get("s_per_cycle")
+        if not s_per_cycle:
+            raise BuildError(
+                "drift_monitor() needs a calibrated cycle time; rebuild "
+                "with target='serving' (the 'calibrate' step) so per-stage "
+                "predictions reflect measured seconds, not the nominal clock")
+        return DriftMonitor.from_schedule(
+            self.schedule, float(s_per_cycle), **kwargs)
 
     @property
     def schedule(self):
@@ -93,8 +102,28 @@ class Accelerator:
     def plan(self, batch: int):
         return self.engine.plan(batch)
 
-    def serve(self, *args, **kwargs):
-        raise NotImplementedError("serving is ROADMAP queue A item 4")
+    # -------------------------------------------------------------- serving
+    def serve(self, *, warmup: bool = True, cache=None,
+              fault_policy=None, faults=None, **kwargs):
+        """A :class:`~repro_torch.serving.batcher.ContinuousBatcher` over
+        the engine.  The build's cache (holding the calibrated cycle time
+        when the ``serving`` target ran) feeds the flush budgets unless an
+        explicit ``cache`` overrides it; ``warmup`` runs every bucket shape
+        on every replica (and the golden canary) before traffic arrives.
+
+        ``fault_policy`` (a :class:`~repro_torch.serving.health.FaultPolicy`)
+        tunes the failure handling -- retries, dispatch timeouts, hedging,
+        the integrity guard and brownout; the default policy is enabled.
+        ``faults`` injects a deterministic
+        :class:`~repro_torch.serving.faults.FaultPlan` (chaos testing only).
+        ``tracer=``/``drift=`` (forwarded to the batcher) wire telemetry:
+        pair with :meth:`drift_monitor` for calibrated predictions."""
+        from repro_torch.serving import ContinuousBatcher
+
+        batcher = ContinuousBatcher(
+            self.engine, cache=cache if cache is not None else self.cache,
+            fault_policy=fault_policy, faults=faults, **kwargs)
+        return batcher.warmup() if warmup else batcher
 
     def as_pipeline(self, *args, **kwargs):
         return self.engine.as_pipeline(*args, **kwargs)

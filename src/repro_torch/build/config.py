@@ -55,8 +55,10 @@ class VerificationError(BuildError):
 class BuildConfig:
     """Declarative build recipe consumed by :func:`repro_torch.build.build`.
 
-    target: ``interpret`` (eager reference only) or ``engine``
-        (FusedEngine); ``pipeline`` and ``serving`` are later slices.
+    target: ``interpret`` (eager reference only), ``engine``
+        (FusedEngine) or ``serving`` (the engine plus the ``calibrate``
+        step, for :meth:`Accelerator.serve`); ``pipeline`` is a later
+        slice (ROADMAP queue A item 6).
     mode / weight_bits / act_bits / backend: lowering parameters
         (``lowering.lower_to_mvu``); mode is ``"standard"``, ``"binary"``
         or ``"xnor"`` (paper Fig. 4); backend is ``"cuda"`` (the hand
@@ -70,6 +72,9 @@ class BuildConfig:
         until the autotuner is ported), ``"never"`` keeps canonical
         storage, ``"always"`` packs every packable node
         (``lowering.packable``).
+    calibrate_batch / calibrate_reps: batch size and timed repetitions of
+        the ``calibrate`` step (``serving`` target): the minimum over the
+        repetitions sets the measured seconds per cycle.
     verify: ``"all"`` re-runs a probe batch through the reference
         interpreter after every graph transform and checks bit-exactness,
         the engine included; ``"off"`` skips.
@@ -104,6 +109,9 @@ class BuildConfig:
     pack: str = "auto"
     # engine
     microbatches: int | None = None
+    # serving calibration (target="serving")
+    calibrate_batch: int = 32
+    calibrate_reps: int = 3
     # verification + report
     verify: str = "all"
     probe_batch: int = 8
@@ -131,10 +139,9 @@ class BuildConfig:
             raise BuildError(
                 f"folding must be {FOLD_BALANCE!r}, {FOLD_NONE!r} or a "
                 f"sequence of Folding, got {self.folding!r}")
-        if self.target in ("pipeline", "serving"):
+        if self.target == "pipeline":
             raise NotImplementedError(
-                f"target={self.target!r} is a later slice: ROADMAP queue A "
-                f"item {6 if self.target == 'pipeline' else 4}")
+                "target='pipeline' is a later slice: ROADMAP queue A item 6")
         if self.tune != "off":
             raise NotImplementedError(
                 f"tune={self.tune!r}: the autotuner is ROADMAP queue A item 3")

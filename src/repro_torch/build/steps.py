@@ -18,6 +18,7 @@ and order:
     pack_weights    lowering.pack_weights
     dataflow        dataflow.schedule -> report tables
     engine          core.engine.FusedEngine on the build's device
+    calibrate       serving.calibrate_cycle_time (serving target)
 
 Every step before ``engine`` runs on CPU tensors, so quantized weights and
 folded thresholds never depend on the device.  After every step that
@@ -46,7 +47,7 @@ from repro_torch.build.config import (
     VerificationError,
 )
 from repro_torch.build.report import BuildReport, NodeReport
-from repro_torch.core import dataflow, ir, lowering
+from repro_torch.core import autotune, dataflow, ir, lowering
 from repro_torch.core.ir import Graph
 from repro_torch.core.mvu import MVUConfig, MVULayer
 from repro_torch.telemetry import Tracer
@@ -66,7 +67,9 @@ class BuildState:
     cfg: BuildConfig
     report: BuildReport
     device: torch.device
+    cache: Any = None  # autotune.ScheduleCache once calibrate needs one
     engine: Any = None  # FusedEngine after the "engine" step
+    calibration: dict | None = None  # cycle-time entry (serving target)
     tracer: Any = None  # the build-step Tracer when cfg.telemetry is set
     ref_graph: Graph | None = None
     probe: torch.Tensor | None = None
@@ -76,6 +79,11 @@ class BuildState:
 
     def mark_dirty(self) -> None:
         self._dirty = True
+
+    def require_cache(self):
+        if self.cache is None:
+            self.cache = autotune.ScheduleCache()
+        return self.cache
 
 
 # ---------------------------------------------------------------- registry
@@ -116,6 +124,7 @@ DEFAULT_STEPS: dict[str, tuple[str, ...]] = {
     "interpret": ("validate", "lower", "finalize", "fold", "pack_weights",
                   "dataflow"),
     "engine": _ENGINE_STEPS,
+    "serving": _ENGINE_STEPS + ("calibrate",),
 }
 
 
@@ -242,7 +251,28 @@ def step_dataflow(state: BuildState) -> None:
             canonical_weight_bytes=res.canonical_weight_bytes))
     state.report.nodes = nodes
     if sched.stages:
-        state.report.predicted_interval_s = dataflow.interval_seconds(sched)
+        state.report.predicted_interval_s = (
+            sched.steady_state_interval / dataflow.DEFAULT_CLOCK_HZ)
+        measured = _measured_interval(state, sched)
+        if measured is not None:
+            state.report.measured_interval_s = measured
+            state.report.cycle_time_source = "measured"
+
+
+def _measured_interval(state: BuildState, sched) -> float | None:
+    """Measured-cycle-time interval when the cache holds a calibration
+    for the build's device.
+
+    The conversion itself stays in :func:`dataflow.interval_seconds` (the
+    single owner of the cycles-to-seconds rule); this helper only decides
+    whether a measurement exists at all.
+    """
+    if state.cache is None:
+        return None
+    ent = state.cache.get(autotune.cycle_time_key(state.device))
+    if ent is None or not ent.get("s_per_cycle"):
+        return None
+    return dataflow.interval_seconds(sched, cache=state.cache, device=state.device)
 
 
 @register_step("engine")
@@ -253,6 +283,28 @@ def step_engine(state: BuildState) -> None:
 
     state.graph = dataflow.graph_to(state.graph, state.device)
     state.engine = FusedEngine(state.graph, microbatches=state.cfg.microbatches)
+
+
+@register_step("calibrate")
+def step_calibrate(state: BuildState) -> None:
+    """Measure the realized seconds-per-cycle of the engine on the build's
+    device (the serving warm-up path): recorded under
+    ``autotune.cycle_time_key(device)`` in the build's cache so every
+    batcher constructed from this Accelerator budgets flushes in measured
+    wall-clock units, not the nominal clock."""
+    from repro_torch.serving import calibrate_cycle_time
+
+    if state.engine is None:
+        raise BuildError("the 'calibrate' step needs the 'engine' step first")
+    cfg = state.cfg
+    state.calibration = calibrate_cycle_time(
+        state.engine, batch=cfg.calibrate_batch, reps=cfg.calibrate_reps,
+        cache=state.require_cache(), device=state.engine.device)
+    sched = state.engine.schedule
+    if sched.stages:
+        state.report.measured_interval_s = dataflow.interval_seconds(
+            sched, cache=state.cache, device=state.engine.device)
+        state.report.cycle_time_source = "measured"
 
 
 # ------------------------------------------------------------ verification
@@ -325,20 +377,6 @@ def _same(got: torch.Tensor, want: np.ndarray) -> bool:
         and np.array_equal(got, want)
 
 
-def synth_input(graph: Graph, batch: int, seed: int = 0) -> torch.Tensor:
-    """Random integer activations matching the graph's input node (CPU)."""
-    heads = [n for n in graph if n.op == "input"]
-    if len(heads) != 1:
-        raise ValueError(
-            f"graph must have exactly one input node, found {len(heads)}")
-    head = heads[0]
-    shape = tuple(head.attrs["shape"])
-    bits = head.attrs.get("bits", 1)
-    rng = np.random.default_rng(seed)
-    return torch.as_tensor(rng.integers(0, 2**bits, (batch, *shape)),
-                           dtype=torch.int32)
-
-
 def verify_after(state: BuildState, name: str) -> bool | None:
     """The per-step verification hook (FINN's verification steps).
 
@@ -352,8 +390,8 @@ def verify_after(state: BuildState, name: str) -> bool | None:
     if state._dirty and _executable(state.graph):
         state._dirty = False
         if state.probe is None:
-            state.probe = synth_input(state.graph, state.cfg.probe_batch,
-                                      seed=state.cfg.seed)
+            state.probe = autotune.synth_input(state.graph, state.cfg.probe_batch,
+                                               seed=state.cfg.seed)
         if state.probe_out is None:
             # first executable graph: pin the reference semantics (and keep
             # this graph as the Accelerator's interpreter facing)

@@ -14,7 +14,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.core import ir, swu as swu_mod
+from repro_torch.core import autotune, ir, swu as swu_mod
 from repro_torch.core.ir import Graph
 from repro_torch.core.mvu import MVUConfig, MVULayer, MVUParams
 from repro_torch.core.resource_model import NOMINAL_CLOCK_HZ, MVUResources
@@ -87,15 +87,31 @@ class DataflowSchedule:
         return out
 
 
-# The paper's nominal 200 MHz FPGA clock converts schedule cycles to time.
+# The paper's nominal 200 MHz FPGA clock converts schedule cycles to time
+# when no cycle time has been measured.
 DEFAULT_CLOCK_HZ = NOMINAL_CLOCK_HZ
 
 
-def interval_seconds(sched: DataflowSchedule, *,
+def interval_seconds(sched: DataflowSchedule, *, cache=None, device=None,
                      clock_hz: float = DEFAULT_CLOCK_HZ) -> float:
-    """Seconds per steady-state interval at the nominal clock.  A measured
-    cycle time (the JAX package keeps one in its autotune cache) comes with
-    the autotune and serving slices (ROADMAP queue A items 6-7)."""
+    """Wall-clock seconds per steady-state interval (one microbatch burst).
+
+    This is the bridge from the schedule's cycle algebra to serving-time
+    budgets: the continuous batcher flushes when a request's deadline slack
+    shrinks to one engine interval (``repro_torch.serving.batcher``).  When
+    the cache (default: ``autotune.default_cache()``) holds a *measured*
+    cycle time under ``autotune.cycle_time_key(device)`` (recorded by
+    ``repro_torch.serving.batcher.calibrate_cycle_time``), that measurement
+    wins; otherwise the nominal ``clock_hz`` converts the analytic cycle
+    count.  ``device`` is a torch device or a device kind string; None
+    means the CUDA device.
+    """
+    if cache is None:
+        cache = autotune.default_cache()
+    if len(cache):  # an empty cache holds no measurement for any device
+        ent = cache.get(autotune.cycle_time_key(device))
+        if ent is not None and ent.get("s_per_cycle"):
+            return sched.steady_state_interval * float(ent["s_per_cycle"])
     return sched.steady_state_interval / clock_hz
 
 

@@ -70,6 +70,41 @@ class _StageParams(nn.Module):
         return None
 
 
+def _tensors(p) -> list[torch.Tensor]:
+    # fields read one by one: dataclasses.asdict would deep-copy the tensors
+    vals = ([getattr(p, f.name) for f in dataclasses.fields(p)] if isinstance(p, MVUParams)
+            else list((p or {}).values()))
+    return [t for t in vals if isinstance(t, torch.Tensor)]
+
+
+def _params_to(p, device):
+    if isinstance(p, MVUParams):
+        return p.to(device)
+    if isinstance(p, dict):
+        return {k: v.to(device) for k, v in p.items()}
+    return p
+
+
+def resolve_device(d) -> torch.device:
+    """``d`` as a torch device; ``cuda`` without an index names the
+    current card, as a tensor's device does."""
+    d = torch.device(d)
+    if d.type == "cuda" and d.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
+def _params_device(params, default: torch.device) -> torch.device:
+    """The one device a list of stage parameters lives on (``default`` when
+    it holds no tensor); parameters on several devices raise."""
+    devices = {t.device for p in params for t in _tensors(p)}
+    if len(devices) > 1:
+        raise ValueError(
+            f"stage parameters lie on several devices {sorted(map(str, devices))}; "
+            "a replica's parameters must all be on one device")
+    return devices.pop() if devices else default
+
+
 class FusedEngine(nn.Module):
     """A lowered :class:`~repro_torch.core.ir.Graph` as a microbatch-streaming
     stage chain, bit-exact with ``dataflow.execute`` on the unfused graph
@@ -143,19 +178,42 @@ class FusedEngine(nn.Module):
         ys = [self._chain(params, xs[i * mb:(i + 1) * mb]) for i in range(n_micro)]
         return torch.cat(ys)[:b]
 
-    def dispatch(self, x, *, tracer=None) -> tuple[torch.Tensor, StreamPlan]:
+    @property
+    def params(self) -> list:
+        """The stage parameters the chain runs with (MVUParams, a dict of
+        tensors, or None per stage), resident on the engine's device."""
+        return [sp.value() for sp in self.stage_params]
+
+    def params_on(self, device) -> list:
+        """The stage parameters on ``device``: the engine's own on its own
+        device, else a ``.to(device)`` copy of each stage's tensors (a
+        serving replica's resident copy)."""
+        device = resolve_device(device)
+        if device == self.device:
+            return self.params
+        return [_params_to(p, device) for p in self.params]
+
+    def dispatch(self, x, *, params=None, tracer=None) -> tuple[torch.Tensor, StreamPlan]:
         """Non-blocking submit: enqueue one batch, return the output tensor
-        (on the engine's device, not yet synchronised) and the stream plan
-        it runs under.  ``x`` is moved to the engine's device first.
+        (not yet synchronised) and the stream plan it runs under.
+
+        ``params`` overrides the engine's resident parameters with a
+        replica's copy (``repro_torch.serving.pool`` places them per device,
+        see :meth:`params_on`); ``x`` is moved to the device the parameters
+        live on, and parameters spread over several devices raise.
 
         ``tracer`` (a :class:`repro_torch.telemetry.Tracer`) records the
         host-side enqueue as an ``engine.dispatch`` span -- on the card its
         duration is submit cost, not compute (the call does not
         synchronise); per-node spans come from :meth:`profile`.
         """
-        x = torch.as_tensor(x, device=self.device).contiguous()
+        if params is None:
+            params, device = self.params, self.device
+        else:
+            params = list(params)
+            device = _params_device(params, self.device)
+        x = torch.as_tensor(x, device=device).contiguous()
         plan = self.plan(int(x.shape[0]))
-        params = [sp.value() for sp in self.stage_params]
         if tracer is None:
             return self._stream(params, x, plan.n_micro), plan
         with tracer.span("engine.dispatch", cat="engine",
@@ -196,7 +254,7 @@ class FusedEngine(nn.Module):
         plan = self.plan(b)
         mb = plan.microbatch
         xs = pad_to(x, 0, plan.n_micro * mb)
-        params = [sp.value() for sp in self.stage_params]
+        params = self.params
         dev = self.device
         sync = ((lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda"
                 else (lambda: None))

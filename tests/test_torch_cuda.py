@@ -5,6 +5,7 @@ Run on a machine with an NVIDIA GPU and nvcc:
 Elsewhere every test here skips.  No JAX: the card's machine has none.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -12,11 +13,13 @@ import torch_random_dag  # tests/ is on sys.path under pytest
 from repro_torch.build import build
 from repro_torch.configs import cnv_bnn, golden as golden_mod, nid_mlp, residual_mlp
 from repro_torch.core import dataflow
+from repro_torch.core.autotune import ScheduleCache, cycle_time_key, device_kind
 from repro_torch.core.engine import FusedEngine
 from repro_torch.data import nid
 from repro_torch.kernels import dense_mvu, mvu_binary, mvu_int as K, mvu_packed, mvu_xnor
 from repro_torch.kernels import ops, packing
 from repro_torch.kernels import swu_mvu
+from repro_torch.serving import ReplicaPool, calibrate_cycle_time, infer_output_range
 from repro_torch.telemetry import DriftMonitor, Tracer
 
 pytestmark = pytest.mark.cuda
@@ -466,3 +469,75 @@ def test_random_dags_on_the_card(cuda, mode, bits):
         got = FusedEngine(low)(x)
         assert sum(ops.launch_counts().values()) > 0
         assert got.is_cuda and torch.equal(got, dataflow.execute(low, x))
+
+
+# ------------------------------------------------------------------ serving
+def _nid_standard(target):
+    golden = nid_mlp.load_golden()["standard"]
+    acc = build(nid_mlp.build_graph(golden["seed"]), target=target,
+                folding=nid_mlp.foldings(), **golden["build"])
+    return acc, golden
+
+
+def test_pool_on_the_card_polls_an_event_and_resolves(cuda):
+    acc, golden = _nid_standard("engine")
+    pool = ReplicaPool(acc.engine)
+    # the integrity bound reads the card's parameters through the host
+    assert pool.output_range is not None and pool.output_range == infer_output_range(
+        dataflow.graph_to(acc.engine.graph, "cpu"))
+    assert [r.device for r in pool.replicas] == [
+        torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    assert pool.replicas[0].params[1].weights is acc.engine.params[1].weights
+    x = nid.make_dataset(128, seed=golden["data_seed"])[0]
+    ops.reset_launch_counts()
+    pending = pool.dispatch(x, [], n_valid=100)
+    assert pending.event is not None and pending.out.is_cuda
+    launched = ops.launch_counts()
+    for _ in range(10**7):
+        if pending.ready():
+            break
+    assert pending.ready()
+    ys = pending.resolve()
+    assert launched["mvu_int"] == 4 * pending.plan.n_micro and pool.idle
+    want = acc(torch.from_numpy(x)).cpu().numpy()[:100]
+    assert ys.dtype == want.dtype and np.array_equal(ys, want)
+
+
+def test_calibration_on_the_card(cuda):
+    acc, _ = _nid_standard("serving")
+    kind = torch.cuda.get_device_name(0).strip().lower().replace(" ", "-")
+    assert device_kind(cuda) == kind and cycle_time_key(cuda) == f"cycletime|{kind}"
+    assert acc.calibration["s_per_cycle"] > 0 and list(acc.cache.entries) == [
+        f"cycletime|{kind}"]
+    cache = ScheduleCache()
+    entry = calibrate_cycle_time(acc.engine, batch=128, reps=3, cache=cache)
+    assert cache.get(f"cycletime|{kind}") == entry and entry["measured_s"] > 0
+    assert dataflow.interval_seconds(acc.schedule, cache=cache, device=cuda) == \
+        acc.schedule.steady_state_interval * entry["s_per_cycle"]
+
+
+def test_nid_served_on_the_card(cuda):
+    acc, golden = _nid_standard("serving")
+    x = nid.make_dataset(golden["batch"], seed=golden["data_seed"])[0]
+    batcher = acc.serve(batch_buckets=(1, 8, 32, 128), slo_s=0.05)
+    rng = np.random.default_rng(0)
+    ops.reset_launch_counts()
+    rids, at = [], 0
+    while at < len(x):
+        size = min(int(rng.integers(1, 129)), len(x) - at)
+        while batcher.queue.depth + size > batcher.queue.capacity:
+            batcher.poll()
+        rids += ([batcher.submit(x[at])] if size == 1
+                 else batcher.submit_batch(x[at:at + size]))
+        at += size
+        batcher.poll()
+    batcher.drain(timeout=300)
+    launched = ops.launch_counts()
+    y = np.stack([batcher.results[r].out for r in rids])
+    want = acc(torch.from_numpy(x)).cpu().numpy()
+    assert y.dtype == want.dtype and np.array_equal(y, want)
+    assert golden_mod.digest_like(golden, y, acc.graph) == golden
+    c = batcher.metrics.counters
+    assert c["completed"] == len(x) and c["shed"] == 0
+    # every batch of at most 128 flows is one microbatch: 4 launches
+    assert launched == {k: 4 * c["flushes"] if k == "mvu_int" else 0 for k in ops.KERNELS}

@@ -102,12 +102,10 @@ def _conv_graph():
 
 
 @pytest.mark.parametrize("what", [
-    "tune_cache", "target_pipeline", "target_serving",
-    "acc_serve", "engine_as_pipeline", "engine_tune"])
+    "tune_cache", "target_pipeline", "engine_as_pipeline", "engine_tune"])
 def test_later_slices_raise_not_implemented(what):
     g = nid_mlp.build_graph(0)
-    overrides = {"tune_cache": {"tune": "cache"}, "target_pipeline": {"target": "pipeline"},
-                 "target_serving": {"target": "serving"}}
+    overrides = {"tune_cache": {"tune": "cache"}, "target_pipeline": {"target": "pipeline"}}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         if what in overrides:
             build(g, device="cpu", **overrides[what])
@@ -120,11 +118,13 @@ def test_later_slices_raise_not_implemented(what):
 
 @pytest.mark.parametrize("what", ["mode_binary", "mode_xnor", "pack_always",
                                   "ops_packed", "ops_xnor", "layer_xnor", "conv_node",
-                                  "engine_profile"])
+                                  "engine_profile", "target_serving", "acc_serve",
+                                  "drift_monitor_engine", "drift_monitor_serving"])
 def test_binarized_and_packed_paths_run(what):
     """What the later-slices test refused before the binarized, packed and
-    conv kernels and the telemetry were ported now runs (on the CPU: the
-    kernels' plain versions)."""
+    conv kernels, the telemetry and serving were ported now runs (on the
+    CPU: the kernels' plain versions); ``drift_monitor`` still refuses a
+    build that did not calibrate."""
     g = nid_mlp.build_graph(0)
     x = torch.randint(0, 4, (5, 600), dtype=torch.int32)
     a = torch.randint(0, 4, (2, 8), dtype=torch.int32)
@@ -142,6 +142,26 @@ def test_binarized_and_packed_paths_run(what):
         acc = build(g, device="cpu", **kw)
         assert torch.equal(acc(x), acc.interpret(x)) and tuple(acc(x).shape) == (5, 1)
         assert all(n.packed == (what == "pack_always") for n in acc.report.nodes)
+    elif what in ("target_serving", "acc_serve"):
+        acc = build(g, target="serving", weight_bits=2, act_bits=2, device="cpu")
+        assert acc.report.step_names[-1] == "calibrate"
+        assert acc.calibration["s_per_cycle"] > 0 and acc.report.cycle_time_source == "measured"
+        assert list(acc.cache.entries) == ["cycletime|cpu"]
+        if what == "acc_serve":
+            batcher = acc.serve(batch_buckets=(1, 8))
+            rids = batcher.submit_batch(x.numpy())
+            batcher.drain(timeout=60)
+            got = torch.from_numpy(np.stack([batcher.results[r].out for r in rids]))
+            assert torch.equal(got, acc(x))
+    elif what.startswith("drift_monitor"):
+        target = what.rsplit("_", 1)[1]
+        acc = build(g, target=target, weight_bits=2, act_bits=2, device="cpu")
+        if target == "engine":
+            with pytest.raises(BuildError, match="calibrated cycle time"):
+                acc.drift_monitor()
+        else:
+            drift = acc.drift_monitor()
+            assert set(drift.predictions) == {st.name for st in acc.schedule.stages}
     elif what == "engine_profile":
         acc = build(g, weight_bits=2, act_bits=2, device="cpu")
         y, plan = acc.profile(x, Tracer())
