@@ -106,6 +106,10 @@ Phases, each printing its own line(s); any failure exits non-zero:
            under each.  The trace's kernel events of each hand kernel
            must equal its launch counter for that call.  The Chrome traces
            are saved as ``chiprun_out/trace_{nid,cnv}_standard.json.gz``.
+           A trace with no device event at all while kernels launched is
+           printed with its event categories and taken once more; a second
+           such trace in the run fails it, and the count is printed before
+           the kernels line.
    serve   the NID-MLP standard variant built with ``target="serving"`` on
            the card (its ``calibrate`` step times ``acc(x)`` at 32 flows,
            synchronised): the calibrated seconds per cycle and the measured
@@ -129,6 +133,34 @@ Phases, each printing its own line(s); any failure exits non-zero:
            counters.  Last a traced run (a ``Tracer`` and
            ``acc.drift_monitor()`` on the batcher): bit-exact with the
            untraced run, its span names and the drift monitor's keys.
+   tune    the autotuner on the card, in a temporary cache (never
+           ``experiments/autotune/cache.json``).  First ``conv_mvu``
+           against ``conv_mvu_plain`` at every image count the CNV's tile
+           race can choose (2, 4, 8, 256) for the FULL CNV's six conv
+           shapes, three modes, three epilogues.  Then each NID variant
+           (at 4096) and the CNV standard variant (at 256) built with
+           ``tune="auto"`` on the card: per node its cache key, the packed
+           choice, the entry's speedup, ``measured_candidates`` (the packed
+           kernel raced once by every dense node that is not xnor; conv and
+           xnor nodes race nothing) and the raced speedups with each side's
+           time on the card's clock; then
+           ``tune_engine`` races the microbatch tile (h, 2h, 4h, 8h and the
+           batch; every tile must be bit-exact, so raced) and prints each
+           tile's speedup and the choice.  Each is rebuilt with
+           ``tune="cache"`` from the filled cache with the timer replaced by
+           one that raises: no miss, the recorded tile, and with every launch
+           counter set to 0 just before it, its ``acc(x)`` on the golden
+           batch launches each node's kernel n_micro times under the tuned
+           plan and nothing else, and equals the untuned ``acc(x)`` and the
+           golden digest (a packed layer digested in its packed storage);
+           at the timed batch it equals the untuned ``acc(x)`` too, and
+           each dense node's kernels (both sides of its packed race; xnor:
+           the bit entry) equal their plain versions at M = the tuned
+           microbatch, on the node's weights and epilogue.  Tuned and
+           untuned ``acc(x)`` rates, timed in turns (U T T U) in
+           this process; for the NID and CNV standard variants the trace
+           phase's lines for one tuned ``acc(x)`` (``trace_*_tuned``); and
+           the phase's wall seconds.
 5. the kernels JSON line, the card's ``nvidia-smi`` line, and last the
    result line ``{"ok": true, "device": {...}}``.
 
@@ -165,6 +197,8 @@ KERNELS = {
     "conv_mvu": (CSRC + "conv_mvu.cu", "src/repro/kernels/swu_mvu.py:139"),
 }
 CONV_IMAGES = (1, 32)
+TUNE_CONV_IMAGES = (2, 4, 8, 256)  # the CNV tile race's choices at 256 beside 1
+TUNE_NID_BATCH = 4096
 # (B, H, W, C, N, stride, pad) of images too wide for conv_mvu's line
 # buffer: checked, not timed (the gather arrangement)
 CONV_WIDE = [(1, 8, 1000, 256, 64, 1, 0), (1, 5, 3000, 12, 16, 2, 1)]
@@ -184,6 +218,8 @@ SERVE_BUCKETS = (1, 8, 32, 128)
 SERVE_SLO_S = 0.05
 SERVE_SEED = 0  # the burst sizes
 CHAOS_REPLICAS = 3
+TRACES: list[str] = []  # every report_trace call of this run, by name
+TRACE_RETAKES: list[str] = []  # the traces taken again for holding no device event
 # the hand kernel a device function of the trace belongs to: a substring of
 # its demangled name (spaces removed) -> the kernel's launch counter
 TRACE_KERNELS = {
@@ -498,6 +534,295 @@ def serve_phase(dev, smi: str) -> None:
           f"{sorted(drift.status()['keys'])}, flagged {drift.status()['flagged']}", flush=True)
 
 
+def plan_launches(acc, batch: int) -> dict[str, int]:
+    """The launches of one ``acc(x)`` at ``batch`` under its (tuned) plan:
+    each MVU node's kernel (``conv_mvu``, or the dense kernel of its mode
+    and storage) once a microbatch, nothing else."""
+    from repro_torch.kernels import ops
+
+    n_micro = acc.plan(batch).n_micro
+    want = dict.fromkeys(ops.KERNELS, 0)
+    for node in acc.engine.graph:
+        if node.op in ("mvu", "conv_mvu"):
+            cfg = node.attrs["config"]
+            want["conv_mvu" if node.op == "conv_mvu"
+                 else ops.kernel_name(cfg.mode, cfg.packed)] += n_micro
+    return want
+
+
+def tuned_digest(gd, y, tuned, untuned) -> tuple[dict, dict]:
+    """(the digest of a tuned run, the digest it must equal): the golden
+    digest ``gd`` of the untuned build, with each layer whose tuned node
+    chose the packed datapath digested in its packed storage, packed from
+    the untuned build's weights (which phase 4 held to ``gd``)."""
+    from repro_torch.configs import golden as golden_mod
+    from repro_torch.kernels.mvu_packed import pack_mvu_weights
+
+    layers = golden_mod.graph_layers(untuned.graph)
+    for node in tuned.graph:
+        cfg = node.attrs.get("config")
+        if node.op == "mvu" and cfg.packed and cfg.mode != "xnor":
+            old = next(n for n in untuned.graph if n.name == node.name)
+            if not old.attrs["config"].packed:
+                layers[node.name]["weights"] = pack_mvu_weights(
+                    old.params["mvu"].weights, cfg.mode).cpu().numpy()
+    want = {**gd, "layers": golden_mod.golden_digest(y, layers)["layers"]}
+    return golden_mod.digest_like(gd, y, tuned.graph), want
+
+
+def dense_at_tile(acc, m: int, g, dev) -> tuple[int, float, list]:
+    """Each dense node of ``acc`` against its plain version at M = ``m``
+    rows (a tuned plan's microbatch), on the node's weights and epilogue:
+    both sides of its packed race (the unpacked kernel and the packed twin
+    from the same weights), or, for xnor, the bit entry the engine's
+    stages launch; activations in [0, 4) and [-128, 128).  Returns the
+    checks made, the largest |kernel - plain| and the (N, K) checked."""
+    import torch
+
+    from repro_torch.core.lowering import packable
+    from repro_torch.kernels import mvu_binary as B, mvu_int as K, mvu_packed as P
+    from repro_torch.kernels import mvu_xnor as X, packing
+
+    n_checked, max_err, shapes = 0, 0.0, []
+    for node in acc.engine.graph:
+        if node.op != "mvu":
+            continue
+        cfg, p = node.attrs["config"], node.params["mvu"]
+        k, w = cfg.in_features, p.weights
+        # (kernel, its plain version, the weights, the arguments after them)
+        if cfg.mode == "xnor":
+            cases = [(X.mvu_xnor_bits, X.mvu_xnor_bits_plain, w, ())]
+        else:
+            if cfg.packed:  # the packed storage's own weights, unpacked
+                w = (packing.unpack_bits(w, k) if cfg.mode == "binary"
+                     else packing.unpack_int2(w, k)).to(torch.int8)
+            cases = [(B.mvu_binary, B.mvu_binary_plain, w, ()) if cfg.mode == "binary"
+                     else (K.mvu_int, K.mvu_int_plain, w, ())]
+            if packable(cfg):
+                wp = P.pack_mvu_weights(w, cfg.mode)
+                cases.append((P.mvu_binary_packed, P.mvu_binary_packed_plain, wp, (k,))
+                             if cfg.mode == "binary"
+                             else (P.mvu_int2_packed, P.mvu_int2_packed_plain, wp, (k,)))
+        shapes.append((cfg.out_features, k, [fn.__name__ for fn, *_ in cases]))
+        for lo, hi in ((0, 4), (-128, 128)):
+            a = torch.randint(lo, hi, (m, k), generator=g, dtype=torch.int32).to(dev)
+            for fn, plain, wk, extra in cases:
+                args = (a, wk, *extra)
+                got = fn(*args, p.thresholds, p.out_scale)
+                want = plain(*args, p.thresholds, p.out_scale)
+                torch.cuda.synchronize()
+                check(got.dtype == want.dtype and torch.equal(got, want),
+                      f"tune: {fn.__name__} != its plain version at the tuned tile M={m} "
+                      f"N={cfg.out_features} K={k} ({node.name}), a in [{lo},{hi})")
+                max_err = max(max_err, (got.double() - want.double()).abs().max().item())
+                n_checked += 1
+    return n_checked, max_err, shapes
+
+
+def tune_phase(dev, smi: str, path_accs: dict) -> None:
+    """The tune phase (see the module doc): conv_mvu at the tile race's
+    image counts; each NID variant and the CNV standard variant built with
+    ``tune="auto"`` on the card, its tile raced, rebuilt from the cache with
+    ``tune="cache"`` (no timer may run) and held to the untuned build and
+    its golden digest; tuned and untuned ``acc(x)`` timed in turns."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.build import build
+    from repro_torch.configs import cnv_bnn, golden as golden_mod, nid_mlp
+    from repro_torch.core import autotune
+    from repro_torch.data import nid
+    from repro_torch.kernels import ops, swu_mvu as C
+
+    t_phase = time.perf_counter()
+    g = torch.Generator().manual_seed(1)
+    # 1. conv_mvu at every image count the CNV tile race can choose
+    n_checked, max_err = 0, 0.0
+    for mode in C.MODES:
+        for h, c, n in conv_shapes(cnv_bnn.FULL):
+            for b in TUNE_CONV_IMAGES:
+                x, w, _, _, _ = conv_case(mode, b, h, c, n, 3, g, dev)
+                k = 9 * c
+                thr = torch.sort(torch.randint(-8 * k, 8 * k, (n, 3), generator=g,
+                                               dtype=torch.int32), dim=1).values.to(dev)
+                scale = (torch.rand(n, generator=g) + 0.01).to(dev)
+                for t, s in ((None, None), (thr, None), (None, scale)):
+                    got = C.conv_mvu(x, w, t, s, kernel=3, mode=mode)
+                    want = C.conv_mvu_plain(x, w, t, s, kernel=3, mode=mode)
+                    torch.cuda.synchronize()
+                    check(got.dtype == want.dtype and torch.equal(got, want),
+                          f"tune: conv_mvu != conv_mvu_plain ({mode}) at B={b} H=W={h} C={c} "
+                          f"N={n} thresholds={t is not None} scale={s is not None}")
+                    max_err = max(max_err, (got.double() - want.double()).abs().max().item())
+                    n_checked += 1
+    print(f"tune: conv_mvu at {TUNE_CONV_IMAGES} images (the CNV tile race's choices) x the "
+          f"FULL CNV's six conv shapes x three modes x three epilogues: {n_checked} checks "
+          f"equal to the plain version, max_abs_err={max_err}", flush=True)
+
+    races: list[tuple] = []  # the current node search's (t_a, t_b, speedup)
+    node_races: list[tuple[str, list[tuple]]] = []  # per tune_node call, in order
+    tile_races: dict[int, float] = {}
+    tune_node = autotune.tune_node
+
+    def timer(fa, fb, *args, **kw):
+        r = autotune.paired_times(fa, fb, *args, **kw)
+        if isinstance(getattr(fb, "_tile", None), int):
+            tile_races[fb._tile] = r[2]
+        else:
+            races.append(r)
+        return r
+
+    def traced_tune_node(node, *args, **kw):
+        races.clear()
+        entry = tune_node(node, *args, **kw)
+        node_races.append((node.name, list(races)))
+        return entry
+
+    def no_timer(*a, **kw):
+        raise RuntimeError("tune=\"cache\" ran the timer")
+
+    cases = [("nid", v) for v in ("standard", *sorted(v for v in nid_mlp.load_golden()
+                                                      if v != "standard"))]
+    cases.append(("cnv", "standard"))
+    with tempfile.TemporaryDirectory() as tmp:
+        old_env = os.environ.get(autotune.CACHE_PATH_ENV)
+        os.environ[autotune.CACHE_PATH_ENV] = os.path.join(tmp, "cache.json")
+        for cfg_name, variant in cases:
+            if cfg_name == "nid":
+                gd = nid_mlp.load_golden()[variant]
+                graph = lambda gd=gd: nid_mlp.build_graph(gd["seed"])  # noqa: E731
+                extra = {"folding": nid_mlp.foldings()}
+                batch = TUNE_NID_BATCH
+                xb = torch.from_numpy(nid.make_dataset(batch, seed=gd["data_seed"])[0])
+                xg = torch.from_numpy(nid.make_dataset(gd["batch"], seed=gd["data_seed"])[0])
+            else:
+                gd = cnv_bnn.load_golden()[variant]
+                graph = lambda gd=gd: cnv_bnn.build_graph(  # noqa: E731
+                    cnv_bnn.spec_for(gd["build"]), seed=gd["seed"])
+                extra = {}
+                batch = CNV_BATCH
+                ab = gd["build"]["act_bits"]
+                xb = torch.from_numpy(cnv_bnn.images(batch, ab, gd["data_seed"]))
+                xg = torch.from_numpy(cnv_bnn.images(gd["batch"], ab, gd["data_seed"]))
+            xb, xg = xb.to(dev), xg.to(dev)
+            untuned = path_accs[(cfg_name, variant)]
+            label = f"{cfg_name} {variant}"
+            # the search: tune="auto" on the card, then the engine tile
+            cache = autotune.ScheduleCache()
+            node_races.clear()
+            tile_races.clear()
+            autotune.paired_timer, autotune.tune_node = timer, traced_tune_node
+            t0 = time.perf_counter()
+            acc = build(graph(), target="engine", tune="auto", cache=cache, device=dev,
+                        **extra, **gd["build"])
+            t_build = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            entry = autotune.tune_engine(acc.graph, batch, cache=cache)
+            t_engine = time.perf_counter() - t0
+            autotune.paired_timer, autotune.tune_node = autotune.paired_times, tune_node
+            scope = autotune.device_kind(dev)
+            check(all(k.split("|")[1] == scope for k in cache.entries if k.startswith("engine|"))
+                  and all(k.startswith(scope + "|") for k in cache.entries
+                          if not k.startswith("engine|")),
+                  f"tune: {label}: cache keys outside the card's scope {scope}: "
+                  f"{sorted(cache.entries)}")
+            print(f"tune: {label} {gd['build']}: tune='auto' build in {t_build:.2f} s "
+                  f"(report.tune {acc.report.tune}), tune_engine at batch {batch} in "
+                  f"{t_engine:.2f} s; {len(cache)} cache entries", flush=True)
+            # one tune_node call a miss, each putting its key: the same order.
+            # Every variant's dense weights pack (2-bit standard, binary), so a
+            # dense node that is not xnor races its packed kernel, once
+            node_keys = [k for k in cache.entries if not k.startswith("engine|")]
+            check(len(node_keys) == len(node_races), f"tune: {label}: {len(node_races)} "
+                  f"node searches for {len(node_keys)} entries")
+            for key, (name, raced) in zip(node_keys, node_races):
+                e = cache.get(key)
+                _, op, mode = key.split("|")[:3]
+                want_measured = int(op == "mvu" and mode != "xnor")
+                check(e["measured_candidates"] == want_measured == len(raced)
+                      and e["backend"] == "cuda",
+                      f"tune: {label} {name}: measured {e['measured_candidates']} candidates "
+                      f"({len(raced)} races) on {e['backend']!r}, want {want_measured} on "
+                      "'cuda' (a candidate that is not bit-exact is not raced)")
+                print(f"tune: {label} {name} {key}: packed={bool(e.get('packed'))} "
+                      f"speedup={e['speedup']:.4f} measured_candidates="
+                      f"{e['measured_candidates']} raced "
+                      + ", ".join(f"{r:.4f}x ({ta * 1e6:.2f} us own, {tb * 1e6:.2f} us packed "
+                                  "on the card's clock, per-side minima)"
+                                  for ta, tb, r in raced) + " "
+                      f"(margin 1.05: the entry's speedup / 1.05 = {e['speedup'] / 1.05:.4f})",
+                      flush=True)
+            heur = untuned.plan(batch).microbatch
+            want_tiles = sorted({heur * 2, heur * 4, heur * 8, batch} - {heur})
+            check(sorted(tile_races) == want_tiles,
+                  f"tune: {label}: tiles {sorted(tile_races)} raced, want {want_tiles} (a "
+                  "tile whose output differs from the heuristic plan's is not raced)")
+            print(f"tune: {label}: tile race at batch {batch} against h={heur}: "
+                  + ", ".join(f"{t} -> {r:.4f}x" for t, r in sorted(tile_races.items()))
+                  + f"; chose microbatch={entry['microbatch']} speedup={entry['speedup']:.4f}"
+                  f" (margin 1.10: clears it by {entry['speedup'] / 1.10:.4f}x)", flush=True)
+            # the replay: tune="cache" from the filled cache, no timer
+            autotune.paired_timer = no_timer
+            t0 = time.perf_counter()
+            again = build(graph(), target="engine", tune="cache", cache=cache, device=dev,
+                          **extra, **gd["build"])
+            t_again = time.perf_counter() - t0
+            check(again.report.tune["cache_misses"] == 0
+                  and again.report.tune["engine_tile"] == entry["microbatch"],
+                  f"tune: {label}: the cache rebuild reported {again.report.tune}")
+            plan = again.plan(gd["batch"])
+            ops.reset_launch_counts()
+            y = again(xg)
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            want_counts = plan_launches(again, gd["batch"])
+            check(counts == want_counts, f"tune: {label}: the cache rebuild's acc(x) launched "
+                  f"{counts}, want {want_counts} (each node's kernel x n_micro={plan.n_micro})")
+            check(torch.equal(y, untuned(xg)), f"tune: {label}: the tuned acc(x) differs from "
+                  "the untuned one")
+            got_digest, want_digest = tuned_digest(gd, y.cpu().numpy(), again, untuned)
+            check(got_digest == want_digest,
+                  f"tune: {label}: the tuned run differs from the golden digest")
+            # the timed batch too: the tuned plan's microbatch there is the
+            # tile the race chose, and the dense kernels run at that M
+            check(torch.equal(again(xb), untuned(xb)), f"tune: {label}: the tuned acc(x) "
+                  f"differs from the untuned one at the timed batch {batch}")
+            tile_m = again.plan(batch).microbatch
+            n_dense, dense_err, dense_nk = dense_at_tile(untuned, tile_m, g, dev)
+            print(f"tune: {label}: tuned acc(x) at the timed batch {batch} equals the untuned "
+                  f"one; the dense kernels at M={tile_m} (the tuned microbatch) equal their "
+                  f"plain versions: {n_dense} checks over {dense_nk}, max_abs_err={dense_err}",
+                  flush=True)
+            autotune.paired_timer = autotune.paired_times
+            print(f"tune: {label}: tune='cache' rebuild in {t_again:.2f} s measured nothing; "
+                  f"acc(x) at batch {gd['batch']} equals the untuned acc(x) and the golden "
+                  f"digest (packed layers: "
+                  f"{[n.name for n in again.graph if n.op == 'mvu' and n.attrs['config'].packed]}"
+                  f"); launches {({k: v for k, v in counts.items() if v})} = the tuned plan "
+                  f"(n_micro={plan.n_micro}, microbatch={plan.microbatch})", flush=True)
+            # tuned and untuned acc(x), in turns: untuned, tuned, tuned, untuned
+            secs = {"untuned": [], "tuned": []}
+            for side in ("untuned", "tuned", "tuned", "untuned"):
+                secs[side].append(acc_seconds(untuned if side == "untuned" else again, xb))
+            unit = "flows/s" if cfg_name == "nid" else "images/s"
+            print(f"tune: {label}: batch {batch}: untuned "
+                  + ", ".join(f"{batch / t:.1f}" for t in secs["untuned"])
+                  + " " + unit + "; tuned " + ", ".join(f"{batch / t:.1f}" for t in secs["tuned"])
+                  + f" {unit} (each the median of 7 acc(x), in the turns U T T U; tuned plan "
+                  f"n_micro={again.plan(batch).n_micro} against {untuned.plan(batch).n_micro}; "
+                  f"{smi})", flush=True)
+            if variant == "standard":  # where the time goes under the tuned plan
+                report_trace(again, xb, f"{cfg_name} standard tuned")
+        if old_env is None:
+            del os.environ[autotune.CACHE_PATH_ENV]
+        else:
+            os.environ[autotune.CACHE_PATH_ENV] = old_env
+    print(f"tune: phase done in {time.perf_counter() - t_phase:.2f} s wall ({len(cases)} "
+          "builds tuned and replayed)", flush=True)
+
+
 def bound_of(nbytes: int, ops: int) -> tuple[float, str]:
     """Least ms the card needs: ``nbytes`` at the HBM rate or ``ops`` at the
     int8 tensor-core peak, whichever is larger."""
@@ -728,8 +1053,59 @@ def trace_acc(acc, x, label: str) -> dict:
         "host_ops": sorted(host_ops.items(), key=lambda kv: -kv[1][0])[:6],
         "gaps": [(g1 - g0, g0 - w0, *under(g0, g1))
                  for g0, g1 in sorted(gaps, key=lambda g: g[0] - g[1])[:5]],
-        "n_gaps": len(gaps), "path": path,
+        "n_gaps": len(gaps), "path": path, "n_events": len(events),
+        "by_cat": {c: sum(1 for e in events if cat(e) == c)
+                   for c in sorted({cat(e) for e in events})},
     }
+
+
+def report_trace(acc, xp, name: str) -> None:
+    """The trace phase's lines for one ``acc(x)`` (see ``trace_acc``), each
+    starting ``trace: <name>``; the Chrome trace is saved as
+    ``chiprun_out/trace_<name, spaces as _>.json.gz``.
+
+    A trace that holds no device event at all while kernels launched
+    (CUPTI delivered nothing; seen once, in a process's fourth trace, cause
+    unknown) is reported with what it did hold, counted in
+    ``TRACE_RETAKES`` and taken once more; a second such trace in one run
+    fails the script."""
+    untraced = acc_seconds(acc, xp)
+    TRACES.append(name)
+    r = trace_acc(acc, xp, name.replace(" ", "_"))
+    if r["device_events"] == 0 and any(r["counts"].values()):
+        TRACE_RETAKES.append(name)
+        print(f"trace: {name}: RETAKE {len(TRACE_RETAKES)}: the trace holds no device event "
+              f"while {sum(r['counts'].values())} kernels launched; it holds "
+              f"{r['n_events']} complete events by category {r['by_cat']}", flush=True)
+        check(len(TRACE_RETAKES) == 1, f"trace {name}: a second trace without device "
+              f"events in this run ({TRACE_RETAKES}): CUPTI is not delivering")
+        r = trace_acc(acc, xp, name.replace(" ", "_"))
+    check(r["seen"] == r["counts"], f"trace {name}: the trace's hand-kernel events "
+          f"{r['seen']} differ from the launch counters {r['counts']} (does CUPTI see "
+          "the ctypes launches?)")
+    print(f"trace: {name} batch {xp.shape[0]}: window "
+          f"{r['host_window_ms']:.3f} ms host clock ({r['window_us'] / 1e3:.3f} ms in the "
+          f"trace; untraced acc(x) {untraced * 1e3:.3f} ms, median of 7); device busy "
+          f"{r['busy_us'] / 1e3:.4f} ms ({r['device_events']} device events); device "
+          f"idle share {r['idle_share'] * 100:.2f}% (against the untraced acc(x) time: "
+          f"{(1 - r['busy_us'] / 1e3 / (untraced * 1e3)) * 100:.2f}%)", flush=True)
+    print(f"trace: {name} host split of the window: torch ops "
+          f"{r['torch_ops_us'] / 1e3:.3f} ms, CUDA runtime calls outside them "
+          f"{r['runtime_us'] / 1e3:.3f} ms, no traced op (Python: stage loop, wrapper "
+          f"checks, ctypes) {r['python_us'] / 1e3:.3f} ms", flush=True)
+    print(f"trace: {name} top-level torch ops on the host: " + ", ".join(
+        f"{op} {us / 1e3:.3f} ms in {n}" for op, (us, n) in r["host_ops"]), flush=True)
+    print(f"trace: {name} hand-kernel events equal the launch counters: "
+          f"{ {k: v for k, v in r['seen'].items() if v} }", flush=True)
+    for op, (us, n) in r["top"]:
+        print(f"trace: {name} top device op: {us / 1e3:.4f} ms in {n} events: "
+              f"{op[:160]}", flush=True)
+    print(f"trace: {name} {r['n_gaps']} idle gaps; the five longest:", flush=True)
+    for dur, at, host_op, host_us in r["gaps"]:
+        print(f"trace: {name} gap {dur:.1f} us at +{at:.1f} us: {host_op[:100]} "
+              f"({host_us:.1f} us of it)", flush=True)
+    print(f"trace: {name} Chrome trace saved to {os.path.relpath(r['path'], HERE)}",
+          flush=True)
 
 
 def main() -> int:
@@ -1207,38 +1583,10 @@ def main() -> int:
 
     # trace: torch.profiler of one acc(x) each, after warm-up
     for cfg_name, xp in prof_inputs.items():
-        acc = path_accs[(cfg_name, "standard")]
-        xp = xp.to(dev)
-        untraced = acc_seconds(acc, xp)
-        r = trace_acc(acc, xp, f"{cfg_name}_standard")
-        check(r["seen"] == r["counts"], f"trace {cfg_name}: the trace's hand-kernel events "
-              f"{r['seen']} differ from the launch counters {r['counts']} (does CUPTI see "
-              "the ctypes launches?)")
-        print(f"trace: {cfg_name} standard batch {xp.shape[0]}: window "
-              f"{r['host_window_ms']:.3f} ms host clock ({r['window_us'] / 1e3:.3f} ms in the "
-              f"trace; untraced acc(x) {untraced * 1e3:.3f} ms, median of 7); device busy "
-              f"{r['busy_us'] / 1e3:.4f} ms ({r['device_events']} device events); device "
-              f"idle share {r['idle_share'] * 100:.2f}% (against the untraced acc(x) time: "
-              f"{(1 - r['busy_us'] / 1e3 / (untraced * 1e3)) * 100:.2f}%)", flush=True)
-        print(f"trace: {cfg_name} host split of the window: torch ops "
-              f"{r['torch_ops_us'] / 1e3:.3f} ms, CUDA runtime calls outside them "
-              f"{r['runtime_us'] / 1e3:.3f} ms, no traced op (Python: stage loop, wrapper "
-              f"checks, ctypes) {r['python_us'] / 1e3:.3f} ms", flush=True)
-        print(f"trace: {cfg_name} top-level torch ops on the host: " + ", ".join(
-            f"{name} {us / 1e3:.3f} ms in {n}" for name, (us, n) in r["host_ops"]), flush=True)
-        print(f"trace: {cfg_name} hand-kernel events equal the launch counters: "
-              f"{ {k: v for k, v in r['seen'].items() if v} }", flush=True)
-        for name, (us, n) in r["top"]:
-            print(f"trace: {cfg_name} top device op: {us / 1e3:.4f} ms in {n} events: "
-                  f"{name[:160]}", flush=True)
-        print(f"trace: {cfg_name} {r['n_gaps']} idle gaps; the five longest:", flush=True)
-        for dur, at, host_op, host_us in r["gaps"]:
-            print(f"trace: {cfg_name} gap {dur:.1f} us at +{at:.1f} us: {host_op[:100]} "
-                  f"({host_us:.1f} us of it)", flush=True)
-        print(f"trace: {cfg_name} Chrome trace saved to {os.path.relpath(r['path'], HERE)}",
-              flush=True)
+        report_trace(path_accs[(cfg_name, "standard")], xp.to(dev), f"{cfg_name} standard")
 
     serve_phase(dev, smi)
+    tune_phase(dev, smi, path_accs)
 
     # -------------------------------------------------------- 5. results
     mb = plan.microbatch
@@ -1283,6 +1631,8 @@ def main() -> int:
         dense_ms = sum(timing[(dense, CNV_DENSE_M, n, k)][0] for n, k in cnv_dense)
         print(f"slice: cnv {variant}: kernel time per image (the per-launch medians): "
               f"conv_mvu {conv_ms:.5f} ms, {dense} {dense_ms:.5f} ms", flush=True)
+    print(f"trace: {len(TRACES)} traces in this run, {len(TRACE_RETAKES)} taken again for "
+          f"holding no device event {TRACE_RETAKES}", flush=True)
     print(json.dumps({"kernels": lines}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

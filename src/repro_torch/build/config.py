@@ -67,11 +67,22 @@ class BuildConfig:
         heuristic per-layer defaults, or an explicit sequence of
         :class:`Folding`, one per MVU node in chain order (the paper's
         Table 6 PE/SIMD choices).
-    tune: only ``"off"`` in this slice (the autotuner is later).
-    pack: ``"auto"`` packs the nodes a tuned schedule selected (none
-        until the autotuner is ported), ``"never"`` keeps canonical
-        storage, ``"always"`` packs every packable node
-        (``lowering.packable``).
+    tune: ``"off"``; ``"cache"`` pins the schedules recorded in
+        ``cache`` (no measurement); ``"auto"`` measures the misses on the
+        build's device first (``autotune.tune_graph``), through the hand
+        kernels on the card.  The engine's microbatch tile comes from the
+        cache's ``engine_key`` entry (``autotune.tune_engine``).
+    cache: the :class:`~repro_torch.core.autotune.ScheduleCache` the tune
+        and calibrate steps read and fill (default with tune on:
+        ``autotune.default_cache()``).
+    tune_kwargs: forwarded to ``autotune.tune_graph`` / ``tune_node``
+        (``sample_m``, ``reps``, ``max_measure``, ``margin``, ...);
+        ``"device"`` there is the cache scope, a device-kind string
+        (default: the kind of the build's device).
+    pack: ``"auto"`` packs the nodes whose tuned schedule chose the
+        packed datapath, ``"never"`` keeps canonical storage (and keeps
+        the tuner off the packed datapath), ``"always"`` packs every
+        packable node (``lowering.packable``).
     calibrate_batch / calibrate_reps: batch size and timed repetitions of
         the ``calibrate`` step (``serving`` target): the minimum over the
         repetitions sets the measured seconds per cycle.
@@ -105,7 +116,10 @@ class BuildConfig:
     target_cycles: int | None = None
     max_pe: int = 128
     max_simd: int = 128
+    # autotune
     tune: str = "off"
+    cache: Any = None  # ScheduleCache | None
+    tune_kwargs: dict | None = None
     pack: str = "auto"
     # engine
     microbatches: int | None = None
@@ -142,9 +156,6 @@ class BuildConfig:
         if self.target == "pipeline":
             raise NotImplementedError(
                 "target='pipeline' is a later slice: ROADMAP queue A item 6")
-        if self.tune != "off":
-            raise NotImplementedError(
-                f"tune={self.tune!r}: the autotuner is ROADMAP queue A item 3")
 
     def resolved_device(self) -> torch.device:
         """The device the built design runs on (see the ``device`` field)."""
@@ -157,12 +168,12 @@ class BuildConfig:
         return torch.device("cuda")
 
     def snapshot(self) -> dict:
-        """JSON-safe view of the config for the BuildReport (graph and
-        callables are identified, not serialized)."""
+        """JSON-safe view of the config for the BuildReport (graph, cache
+        and callables are identified, not serialized)."""
         d = {}
         for f in dataclasses.fields(self):
             v = getattr(self, f.name)
-            if f.name == "graph":
+            if f.name in ("graph", "cache"):
                 d[f.name] = None if v is None else type(v).__name__
             elif f.name == "steps":
                 d[f.name] = None if v is None else [

@@ -14,18 +14,20 @@ and order:
     fold            lowering.apply_folding / explicit per-node Foldings
     fuse_epilogues  lowering.fuse_epilogues
     fuse_swu        lowering.fuse_swu
-    tune            (records tune="off"; the autotuner is a later slice)
+    tune            autotune.tune_graph      (cache hits/misses reported)
     pack_weights    lowering.pack_weights
     dataflow        dataflow.schedule -> report tables
     engine          core.engine.FusedEngine on the build's device
     calibrate       serving.calibrate_cycle_time (serving target)
 
 Every step before ``engine`` runs on CPU tensors, so quantized weights and
-folded thresholds never depend on the device.  After every step that
-changed the graph, the verification hook re-runs a probe batch through the
-reference interpreter (``dataflow.execute``, on the CPU) and demands
-bit-exactness with the output captured at the first executable graph; the
-engine, on the build's device, is held to the same output.
+folded thresholds never depend on the device; the ``tune`` step alone
+measures on the build's device (on a copy of the graph there).  After
+every step that changed the graph, the verification hook re-runs a probe
+batch through the reference interpreter (``dataflow.execute``, on the
+CPU) and demands bit-exactness with the output captured at the first
+executable graph; the engine, on the build's device, is held to the same
+output.
 """
 
 from __future__ import annotations
@@ -67,7 +69,7 @@ class BuildState:
     cfg: BuildConfig
     report: BuildReport
     device: torch.device
-    cache: Any = None  # autotune.ScheduleCache once calibrate needs one
+    cache: Any = None  # autotune.ScheduleCache once tune/calibrate need one
     engine: Any = None  # FusedEngine after the "engine" step
     calibration: dict | None = None  # cycle-time entry (serving target)
     tracer: Any = None  # the build-step Tracer when cfg.telemetry is set
@@ -207,15 +209,38 @@ def step_fuse_swu(state: BuildState) -> None:
 
 @register_step("tune")
 def step_tune(state: BuildState) -> None:
-    """Record the tune policy (BuildConfig admits only ``"off"`` here)."""
-    state.report.tune = {"mode": state.cfg.tune}
+    """Pin autotuned schedules; report cache hits and misses.
+
+    The cache scope is ``tune_kwargs["device"]`` or the kind of the
+    build's device, so a CPU build's entries never apply on the card.
+    ``tune="auto"`` measures the misses on the build's device: the graph
+    is copied there for the lookup and search, and the tuned graph back to
+    the CPU.
+    """
+    cfg = state.cfg
+    state.report.tune = {"mode": cfg.tune}
+    if cfg.tune == "off":
+        return
+    # run_pipeline seeds state.cache whenever cfg.tune != "off"
+    kwargs = dict(cfg.tune_kwargs or {})
+    kwargs["device"] = kwargs.get("device") or autotune.device_kind(state.device)
+    keys = autotune.graph_node_keys(state.graph, device=kwargs["device"])
+    hits = sum(1 for key in keys if key in state.cache)
+    tuned = autotune.tune_graph(
+        dataflow.graph_to(state.graph, state.device), cache=state.cache,
+        mode=cfg.tune, allow_packed=cfg.pack != "never", **kwargs)
+    state.graph = dataflow.graph_to(tuned, "cpu")
+    state.report.tune.update(
+        cache_hits=hits, cache_misses=len(keys) - hits,
+        cache_entries=len(state.cache))
+    state.mark_dirty()
 
 
 @register_step("pack_weights")
 def step_pack_weights(state: BuildState) -> None:
     """Bit-packed weight storage rewrite (``lowering.pack_weights``):
-    ``pack="always"`` packs every packable node, ``"auto"`` the nodes whose
-    config asks for it, ``"never"`` none."""
+    ``pack="auto"`` packs exactly the nodes whose tuned schedule chose the
+    packed datapath, ``"always"`` every packable node, ``"never"`` none."""
     if state.cfg.pack == "never":
         return
     state.graph = lowering.pack_weights(state.graph, force=state.cfg.pack == "always")
@@ -243,7 +268,7 @@ def step_dataflow(state: BuildState) -> None:
             pe=fold.pe, simd=fold.simd, n_pixels=px, cycles=res.cycles,
             lut_bytes=res.lut_bytes, ff_bytes=res.ff_bytes,
             bram_bytes=res.bram_bytes, backend=mcfg.backend,
-            tuned=False,  # no tuned tiles before the autotuner (queue A item 3)
+            tuned=mcfg.blocks is not None,
             inputs=list(node.inputs),
             branch=branches.get(node.name, "main"),
             packed=mcfg.packed,
@@ -278,11 +303,20 @@ def _measured_interval(state: BuildState, sched) -> float | None:
 @register_step("engine")
 def step_engine(state: BuildState) -> None:
     """Move the graph's integer params to the build's device and build the
-    fused streaming engine over them."""
+    fused streaming engine over them (the tuned microbatch tile applies
+    through the shared cache)."""
     from repro_torch.core.engine import FusedEngine
 
+    cfg = state.cfg
     state.graph = dataflow.graph_to(state.graph, state.device)
-    state.engine = FusedEngine(state.graph, microbatches=state.cfg.microbatches)
+    # the engine's lookups keep the build's pack policy (a packed entry is
+    # not applied under pack="never", as in the tune step)
+    state.engine = FusedEngine(
+        state.graph, microbatches=cfg.microbatches, tune=cfg.tune,
+        cache=state.cache,
+        tune_kwargs={**(cfg.tune_kwargs or {}), "allow_packed": cfg.pack != "never"})
+    if cfg.tune != "off":
+        state.report.tune["engine_tile"] = state.engine._tile
 
 
 @register_step("calibrate")
@@ -323,7 +357,7 @@ def _localize_divergence(state: BuildState, graph: Graph) -> tuple:
     try:
         ref_env = dataflow.trace(state.ref_graph, state.probe)
         got_env = dataflow.trace(
-            graph, state.probe.to(_graph_device(graph)))
+            graph, state.probe.to(dataflow.graph_device(graph)))
         branches = ir.branch_labels(graph)
     except Exception:
         return "", None, None
@@ -347,13 +381,6 @@ def _localize_divergence(state: BuildState, graph: Graph) -> tuple:
             return (f"; first divergent node: {node.name!r} on branch "
                     f"{br!r}", node.name, br)
     return "", None, None
-
-
-def _graph_device(graph: Graph) -> torch.device:
-    for n in graph:
-        if "mvu" in n.params:
-            return n.params["mvu"].weights.device
-    return torch.device("cpu")
 
 
 def _executable(graph: Graph) -> bool:
@@ -400,7 +427,7 @@ def verify_after(state: BuildState, name: str) -> bool | None:
             verified = True
         else:
             got = dataflow.execute(
-                state.graph, state.probe.to(_graph_device(state.graph)))
+                state.graph, state.probe.to(dataflow.graph_device(state.graph)))
             if not _same(got, state.probe_out):
                 suffix, bad_node, branch = _localize_divergence(state, state.graph)
                 raise VerificationError(
@@ -434,6 +461,10 @@ def run_pipeline(graph: Graph, cfg: BuildConfig) -> BuildState:
                          config=cfg.snapshot())
     state = BuildState(graph=dataflow.graph_to(graph, "cpu"), cfg=cfg,
                        report=report, device=device)
+    if cfg.tune != "off":
+        state.cache = cfg.cache if cfg.cache is not None else autotune.default_cache()
+    elif cfg.cache is not None:
+        state.cache = cfg.cache
     tracer = None
     if cfg.telemetry:
         tracer = Tracer(meta={"build": cfg.name, "target": cfg.target})

@@ -10,7 +10,9 @@ BN + quantized activations between compute layers.
 package's ``configs/cnv_bnn.py``, so both packages start from identical
 float weights.  ``QUICK`` is a channel/image-scaled variant for tests.
 The JAX package's ``cpu|...`` tuned schedules are not carried over: the
-port's come from the autotuner on the card (ROADMAP queue A item 3).
+port's come from its autotuner on the card (``core/autotune.py``), and
+none is committed before the first benchmark measures them (ROADMAP queue
+A item 3, step 1); only per-layer kernel tiles wait for step 3.
 
 ``GOLDEN`` names the file of the JAX package's ``FULL`` outputs on one
 fixed batch of numpy-seeded images, a digest per build variant (made by

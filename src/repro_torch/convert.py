@@ -11,12 +11,14 @@ weights and its kernel/stride/pad, a ``maxpool``'s size, as they come.  For
 a lowered node (``mvu``, ``conv_mvu``), ``params["mvu"]`` is a dict
 of ``weights`` / ``thresholds`` / ``out_scale`` arrays (None where absent)
 and ``attrs["config"]`` a dict of :class:`MVUConfig` fields, ``folding`` as
-``{"pe", "simd"}``.  A tuned kernel tile (``blocks``) must be None: the
-CUDA kernel runs one tile until the autotuner (ROADMAP queue A item 3).
-The JAX package's backend names map to the port's: ``pallas`` -> ``cuda``,
-``xla`` -> ``torch``.  Packed uint32 words arrive as the port's int32 bit
-patterns (see :func:`_tensor`).  Whoever holds the JAX graph makes the
-description (``np.asarray`` on each param); the port never imports JAX.
+``{"pe", "simd"}`` and a tuned schedule (``blocks``) as a dict of
+:class:`KernelBlocks` fields (the CUDA kernels run one compiled tile, so
+only its ``block_m``, the burst, acts; per-layer tiles wait for ROADMAP
+queue A item 3, step 3).  The JAX package's backend names map to the
+port's: ``pallas`` -> ``cuda``, ``xla`` -> ``torch``.  Packed uint32 words
+arrive as the port's int32 bit patterns (see :func:`_tensor`).  Whoever
+holds the JAX graph makes the description (``np.asarray`` on each param);
+the port never imports JAX.
 """
 
 from __future__ import annotations
@@ -26,9 +28,8 @@ import torch
 
 from repro_torch.core.folding import Folding
 from repro_torch.core.ir import Graph, Node
-from repro_torch.core.mvu import MVUConfig, MVUParams
-
-BACKEND_NAMES = {"pallas": "cuda", "xla": "torch", "cuda": "cuda", "torch": "torch"}
+from repro_torch.core.mvu import KernelBlocks, MVUConfig, MVUParams
+from repro_torch.kernels.ops import BACKEND_NAMES
 
 
 def _tensor(a, device):
@@ -47,11 +48,8 @@ def _config(d: dict) -> MVUConfig:
     d = dict(d)
     if d.get("folding") is not None:
         d["folding"] = Folding(**d["folding"])
-    if d.pop("blocks", None) is not None:
-        raise NotImplementedError(
-            "a tuned kernel tile (blocks) cannot be carried across: the CUDA "
-            "kernel is compiled for one tile; per-layer tiles come with the "
-            "autotuner (ROADMAP queue A item 3)")
+    if d.get("blocks") is not None:
+        d["blocks"] = KernelBlocks(**d["blocks"])  # an unknown field raises
     d["backend"] = BACKEND_NAMES[d.get("backend", "cuda")]
     return MVUConfig(**d)
 

@@ -1,32 +1,78 @@
-"""The serving part of the JAX package's ``repro.core.autotune``: cache keys
-and the persistent schedule cache.
+"""The empirical autotuner of the JAX package's ``repro.core.autotune``,
+on the H100: cache keys, the persistent schedule cache, and the tuning
+search over what the hand-written kernels can tell apart.
 
-What serving needs from the autotuner is a place to keep one measurement
--- the realized wall-clock seconds per schedule cycle, recorded by
-``repro_torch.serving.batcher.calibrate_cycle_time`` under
-:func:`cycle_time_key` and read back by ``dataflow.interval_seconds`` --
-plus the seeded synthetic input the serving warm-up and canary use:
+The search, as in the JAX package:
 
-* :func:`device_kind`, :func:`cycle_time_key` -- the keys,
-* :class:`ScheduleCache`, :func:`default_cache` -- the JSON store,
-* :func:`synth_input` -- random integer activations for a graph's input.
+  1. enumerate candidate schedules per MVU / conv-MVU node
+     (:func:`enumerate_candidates`: on the card, the node's own schedule
+     and, for a packable dense node, its packed datapath),
+  2. prune them on the launch plan's dynamic shared memory against the
+     card's ``_cuda.SMEM_BYTES`` (the JAX package's VMEM budget),
+  3. measure them with the paired interleaved timer (:func:`paired_times`,
+     on the card's clock) against the node's own schedule, keeping only
+     bit-exact winners that beat it by ``margin``,
+  4. record winners in a :class:`ScheduleCache` keyed by ``(device kind,
+     op / conv geometry, mode, N, K, epilogue form, n_pixels)``, with a
+     ``|packed`` suffix for packed storage.
 
-The tuning search itself (``Candidate``, ``tune_node``, ``tune_graph``,
-``tune_engine``, ``engine_key``, ``paired_times``) is ROADMAP queue A item
-3 and is not here.  Nor are the JAX package's committed ``TUNED_SCHEDULES``:
-they were measured on another device, so :func:`default_cache` merges only
-the user's cache file, whose keys carry the device kind.
+:func:`tune_graph` pins every node's entry (``tune="cache"`` only looks
+up, ``tune="auto"`` measures misses); :func:`tune_engine` then races the
+engine's microbatch tile on the host's clock and records it under
+:func:`engine_key`.
+
+How the JAX package's search space maps onto the card:
+
+    JAX axis                 on the H100
+    -----------------------  ---------------------------------------------
+    backend="pallas"         backend="cuda": the hand-written kernels
+    backend="xla"            not a candidate: the port's backend="torch" is
+                             the plain reference, and an entry naming it
+                             raises on a node off the CPU (:func:`apply_entry`)
+    block_n / block_k /      recorded in the entry, ignored by the kernels
+    block_kw / rows_per_tile (compiled for one tile, ``_cuda.py``), so not
+                             enumerated: each would time a launch against
+                             itself
+    block_m                  a node candidate carries the node's own: the
+                             microbatch is :func:`tune_engine`'s axis alone
+    packed                   raced on the card's clock: ``mvu_int`` vs
+                             ``mvu_int2_packed``, ``mvu_binary`` vs
+                             ``mvu_binary_packed``; xnor is natively packed
+    VMEM pruning             the packed launch plan's ``smem_bytes``
+
+A candidate runs on the device its node's parameters lie on: on a CUDA
+tensor the kernels launch (or raise), on a CPU tensor their plain
+versions run.  A cache scope (``device=``) is a device-kind string as it
+is (``"cpu"``, ``"nvidia-h100-80gb-hbm3"``), a torch device's kind, or,
+where a graph is at hand and None is given, the kind of the device its
+parameters lie on -- so a CPU build keys ``cpu|...`` and its entries never
+apply on the card.  :func:`default_cache` merges only the user's cache
+file, none of the JAX package's committed ``TUNED_SCHEDULES``: they were
+measured on another device.  :func:`synth_input` gives seeded activations
+for a graph's input (the serving warm-up and canary use it too).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import hashlib
 import json
 import os
+import time
 
 import numpy as np
 import torch
 
-from repro_torch.core.ir import Graph
+from repro_torch.core import ir
+from repro_torch.core.ir import Graph, Node
+from repro_torch.core.lowering import packable
+from repro_torch.core.mvu import KernelBlocks, MVUConfig
+from repro_torch.kernels import ops, packing
+from repro_torch.kernels.ops import BACKEND_NAMES
+from repro_torch.kernels._cuda import SMEM_BYTES
+from repro_torch.kernels.dense_mvu import CODING, dense_launch_plan
+from repro_torch.kernels.mvu_packed import pack_mvu_weights
+from repro_torch.kernels.swu_mvu import conv_launch_plan
 
 CACHE_VERSION = 1
 DEFAULT_CACHE_PATH = os.path.join("experiments", "autotune", "cache.json")
@@ -55,6 +101,78 @@ def device_kind(device=None) -> str:
     return str(kind).strip().lower().replace(" ", "-")
 
 
+def _scope(device) -> str:
+    """A cache scope: a device-kind string as it is ("" included: the
+    device-less scope of :func:`engine_key`'s digest parts), else the kind
+    of a torch device (None: the CUDA device, see :func:`device_kind`)."""
+    return device if isinstance(device, str) else device_kind(device)
+
+
+def _graph_scope(graph: Graph, device) -> str:
+    """The scope of a graph's entries: ``device`` as :func:`_scope` reads
+    it, or, for None, the kind of the device the graph's parameters lie on
+    (a CPU graph keys ``cpu|...``, never the card's)."""
+    if device is None:
+        from repro_torch.core.dataflow import graph_device
+
+        device = graph_device(graph)
+    return _scope(device)
+
+
+def epilogue_form(params) -> str:
+    """``thresh`` / ``scale`` / ``raw`` -- the MVTU epilogue variant."""
+    if params is None:
+        return "raw"
+    if getattr(params, "thresholds", None) is not None:
+        return "thresh"
+    if getattr(params, "out_scale", None) is not None:
+        return "scale"
+    return "raw"
+
+
+def op_tag(node: Node, in_shape: tuple | None = None) -> str:
+    """Distinguish op kind and conv geometry in cache keys: dense nodes are
+    all ``mvu``; conv nodes with the same (mode, N, K, n_pixels) can still
+    differ in kernel / stride / pad and the input image."""
+    if node.op != "conv_mvu":
+        return "mvu"
+    kd, st, pd = node.attrs["kernel"], node.attrs["stride"], node.attrs["pad"]
+    hwc = "x".join(str(d) for d in (in_shape or ()))
+    return f"conv{kd}s{st}p{pd}@{hwc}"
+
+
+def node_key(cfg: MVUConfig, *, epilogue: str = "raw", n_pixels: int = 1,
+             device=None, op: str = "mvu") -> str:
+    """One node's cache key, the JAX package's string.  ``device`` is a
+    scope (see :func:`_scope`); packed storage gets its own key space (the
+    ``|packed`` suffix), so a packed schedule never aliases the canonical
+    one."""
+    key = "|".join([
+        _scope(device), op, cfg.mode, f"n{cfg.out_features}", f"k{cfg.in_features}",
+        epilogue, f"px{n_pixels}",
+    ])
+    return key + "|packed" if cfg.packed else key
+
+
+def _tunable(node: Node) -> bool:
+    return node.op in ("mvu", "conv_mvu") and "mvu" in node.params
+
+
+def _key_of(node: Node, ins, out_shape, device: str) -> str:
+    return node_key(node.attrs["config"], epilogue=epilogue_form(node.params["mvu"]),
+                    n_pixels=ir.n_pixels(out_shape), device=device,
+                    op=op_tag(node, ins[0] if ins else None))
+
+
+def graph_node_keys(graph: Graph, *, device=None) -> list[str]:
+    """The cache keys :func:`tune_graph` looks up, one per finalized
+    ``mvu`` / ``conv_mvu`` node, in dataflow order (the build's cache-hit
+    accounting reads them)."""
+    scope = _graph_scope(graph, device)
+    return [_key_of(node, ins, out_shape, scope)
+            for node, ins, out_shape in ir.io_shapes(graph) if _tunable(node)]
+
+
 def cycle_time_key(device=None) -> str:
     """Cache key for the measured wall-clock seconds per schedule cycle.
 
@@ -65,9 +183,21 @@ def cycle_time_key(device=None) -> str:
     ``dataflow.interval_seconds`` to turn the steady-state interval into
     the serving batcher's flush time budget.
     """
-    if not isinstance(device, str):
-        device = device_kind(device)
-    return f"cycletime|{device}"
+    return f"cycletime|{_scope(device)}"
+
+
+def engine_key(graph: Graph, *, device=None) -> str:
+    """Cache key for the engine-level (microbatch) entry of one graph.
+
+    The digest is made of device-less node keys, so the same graph gets
+    the JAX package's digest on every host; only the ``engine|<scope>|``
+    prefix scopes the entry.  Take it on the engine's graph
+    (``FusedEngine.graph``, after the fusions), as the JAX package does.
+    """
+    parts = [_key_of(node, ins, out_shape, "")
+             for node, ins, out_shape in ir.io_shapes(graph) if _tunable(node)]
+    digest = hashlib.sha1("~".join(parts).encode()).hexdigest()[:12]
+    return f"engine|{_graph_scope(graph, device)}|{digest}"
 
 
 # -------------------------------------------------------------------- cache
@@ -135,6 +265,382 @@ def default_cache() -> ScheduleCache:
     return cache
 
 
+# --------------------------------------------------------------- candidates
+@dataclasses.dataclass(frozen=True)
+class Candidate:
+    backend: str
+    blocks: KernelBlocks
+    predicted_cycles: int
+    smem_bytes: int  # the launch plan's dynamic shared memory a block
+    packed: bool = False  # bit-packed weight storage + packed kernel
+
+    def entry(self, **extra) -> dict:
+        out = {
+            "backend": self.backend,
+            **dataclasses.asdict(self.blocks),
+            "predicted_cycles": int(self.predicted_cycles),
+            **extra,
+        }
+        if self.packed:  # unpacked entries stay byte-identical to the JAX package's
+            out["packed"] = True
+        return out
+
+
+def _heuristic_blocks(cfg: MVUConfig) -> KernelBlocks:
+    """The node's own schedule, its burst (``cfg.block_m``) pinned."""
+    return KernelBlocks.from_blocks({**cfg.kernel_blocks(), "block_m": cfg.block_m})
+
+
+def natively_packed(cfg: MVUConfig, backend: str) -> bool:
+    """Whether this (coding, backend) kernel already IS the packed datapath:
+    the xnor kernel takes packed words for both operands (paper Fig. 4a)."""
+    return cfg.mode == "xnor" and backend == "cuda"
+
+
+def _dense_smem_bytes(cfg: MVUConfig, packed: bool) -> int:
+    """Dynamic shared memory of the launch a dense candidate makes: the
+    plan of its kernel (``ops.kernel_name``) at one burst of ``block_m``
+    samples, K in the kernel's unit (words for packed xnor)."""
+    coding = CODING[ops.kernel_name(cfg.mode, packed)]
+    k = cfg.in_features
+    units = packing.num_words(k) if coding == "words" else k
+    return dense_launch_plan(cfg.block_m, cfg.out_features, units, coding).smem_bytes
+
+
+def enumerate_candidates(
+    cfg: MVUConfig,
+    *,
+    n_pixels: int = 1,
+    in_shape: tuple | None = None,
+    conv: dict | None = None,
+    smem_bytes: int = SMEM_BYTES,
+    max_measure: int = 8,
+) -> list[Candidate]:
+    """One node's candidates on the card, every one ``backend="cuda"`` at
+    the node's own schedule and ``block_m``: the challengers first, then
+    the node's own schedule (the incumbent, never pruned).
+
+    The one challenger is the packed datapath of a packable dense node
+    that is not xnor (natively packed), dropped when its launch plan needs
+    more than ``smem_bytes`` of shared memory; ``max_measure`` caps the
+    challengers.  The JAX package's tile axes
+    (``folding.block_candidates``) are not enumerated: the kernels ignore
+    them (see the module doc), so each would time a launch against itself.
+    """
+    n, k = cfg.out_features, cfg.in_features
+    own_blocks = _heuristic_blocks(cfg)
+    cycles = cfg.resolved_folding().cycles(n, k, n_pixels)
+    if conv is not None:
+        h, w, c = in_shape
+        smem = conv_launch_plan(1, h, w, c, n, conv["kernel"], conv["stride"],
+                                conv["pad"]).smem_bytes
+        return [Candidate("cuda", own_blocks, cycles, smem)]
+    challengers = []
+    if packable(cfg) and cfg.mode != "xnor":
+        twin = Candidate("cuda", own_blocks, cycles, _dense_smem_bytes(cfg, True), packed=True)
+        if twin.smem_bytes <= smem_bytes:
+            challengers.append(twin)
+    own = Candidate("cuda", own_blocks, cycles, _dense_smem_bytes(cfg, False),
+                    packed=natively_packed(cfg, "cuda"))
+    return challengers[:max_measure] + [own]
+
+
+# -------------------------------------------------------------------- timer
+def _wait(out):
+    """Block until ``out`` is computed: a CUDA tensor synchronises its card."""
+    if isinstance(out, torch.Tensor) and out.is_cuda:
+        torch.cuda.synchronize(out.device)
+    return out
+
+
+# cycles of the spin kernel that holds the card while the host enqueues a
+# device-clocked side (~2 ms at the H100's clocks); doubled while it falls
+# short of the host's enqueue
+SPIN_CYCLES = 1 << 22
+
+
+def _device_seconds(fn, args, device: torch.device) -> float:
+    """One call of ``fn`` timed on the card alone: CUDA events around its
+    launches, recorded behind a spin kernel that keeps the card busy while
+    the host enqueues them, so the host's launch overhead and its noise
+    stay out of the time.  Where the host's enqueue outlasts the spin (the
+    card then waited on the host inside the events), the spin doubles and
+    the call is timed again."""
+    spin = SPIN_CYCLES
+    with torch.cuda.device(device):
+        for _ in range(8):
+            e_spin, e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+            e_spin.record()
+            torch.cuda._sleep(spin)
+            t0 = time.perf_counter()
+            e0.record()
+            fn(*args)
+            e1.record()
+            host_s = time.perf_counter() - t0
+            e1.synchronize()
+            if host_s * 1e3 < e_spin.elapsed_time(e0):
+                return e0.elapsed_time(e1) / 1e3
+            spin *= 2
+    raise RuntimeError(f"a {spin // 2}-cycle spin did not cover the host's enqueue "
+                       f"of {fn!r}")
+
+
+def _cuda_device(args) -> torch.device | None:
+    """The CUDA device of the first CUDA tensor among ``args``, else None."""
+    return next((a.device for a in args if isinstance(a, torch.Tensor) and a.is_cuda), None)
+
+
+def paired_times(fn_a, fn_b, *args, reps: int = 3, warmup: int = 1, clock: str = "wall"):
+    """Paired interleaved A/B timer: ``(t_a, t_b, speedup_of_b_over_a)``.
+
+    Each rep times both callables back to back, so slowdowns of the shared
+    host hit both sides of the ratio; the speedup is the median of per-rep
+    ratios and the times are the per-side minima (the JAX package's
+    estimator).  ``clock="wall"`` times each side on the host's clock to
+    its last result on the card (``torch.cuda.synchronize``): what a
+    caller waits, the engine tile's measure.  ``clock="device"`` times each
+    side on the card alone (:func:`_device_seconds`), leaving out the
+    host's launch overhead, which is the same on both sides of a node's
+    race; on CPU tensors it is the wall clock.  The warm-up calls absorb
+    the first build and load of a kernel library.
+    """
+    if clock not in ("wall", "device"):
+        raise ValueError(f"clock must be 'wall' or 'device', got {clock!r}")
+    device = _cuda_device(args) if clock == "device" else None
+    for _ in range(warmup):
+        _wait(fn_a(*args))
+        _wait(fn_b(*args))
+
+    def timed(fn):
+        if device is not None:
+            return _device_seconds(fn, args, device)
+        t0 = time.perf_counter()
+        _wait(fn(*args))
+        return time.perf_counter() - t0
+
+    tas, tbs, ratios = [], [], []
+    for _ in range(reps):
+        ta = timed(fn_a)
+        tb = timed(fn_b)
+        tas.append(ta)
+        tbs.append(tb)
+        ratios.append(ta / tb)
+    return float(np.min(tas)), float(np.min(tbs)), float(np.median(ratios))
+
+
+# the name tune_node / tune_engine resolve (and tests stub) at call time
+paired_timer = paired_times
+
+
+# -------------------------------------------------------------- measurement
+def _synth_activations(cfg: MVUConfig, m: int, in_shape: tuple | None,
+                       conv: dict | None, device, seed: int = 0) -> torch.Tensor:
+    """Seeded activations for one node's candidates, on ``device``: one
+    image for a conv node (the engine's heuristic conv microbatch), else
+    ``m`` rows (packed words for xnor)."""
+    rng = np.random.default_rng(seed)
+    if conv is not None:
+        h, w, c = in_shape
+        hi = 2 if cfg.mode == "xnor" else 2**cfg.act_bits
+        x = rng.integers(0, hi, (1, h, w, c))
+    elif cfg.mode == "xnor":
+        x = rng.integers(0, 2, (m, cfg.in_features))
+    else:
+        x = rng.integers(-8, 8, (m, cfg.in_features))
+    x = torch.as_tensor(x, dtype=torch.int32, device=device)
+    return packing.pack_bits(x) if conv is None and cfg.mode == "xnor" else x
+
+
+def _node_fn(cfg: MVUConfig, params, cand: Candidate, conv: dict | None):
+    """The candidate's launch on the node's parameters, as ``fn(x)``."""
+    blocks = cand.blocks.as_kwargs(cfg.mode, cand.packed)
+    if conv is not None:
+        def fn(x):
+            return ops.conv_mvu(
+                x, params.weights, kernel=conv["kernel"], stride=conv["stride"],
+                pad=conv["pad"], mode=cfg.mode,
+                k_bits=cfg.in_features if cfg.mode == "xnor" else None,
+                thresholds=params.thresholds, out_scale=params.out_scale,
+                backend=cand.backend, **blocks)
+        return fn
+
+    if cand.packed:
+        # pack once outside the timed fn: at run time the packed storage is
+        # what lives on the card (the pack_weights build step)
+        w_packed = (params.weights if cfg.packed
+                    else pack_mvu_weights(params.weights, cfg.mode))
+
+        def fn(x):
+            return ops.mvu(
+                x, w_packed, cfg.mode, k_bits=cfg.in_features,
+                thresholds=params.thresholds, out_scale=params.out_scale,
+                backend=cand.backend, packed=True, **blocks)
+        return fn
+
+    def fn(x):
+        return ops.mvu(
+            x, params.weights, cfg.mode,
+            k_bits=cfg.in_features if cfg.mode == "xnor" else None,
+            thresholds=params.thresholds, out_scale=params.out_scale,
+            backend=cand.backend, **blocks)
+    return fn
+
+
+def tune_node(
+    node: Node,
+    in_shape: tuple | None = None,
+    *,
+    smem_bytes: int = SMEM_BYTES,
+    sample_m: int = 256,
+    reps: int = 3,
+    max_measure: int = 8,
+    margin: float = 0.05,
+    timer=None,
+    seed: int = 0,
+    allow_packed: bool = True,
+) -> dict:
+    """Measure the pruned shortlist for one finalized mvu / conv_mvu node,
+    on the device its parameters lie on; returns the winning cache entry.
+
+    A candidate whose output is not bit-exact with the node's own schedule
+    is discarded, and a challenger must beat the incumbent by ``margin``.
+    Candidates are timed on the card's clock (``clock="device"``): the
+    kernels differ there, while the host's launch path is the same.  A
+    candidate the launch cannot tell apart from the incumbent is not
+    timed.  No candidate's build or launch is guarded: a kernel that fails
+    to build or launch fails the tune.
+    """
+    timer = timer if timer is not None else paired_timer
+    cfg: MVUConfig = node.attrs["config"]
+    params = node.params["mvu"]
+    conv = None
+    n_pixels = 1
+    if node.op == "conv_mvu":
+        conv = {k: node.attrs[k] for k in ("kernel", "stride", "pad")}
+        n_pixels = ir.n_pixels(ir.propagate(node, in_shape))
+    cands = enumerate_candidates(cfg, n_pixels=n_pixels, in_shape=in_shape, conv=conv,
+                                 smem_bytes=smem_bytes, max_measure=max_measure)
+
+    x = _synth_activations(cfg, sample_m, in_shape, conv, params.weights.device, seed=seed)
+    base_cycles = cfg.resolved_folding().cycles(cfg.out_features, cfg.in_features, n_pixels)
+    base = Candidate(cfg.backend, _heuristic_blocks(cfg), base_cycles, 0,
+                     packed=cfg.packed or natively_packed(cfg, cfg.backend))
+    base_fn = _node_fn(cfg, params, base, conv)
+    want = _wait(base_fn(x))
+
+    def effective(c: Candidate) -> tuple:
+        """What the launch consumes: the kernel (backend and storage); the
+        conv kernel has one storage form."""
+        return (c.backend,) if conv is not None else (c.backend, c.packed)
+
+    best, best_speed = base, 1.0
+    measured = 0
+    seen_eff = {effective(base)}
+    for cand in cands:
+        if cfg.packed and not cand.packed:
+            continue  # packed storage cannot feed the canonical kernels
+        if cand.packed and not allow_packed and cfg.mode != "xnor":
+            continue  # pack="never": the storage rewrite is excluded by policy
+        if effective(cand) in seen_eff:
+            continue
+        seen_eff.add(effective(cand))
+        fn = _node_fn(cfg, params, cand, conv)
+        got = _wait(fn(x))
+        if got.dtype != want.dtype or not torch.equal(got, want):
+            continue  # never accept a schedule that changes the numbers
+        _, _, speedup = timer(base_fn, fn, x, reps=reps, clock="device")
+        measured += 1
+        if speedup > best_speed * (1.0 + margin):
+            best, best_speed = cand, speedup
+    return best.entry(
+        speedup=float(best_speed),
+        measured_candidates=measured,
+        epilogue=epilogue_form(params),
+        n_pixels=int(n_pixels),
+    )
+
+
+def apply_entry(cfg: MVUConfig, entry: dict, *, device=None) -> MVUConfig:
+    """Pin a cache entry's schedule onto an MVUConfig.  The JAX package's
+    backend names map to the port's; ``"packed": true`` selects the packed
+    datapath, whose storage the ``pack_weights`` build step rewrites.
+
+    ``device`` is where the node's parameters lie: off the CPU an entry
+    whose backend is not ``cuda`` (``xla`` or ``torch``, the plain
+    reference) raises, so that a cache never moves a node of a card's
+    graph off the hand kernels unseen.
+    """
+    if "backend" in entry and device is not None and torch.device(device).type != "cpu" \
+            and BACKEND_NAMES[entry["backend"]] != "cuda":
+        raise ValueError(
+            f"cache entry backend {entry['backend']!r} would run the plain reference on "
+            f"{device}; a node on the card takes only backend 'cuda' (or 'pallas') entries")
+    blocks = KernelBlocks.from_blocks(entry)
+    return MVUConfig(**{
+        **cfg.__dict__,
+        "backend": BACKEND_NAMES[entry.get("backend", cfg.backend)],
+        "packed": bool(entry.get("packed", cfg.packed)),
+        "blocks": blocks,
+        "block_m": blocks.block_m,
+    })
+
+
+def tune_graph(
+    graph: Graph,
+    *,
+    cache: ScheduleCache | None = None,
+    mode: str = "cache",
+    device=None,
+    timer=None,
+    smem_bytes: int = SMEM_BYTES,
+    allow_packed: bool = True,
+    **tune_kwargs,
+) -> Graph:
+    """Pin every finalized mvu / conv_mvu node's schedule from the cache.
+
+    ``mode="cache"`` is a pure lookup: hits rewrite the node's config,
+    misses keep its schedule, nothing is measured.  ``mode="auto"``
+    measures misses with :func:`tune_node` (on the device the graph's
+    parameters lie on) and fills the cache.  ``device`` is the cache scope
+    (see the module doc; None: the graph's device).  Returns a new graph;
+    the caller's keeps its configs.
+    """
+    if mode not in ("cache", "auto"):
+        raise ValueError(f"tune mode must be 'cache' or 'auto', got {mode!r}")
+    cache = cache if cache is not None else default_cache()
+    scope = _graph_scope(graph, device)
+    out = Graph()
+    for node, ins, out_shape in ir.io_shapes(graph):
+        if not _tunable(node):
+            out.append(node)
+            continue
+        cfg: MVUConfig = node.attrs["config"]
+        if cfg.packed and cfg.blocks is not None:
+            # already pinned to a packed schedule (apply_entry ran): its
+            # |packed key would re-measure on every later pass
+            out.append(node)
+            continue
+        key = _key_of(node, ins, out_shape, scope)
+        entry = cache.get(key)
+        if (entry is not None and entry.get("packed")
+                and not allow_packed and cfg.mode != "xnor"):
+            # pack="never": a packed winner would need the forbidden storage
+            # rewrite (xnor storage is words either way)
+            entry = None
+        elif entry is None and mode == "auto":
+            entry = tune_node(node, ins[0] if ins else None, timer=timer,
+                              smem_bytes=smem_bytes, allow_packed=allow_packed,
+                              **tune_kwargs)
+            cache.put(key, entry)
+        if entry is None:
+            out.append(node)
+            continue
+        cfg = apply_entry(cfg, entry, device=node.params["mvu"].weights.device)
+        out.append(Node(node.op, node.name, {**node.attrs, "config": cfg},
+                        node.params, inputs=node.inputs))
+    return out
+
+
 # ------------------------------------------------------------ engine level
 def synth_input(graph: Graph, batch: int, seed: int = 0, *,
                 device=None) -> torch.Tensor:
@@ -151,3 +657,60 @@ def synth_input(graph: Graph, batch: int, seed: int = 0, *,
     rng = np.random.default_rng(seed)
     x = torch.as_tensor(rng.integers(0, 2**bits, (batch, *shape)), dtype=torch.int32)
     return x if device is None else x.to(device)
+
+
+def tune_engine(
+    graph: Graph,
+    batch: int,
+    *,
+    cache: ScheduleCache,
+    device=None,
+    tiles: tuple[int, ...] | None = None,
+    reps: int = 5,
+    margin: float = 0.1,
+    timer=None,
+    seed: int = 0,
+) -> dict:
+    """Race the engine's microbatch tile (FINN's FIFO-depth analog) on the
+    device the graph's parameters lie on.
+
+    Builds cache-tuned engines over the candidate tiles (default: the
+    heuristic tile h and 2h, 4h, 8h and the whole batch), holds each to
+    the heuristic plan's output bit for bit, times each against it with
+    the paired timer and records the winner under :func:`engine_key` of
+    the engine's graph.  The node entries must already be in ``cache``;
+    a prior engine entry there is ignored, so the speedup is always
+    against the heuristic plan.  A challenger must beat the incumbent by
+    ``margin``.
+    """
+    from repro_torch.core.engine import FusedEngine
+
+    timer = timer if timer is not None else paired_timer
+    node_cache = ScheduleCache({k: v for k, v in cache.entries.items()
+                                if not k.startswith("engine|")})
+    base = FusedEngine(graph, tune="cache", cache=node_cache,
+                       tune_kwargs=None if device is None else {"device": device})
+    heur_tile = base.plan(batch).microbatch
+    if tiles is None:
+        tiles = tuple(sorted({heur_tile, heur_tile * 2, heur_tile * 4,
+                              heur_tile * 8, batch}))
+    x = synth_input(graph, batch, seed=seed, device=base.device)
+    want = _wait(base(x))
+
+    best_tile, best_speed = heur_tile, 1.0
+    for tile in tiles:
+        if tile == heur_tile or tile < 1:
+            continue
+        cand = FusedEngine(graph, tune="cache", cache=node_cache,
+                           tune_kwargs=None if device is None else {"device": device})
+        cand._tile = int(tile)
+        got = _wait(cand(x))
+        if got.dtype != want.dtype or not torch.equal(got, want):
+            continue
+        _, _, speedup = timer(base, cand, x, reps=reps)
+        if speedup > best_speed * (1.0 + margin):
+            best_tile, best_speed = int(tile), speedup
+    entry = {"microbatch": int(best_tile), "speedup": float(best_speed),
+             "batch": int(batch)}
+    cache.put(engine_key(base.graph, device=device), entry)
+    return entry

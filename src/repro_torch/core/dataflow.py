@@ -277,6 +277,15 @@ def graph_to(graph: Graph, device) -> Graph:
                  for n in ir.as_graph(graph))
 
 
+def graph_device(graph: Graph) -> torch.device:
+    """The device the graph's integer parameters lie on (the first MVU
+    node's weights); the CPU for a graph without one."""
+    for n in graph:
+        if "mvu" in n.params:
+            return n.params["mvu"].weights.device
+    return torch.device("cpu")
+
+
 def trace(graph: Graph, x) -> dict[str, torch.Tensor]:
     """Run the graph eagerly and return EVERY node's output, keyed by name.
 

@@ -20,7 +20,8 @@ runtime analog of the paper's dataflow build:
                                              interval`` sizes the microbatch plan
 
 One microbatch is the bottleneck stage's burst (``MVUConfig.block_m``
-samples), so every stage's kernel sees M = one burst per launch.  The
+samples), so every stage's kernel sees M = one burst per launch, unless
+a tuned engine entry (``autotune.tune_engine``) sets the tile.  The
 engine is an ``nn.Module``: each stage's tensors are registered buffers,
 so ``engine.to(device)`` moves them all.
 """
@@ -108,16 +109,40 @@ def _params_device(params, default: torch.device) -> torch.device:
 class FusedEngine(nn.Module):
     """A lowered :class:`~repro_torch.core.ir.Graph` as a microbatch-streaming
     stage chain, bit-exact with ``dataflow.execute`` on the unfused graph
-    (both apply nodes through ``dataflow.node_runner``)."""
+    (both apply nodes through ``dataflow.node_runner``).
+
+    ``tune="cache"`` pins the schedules of ``cache`` (default
+    ``autotune.default_cache()``) onto the fused graph's nodes and takes
+    the engine's microbatch tile from its ``engine_key`` entry;
+    ``tune="auto"`` first measures the node entries it misses
+    (``autotune.tune_graph``, ``tune_kwargs`` forwarded, ``"device"`` the
+    cache scope)."""
+
+    TUNE_MODES = ("off", "cache", "auto")
 
     def __init__(self, graph: Graph, *, fuse: bool = True,
-                 microbatches: int | None = None, tune: str = "off"):
+                 microbatches: int | None = None, tune: str = "off",
+                 cache=None, tune_kwargs: dict | None = None):
         super().__init__()
-        if tune != "off":
-            raise NotImplementedError(
-                f"tune={tune!r}: the autotuner is ROADMAP queue A item 3")
+        if tune not in self.TUNE_MODES:
+            raise ValueError(f"tune must be one of {self.TUNE_MODES}, got {tune!r}")
         g = lowering.fuse_epilogues(graph) if fuse else ir.as_graph(graph)
         self.graph = lowering.fuse_swu(g) if fuse else g
+        self._tile: int | None = None
+        if tune != "off":
+            # tune="cache" only looks up (no timer runs); tune="auto"
+            # measures misses on the graph's device and records them
+            from repro_torch.core import autotune
+
+            cache = cache if cache is not None else autotune.default_cache()
+            self.graph = autotune.tune_graph(self.graph, cache=cache, mode=tune,
+                                             **(tune_kwargs or {}))
+            # the engine entry, keyed on the fused graph, lives in the node
+            # entries' scope: a scope override applies to both lookups
+            ent = cache.get(autotune.engine_key(
+                self.graph, device=(tune_kwargs or {}).get("device")))
+            if ent is not None:
+                self._tile = max(1, int(ent["microbatch"]))
         self.schedule = dataflow.schedule(self.graph)
         # stage order is the dataflow (topological) order
         order = ir.toposort(self.graph)
@@ -150,7 +175,9 @@ class FusedEngine(nn.Module):
             interval = s.steady_state_interval if s.stages else 0
             return StreamPlan(1, max(batch, 1), interval, 0)
         fifo_bound = max(2, min(st.fifo_depth for st in s.stages))
-        tile = min(max(1, st.block_m // st.n_pixels) for st in s.stages)
+        # an engine-level autotune entry (autotune.tune_engine) overrides
+        # the heuristic tile; microbatches= overrides both
+        tile = self._tile or min(max(1, st.block_m // st.n_pixels) for st in s.stages)
         n_micro = max(1, min(math.ceil(batch / tile), batch))
         if self._microbatches is not None:
             n_micro = max(1, min(self._microbatches, batch))

@@ -24,6 +24,8 @@ import dataclasses
 import math
 from typing import Sequence
 
+from repro_torch.kernels.packing import WORD_BITS
+
 
 @dataclasses.dataclass(frozen=True)
 class Folding:
@@ -128,8 +130,57 @@ def to_gpu_blocks() -> dict[str, int]:
     words for the xnor kernel's packed entry, which stages them as they
     are; the packed kernels stage a step's weights in their packed form).
     The folding keeps describing the FPGA schedule (cycles, memory depths).
-    Tile choice per layer is the autotuner's job (ROADMAP queue A item 3).
+    The autotuner races the packed datapath and the engine's microbatch;
+    per-layer kernel tiles wait for ROADMAP queue A item 3, step 3.
     """
     from repro_torch.kernels._cuda import BLOCK_K, BLOCK_M, BLOCK_N
 
     return {"block_m": BLOCK_M, "block_n": BLOCK_N, "block_k": BLOCK_K}
+
+
+def block_candidates(
+    n: int,
+    k: int,
+    mode: str,
+    *,
+    block_ms: Sequence[int] = (32, 128, 256),
+    max_block: int = 512,
+    packed: bool = False,
+) -> list[dict[str, int]]:
+    """Enumerate the JAX package's legal tile schedules for an (N, K) layer.
+
+    The same set as the JAX package's ``folding.block_candidates``: the
+    layer's folding divisors clamped to block_n / block_k >= 8, plus the
+    full-tile defaults; ``block_kw`` (xnor and the packed binary datapath)
+    over divisors of the packed word count; packed 2-bit block_k held to
+    whole bytes.  Unique dicts; ordering and pruning are the caller's job
+    (``repro_torch.core.autotune``, which records these fields in an entry
+    and times only what the launch can tell apart).
+    """
+    bns = sorted({max(8, d) for d in divisors(n)} | {128})
+    bns = [b for b in bns if b <= max(max_block, 8)]
+    out: list[dict[str, int]] = []
+    if mode == "xnor" or (packed and mode == "binary"):
+        n_words = -(-k // WORD_BITS)
+        bkws = sorted({d for d in divisors(n_words)} | {min(8, n_words)})
+        for bm in block_ms:
+            for bn in bns:
+                for bkw in bkws:
+                    out.append({"block_m": bm, "block_n": bn, "block_kw": bkw})
+    else:
+        bks = sorted({max(8, d) for d in divisors(k)} | {128, min(512, max(8, k))})
+        bks = [b for b in bks if b <= max(max_block, 8)]
+        if packed:  # 2-bit lane storage: whole bytes per K step
+            bks = sorted({-(-b // 4) * 4 for b in bks})
+        for bm in block_ms:
+            for bn in bns:
+                for bk in bks:
+                    out.append({"block_m": bm, "block_n": bn, "block_k": bk})
+    seen: set[tuple] = set()
+    uniq = []
+    for c in out:
+        key = tuple(sorted(c.items()))
+        if key not in seen:
+            seen.add(key)
+            uniq.append(c)
+    return uniq

@@ -5,6 +5,7 @@
     fuse_epilogues: same fold for finalized graphs (the runtime engine path)
     fuse_swu:       [swu, mvu] -> conv_mvu (line-buffer fused conv kernel)
     apply_folding:  attach rate-balanced Folding to every mvu node
+    apply_schedules: pin autotuned schedules (``core/autotune.py``)
     pack_weights:   bit-packed weight storage (forced, or where a node asks)
 
 All passes are DAG-aware: patterns match along explicit dataflow edges
@@ -297,11 +298,24 @@ def apply_folding(graph: Graph, *, target_cycles: int | None = None,
     return graph
 
 
+def apply_schedules(graph: Graph, *, cache=None, mode: str = "cache",
+                    device=None) -> Graph:
+    """Empirical-schedule pass: the autotuned counterpart of
+    :func:`apply_folding`.  Rewrites every finalized mvu / conv_mvu node's
+    config with the schedule recorded in the autotune cache
+    (``autotune.tune_graph``): ``mode="cache"`` only looks up, ``"auto"``
+    measures misses and fills the cache.  Returns a new graph."""
+    from repro_torch.core import autotune
+
+    return autotune.tune_graph(graph, cache=cache, mode=mode, device=device)
+
+
 def packable(cfg: MVUConfig) -> bool:
     """Whether the packed datapath exists for this config's weight coding:
     all 1-bit codings pack into 32-bit bitplanes; standard weights pack into
     2-bit lanes only when they fit signed 2 bits.  (The JAX package keeps
-    this in its autotuner, ``core/autotune.py:271``.)"""
+    this in its autotuner, ``core/autotune.py:271``; the port's autotuner
+    imports it from here.)"""
     return cfg.mode in ("xnor", "binary") or cfg.weight_bits <= 2
 
 
@@ -309,8 +323,8 @@ def pack_weights(graph: Graph, *, force: bool = False) -> Graph:
     """Packing rewrite: store MVU weights in their bit-packed form.
 
     Rewrites every finalized dense ``mvu`` node whose config selects the
-    packed datapath (``cfg.packed``, pinned by tuned schedules once the
-    autotuner is ported), or every :func:`packable` one when ``force`` is
+    packed datapath (``cfg.packed``, pinned by a tuned schedule entry
+    carrying ``"packed": true``), or every :func:`packable` one when ``force`` is
     set (the build's ``pack="always"``).  Storage converts per coding:
     binary {0,1} int8 rows -> int32 bitplanes (8x smaller), standard signed
     2-bit rows -> uint8 lanes (4x), xnor rows are already words (storage

@@ -12,7 +12,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.core.folding import Folding, choose_folding
+from repro_torch.core.folding import Folding, choose_folding, to_gpu_blocks
 from repro_torch.core.quantize import QTensor, int_bounds, quantize_weights
 from repro_torch.core.resource_model import MVUResources, mvu_resources
 from repro_torch.core.thresholds import integerize_thresholds
@@ -32,6 +32,48 @@ def coded_weights(mode: str, values: torch.Tensor) -> torch.Tensor:
 
 
 @dataclasses.dataclass(frozen=True)
+class KernelBlocks:
+    """An explicit tile schedule for one MVU instance, in the JAX package's
+    fields.
+
+    The autotuner (``repro_torch.core.autotune``) pins a tuned entry's
+    schedule here.  On the card only ``block_m`` acts: it is the node's
+    burst (``MVUConfig.block_m``, the engine's microbatch).  The CUDA
+    kernels are compiled for one tile (``folding.to_gpu_blocks``), so
+    ``block_n`` / ``block_k`` / ``block_kw`` / ``rows_per_tile`` are
+    recorded and ignored.  Hashable so tuned configs stay usable as set
+    and dict members like untuned ones.
+    """
+
+    block_m: int = 128
+    block_n: int = 128
+    block_k: int = 128
+    block_kw: int = 8  # packed-word K step (xnor and packed binary)
+    rows_per_tile: int | None = None  # conv line-buffer rows per grid step
+
+    def as_kwargs(self, mode: str, packed: bool = False) -> dict[str, int]:
+        """The tile kwargs the kernel entry points take (the dense path
+        ignores ``rows_per_tile``, the conv path the K blocks; both accept
+        the full set).  The packed binary datapath steps K in 32-bit words
+        like xnor, so it takes ``block_kw``."""
+        if mode == "xnor" or (packed and mode == "binary"):
+            out = {"block_m": self.block_m, "block_n": self.block_n,
+                   "block_kw": self.block_kw}
+        else:
+            out = {"block_m": self.block_m, "block_n": self.block_n,
+                   "block_k": self.block_k}
+        if self.rows_per_tile is not None:
+            out["rows_per_tile"] = self.rows_per_tile
+        return out
+
+    @classmethod
+    def from_blocks(cls, blocks: dict) -> "KernelBlocks":
+        known = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: int(v) for k, v in blocks.items()
+                      if k in known and v is not None})
+
+
+@dataclasses.dataclass(frozen=True)
 class MVUConfig:
     in_features: int  # K = Kd^2 * I_c
     out_features: int  # N = O_c
@@ -42,6 +84,7 @@ class MVUConfig:
     backend: str = "cuda"
     packed: bool = False  # bit-packed weight storage + packed datapath
     block_m: int = 128  # samples per stream burst (the engine's microbatch)
+    blocks: KernelBlocks | None = None  # explicit (tuned) schedule wins
 
     def resolved_folding(self) -> Folding:
         if self.folding is not None:
@@ -50,6 +93,16 @@ class MVUConfig:
             self.folding.validate(self.out_features, self.in_features)
             return self.folding
         return choose_folding(self.out_features, self.in_features)
+
+    def kernel_blocks(self) -> dict[str, int]:
+        """The schedule's tile kwargs: the tuned ``blocks`` where pinned,
+        else the node's burst and the tile the kernels are compiled for
+        (``folding.to_gpu_blocks``).  The untuned path resolves the
+        folding, so an illegal explicit folding raises here too."""
+        if self.blocks is not None:
+            return self.blocks.as_kwargs(self.mode, self.packed)
+        self.resolved_folding()
+        return {**to_gpu_blocks(), "block_m": self.block_m}
 
 
 @dataclasses.dataclass

@@ -37,8 +37,8 @@ import threading
 import torch
 
 # The output tile and K step of the kernels' tiled arrangements (the dense
-# core's TILE, conv_mvu's 32 x 32 tile); per-layer tiles come with the
-# autotuner (ROADMAP queue A item 3).
+# core's TILE, conv_mvu's 32 x 32 tile); only per-layer tiles wait for
+# ROADMAP queue A item 3, step 3 (the autotuner records and ignores them).
 BLOCK_M = 32
 BLOCK_N = 32
 BLOCK_K = 32  # synapses per K step (32-bit words for packed xnor operands)

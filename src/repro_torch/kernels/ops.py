@@ -22,8 +22,10 @@ Packed words are int32 bit patterns (``kernels/packing.py``).  The JAX
 package's tile kwargs (``block_m``/``block_n``/``block_k``/``block_kw``)
 are accepted for a like signature and ignored: the CUDA kernels are
 compiled for one tile (``conv_mvu`` and the five kernels on the dense
-core pick their arrangement and K splits from the shape), and tuned
-per-layer tiles come with the autotuner (ROADMAP queue A item 3).
+core pick their arrangement and K splits from the shape).  The autotuner
+(``core/autotune.py``) races the packed datapath and the engine's
+microbatch; only per-layer kernel tiles wait for ROADMAP queue A item 3,
+step 3.
 """
 
 from __future__ import annotations
@@ -34,6 +36,9 @@ from repro_torch.kernels import mvu_binary, mvu_int, mvu_packed, mvu_xnor, packi
 
 MODES = ("xnor", "binary", "standard")
 BACKENDS = ("cuda", "torch")
+# the JAX package's backend names -> the port's (a carried graph or a cache
+# entry may carry either)
+BACKEND_NAMES = {"pallas": "cuda", "xla": "torch", "cuda": "cuda", "torch": "torch"}
 
 # every hand kernel: name -> (its wrapper's module, that module's launch counter)
 KERNELS = {

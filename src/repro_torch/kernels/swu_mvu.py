@@ -74,9 +74,9 @@ LAUNCHES = 0
 
 def conv_rows_per_tile(oh: int, ow: int, block_m: int) -> int:
     """Output rows per tile of the JAX kernel's grid: ~block_m pixels, as in
-    the JAX package.  The CUDA kernel tiles pixels, not rows, and the port
-    has no autotuner yet, so nothing in the port calls it (ROADMAP queue A
-    item 3)."""
+    the JAX package.  The CUDA kernel tiles pixels, not rows: the autotuner
+    records it in a conv entry (``rows_per_tile``) and the launch ignores
+    it; only per-layer tiles wait for ROADMAP queue A item 3, step 3."""
     return max(1, min(oh, -(-block_m // ow)))
 
 

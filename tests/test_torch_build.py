@@ -15,12 +15,14 @@ import torch
 
 from repro.build import build as jbuild
 from repro.configs import nid_mlp as jnid
+from repro.core import autotune as jautotune
 from repro.data import nid
 from repro_torch import convert
 from repro_torch.build import BuildError, VerificationError, build as tbuild
 from repro_torch.configs import nid_mlp as tnid
 from repro_torch.core import dataflow as tdf
 from repro_torch.core.engine import FusedEngine
+from repro_torch.core.mvu import KernelBlocks
 from repro_torch.kernels import mvu_int as K
 
 BATCHES = ["nid512", 1, 3, 257]
@@ -123,13 +125,47 @@ def test_graphs_carried_across_give_the_same_output(accs):
 
 
 def test_convert_rejects_a_tuned_kernel_tile(accs):
+    """A tuned tile carries across as a KernelBlocks; one with a field the
+    port does not know is rejected."""
     jacc, _ = accs
     nodes = _plain_nodes(jacc.graph)
     convert.graph_from_numpy(nodes)  # blocks=None carries across
     mvu = next(n for n in nodes if n["op"] == "mvu")
     mvu["attrs"]["config"]["blocks"] = {"block_m": 8, "block_n": 128, "block_k": 128}
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
+    fused = convert.graph_from_numpy(nodes)
+    assert fused[1].attrs["config"].blocks == KernelBlocks(block_m=8, block_n=128,
+                                                           block_k=128)
+    mvu["attrs"]["config"]["blocks"]["block_q"] = 4
+    with pytest.raises(TypeError, match="block_q"):
         convert.graph_from_numpy(nodes)
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["unpacked", "packed"])
+def test_tuned_jax_graph_carried_across_gives_the_same_output(accs, packed):
+    """A JAX build whose nodes carry tuned schedules (``tune="cache"`` from
+    hand-written entries: other bursts, the packed datapath on fc0 where
+    the weights pack) converts through ``graph_from_numpy``; the port's
+    engine over it plans and computes as the JAX engine does."""
+    jacc0, _ = accs
+    wb = jacc0.config.weight_bits
+    keys = list(dict.fromkeys(jautotune.graph_node_keys(jacc0.graph)))  # fc1, fc2: one key
+    entries = {key: {"backend": "pallas", "block_m": bm, "block_n": 16, "block_k": 32,
+                     "block_kw": 8}
+               for key, bm in zip(keys, (64, 32, 256))}
+    if packed and wb == 2:
+        entries[keys[0]]["packed"] = True
+    jacc = jbuild(jnid.build_graph(0), folding=jnid.foldings(), target="engine",
+                  mode="standard", weight_bits=wb, act_bits=2, tune="cache",
+                  cache=jautotune.ScheduleCache(entries))
+    fused = convert.graph_from_numpy(_plain_nodes(jacc.graph), device="cpu")
+    cfgs = [n.attrs["config"] for n in fused if n.op == "mvu"]
+    assert [c.blocks.block_m for c in cfgs] == [64, 32, 32, 256]
+    assert [c.packed for c in cfgs] == [packed and wb == 2, False, False, False]
+    engine = FusedEngine(fused)
+    for b in (1, 100, 512):
+        assert dataclasses.astuple(engine.plan(b)) == dataclasses.astuple(jacc.plan(b))
+    x = _x("nid512")
+    _same(engine(torch.from_numpy(x)), jacc(x))
 
 
 def test_report_json_only_with_output_dir(tmp_path):

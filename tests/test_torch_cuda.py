@@ -12,7 +12,7 @@ import torch
 import torch_random_dag  # tests/ is on sys.path under pytest
 from repro_torch.build import build
 from repro_torch.configs import cnv_bnn, golden as golden_mod, nid_mlp, residual_mlp
-from repro_torch.core import dataflow
+from repro_torch.core import autotune, dataflow
 from repro_torch.core.autotune import ScheduleCache, cycle_time_key, device_kind
 from repro_torch.core.engine import FusedEngine
 from repro_torch.data import nid
@@ -204,6 +204,20 @@ def test_conv_kernel_plans_at_32_images(cuda, h, c, n, mode):
     want = swu_mvu.conv_mvu_plain(x, w, t, kernel=3, mode=mode)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("mode", ["standard", "binary", "xnor"])
+@pytest.mark.parametrize("h,c,n", CNV_CONVS)
+def test_conv_kernel_at_the_tile_race_images(cuda, h, c, n, mode):
+    """Every image count the CNV's tile race can choose at 256 (2, 4, 8 and
+    the whole batch), all three epilogues."""
+    for b in (2, 4, 8, 256):
+        x, w, t, s = _conv_operands(mode, b, h, h, c, n, 3, cuda, seed=h * 3 + c + b)
+        for kw in ({}, {"thresholds": t}, {"out_scale": s}):
+            got = swu_mvu.conv_mvu(x, w, kernel=3, mode=mode, **kw)
+            want = swu_mvu.conv_mvu_plain(x, w, kernel=3, mode=mode, **kw)
+            torch.cuda.synchronize()
+            assert got.dtype == want.dtype and torch.equal(got, want)
 
 
 def _misaligned(t):
@@ -472,6 +486,77 @@ def test_random_dags_on_the_card(cuda, mode, bits):
 
 
 # ------------------------------------------------------------------ serving
+def _plan_launches(acc, batch):
+    """The launches of one ``acc(x)`` at ``batch`` under its (tuned) plan:
+    each node's kernel once a microbatch."""
+    n_micro = acc.plan(batch).n_micro
+    want = dict.fromkeys(ops.KERNELS, 0)
+    for node in acc.engine.graph:
+        if node.op in ("mvu", "conv_mvu"):
+            cfg = node.attrs["config"]
+            kernel = ("conv_mvu" if node.op == "conv_mvu"
+                      else ops.kernel_name(cfg.mode, cfg.packed))
+            want[kernel] += n_micro
+    return want
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_nid_tuned_on_the_card(cuda, variant, tmp_path, monkeypatch):
+    """tune="auto" on the card: every candidate launch is a hand kernel
+    (``backend="cuda"``), the entries are keyed by the card's kind, the
+    tuned build equals the untuned one; tune_engine records a tile, and a
+    tune="cache" rebuild measures nothing and launches its plan's kernels."""
+    monkeypatch.setenv(autotune.CACHE_PATH_ENV, str(tmp_path / "cache.json"))
+    golden = nid_mlp.load_golden()[variant]
+    kw = dict(folding=nid_mlp.foldings(), **golden["build"])
+    backends = []
+    for name in ("mvu", "conv_mvu"):
+        fn = getattr(ops, name)
+        monkeypatch.setattr(ops, name, lambda *a, _fn=fn, **k: backends.append(
+            k["backend"]) or _fn(*a, **k))
+    cache = ScheduleCache()
+    ops.reset_launch_counts()
+    acc = build(nid_mlp.build_graph(golden["seed"]), tune="auto", cache=cache, **kw)
+    assert set(backends) == {"cuda"} and sum(ops.launch_counts().values()) > 0
+    assert all(k.startswith(device_kind(cuda) + "|") for k in cache.entries)
+    x = torch.from_numpy(nid.make_dataset(golden["batch"], seed=golden["data_seed"])[0])
+    plain = build(nid_mlp.build_graph(golden["seed"]), **kw)
+    want = plain(x)
+    assert torch.equal(acc(x), want)
+    entry = autotune.tune_engine(acc.graph, golden["batch"], cache=cache)
+    assert entry["microbatch"] >= 1
+    monkeypatch.setattr(autotune, "paired_timer", None)  # a timer call would raise
+    again = build(nid_mlp.build_graph(golden["seed"]), tune="cache", cache=cache, **kw)
+    assert again.report.tune["cache_misses"] == 0
+    assert again.report.tune["engine_tile"] == entry["microbatch"]
+    ops.reset_launch_counts()
+    y = again(x)
+    assert ops.launch_counts() == _plan_launches(again, golden["batch"])
+    assert y.is_cuda and torch.equal(y, want)
+
+
+def test_plain_reference_entry_raises_on_the_card(cuda):
+    """A card-scoped cache entry naming the JAX package's ``xla`` backend
+    (the plain reference here) raises in a tune="cache" build on the card
+    instead of moving the node off its hand kernel."""
+    golden = nid_mlp.load_golden()["standard"]
+    kw = dict(folding=nid_mlp.foldings(), **golden["build"])
+    plain = build(nid_mlp.build_graph(golden["seed"]), **kw)
+    key = autotune.graph_node_keys(plain.graph, device=device_kind(cuda))[0]
+    cache = ScheduleCache({key: {"backend": "xla", "block_m": 128, "block_n": 8,
+                                 "block_k": 8, "block_kw": 8}})
+    with pytest.raises(ValueError, match="plain reference"):
+        build(nid_mlp.build_graph(golden["seed"]), tune="cache", cache=cache, **kw)
+
+
+def test_device_clock_times_the_card_alone(cuda):
+    """The node race's clock: a spin of twice the cycles takes twice the
+    card's time, whatever the host's launch path costs around it."""
+    short, long = (autotune._device_seconds(torch.cuda._sleep, (c,), cuda)
+                   for c in (1 << 20, 1 << 21))
+    assert 1.8 < long / short < 2.2
+
+
 def _nid_standard(target):
     golden = nid_mlp.load_golden()["standard"]
     acc = build(nid_mlp.build_graph(golden["seed"]), target=target,

@@ -8,6 +8,9 @@
 * ``build()`` without a device raises when CUDA is absent.
 * What belongs to a later slice raises NotImplementedError; what an
   earlier one refused and a later one ported runs.
+* The autotuner's candidates run the hand kernels (``backend="cuda"``),
+  never the plain reference, and no ``try`` guards a candidate's build or
+  launch.
 """
 
 import ast
@@ -21,7 +24,7 @@ import torch
 
 from repro_torch.build import BuildError, build
 from repro_torch.configs import nid_mlp
-from repro_torch.core import engine, lowering
+from repro_torch.core import autotune, engine, lowering
 from repro_torch.core.ir import Graph, Node
 from repro_torch.core.mvu import MVUConfig, MVULayer
 from repro_torch.kernels import mvu_int as K, ops
@@ -101,34 +104,48 @@ def _conv_graph():
     ])
 
 
-@pytest.mark.parametrize("what", [
-    "tune_cache", "target_pipeline", "engine_as_pipeline", "engine_tune"])
+@pytest.mark.parametrize("what", ["target_pipeline", "engine_as_pipeline"])
 def test_later_slices_raise_not_implemented(what):
     g = nid_mlp.build_graph(0)
-    overrides = {"tune_cache": {"tune": "cache"}, "target_pipeline": {"target": "pipeline"}}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if what in overrides:
-            build(g, device="cpu", **overrides[what])
-        elif what == "engine_tune":
-            engine.FusedEngine(g, tune="cache")
+        if what == "target_pipeline":
+            build(g, device="cpu", target="pipeline")
         else:
             acc = build(g, weight_bits=2, act_bits=2, device="cpu")
-            getattr(acc, what.split("_", 1)[1])()
+            acc.as_pipeline()
 
 
 @pytest.mark.parametrize("what", ["mode_binary", "mode_xnor", "pack_always",
                                   "ops_packed", "ops_xnor", "layer_xnor", "conv_node",
                                   "engine_profile", "target_serving", "acc_serve",
-                                  "drift_monitor_engine", "drift_monitor_serving"])
-def test_binarized_and_packed_paths_run(what):
+                                  "drift_monitor_engine", "drift_monitor_serving",
+                                  "tune_cache", "engine_tune"])
+def test_binarized_and_packed_paths_run(what, tmp_path, monkeypatch):
     """What the later-slices test refused before the binarized, packed and
-    conv kernels, the telemetry and serving were ported now runs (on the
-    CPU: the kernels' plain versions); ``drift_monitor`` still refuses a
-    build that did not calibrate."""
+    conv kernels, the telemetry, serving and the autotuner were ported now
+    runs (on the CPU: the kernels' plain versions); ``drift_monitor`` still
+    refuses a build that did not calibrate."""
     g = nid_mlp.build_graph(0)
     x = torch.randint(0, 4, (5, 600), dtype=torch.int32)
     a = torch.randint(0, 4, (2, 8), dtype=torch.int32)
-    if what == "conv_node":
+    if what in ("tune_cache", "engine_tune"):
+        # a tuned CPU build runs: tune="auto" fills the cache, tune="cache"
+        # (the build, or an engine over its graph) replays it unmeasured
+        monkeypatch.setenv(autotune.CACHE_PATH_ENV, str(tmp_path / "cache.json"))
+        cache = autotune.ScheduleCache()
+        kw = dict(weight_bits=2, act_bits=2, device="cpu")
+        tuned = build(g, tune="auto", cache=cache, tune_kwargs={"reps": 1, "sample_m": 8}, **kw)
+        assert len(cache) == 3 and torch.equal(tuned(x), tuned.interpret(x))
+        monkeypatch.setattr(autotune, "paired_timer", None)  # a timer call would raise
+        if what == "tune_cache":
+            acc = build(g, tune="cache", cache=cache, **kw)
+            assert acc.report.tune["cache_hits"] == 4 and all(n.tuned for n in acc.report.nodes)
+            assert torch.equal(acc(x), tuned(x))
+        else:
+            eng = engine.FusedEngine(tuned.graph, tune="cache", cache=cache)
+            assert all(n.attrs["config"].blocks is not None for n in eng.graph if n.op == "mvu")
+            assert torch.equal(eng(x), tuned(x))
+    elif what == "conv_node":
         lowered = lowering.lower_to_mvu(_conv_graph())
         assert [n.op for n in lowered] == ["input", "swu", "mvu"]
         acc = build(_conv_graph(), weight_bits=2, act_bits=2, device="cpu")
@@ -187,3 +204,45 @@ def test_init_params_and_device_moves():
     assert q.weights.device.type == "meta" and q.thresholds is None
     x = torch.randint(0, 4, (3, 5, 64), dtype=torch.int32)
     assert tuple(layer(p, x).shape) == (3, 5, 8)
+
+
+def test_no_candidate_runs_the_plain_reference(monkeypatch):
+    """Every candidate the search enumerates, and every launch it makes, is
+    ``backend="cuda"``: on a card that is the hand kernel (a CUDA tensor
+    launches it or raises), never the plain reference of ``backend="torch"``.
+    Here the launches take the CPU's plain versions of the same wrappers."""
+    from repro_torch.configs import cnv_bnn
+
+    for cfg, conv, shape in [
+            (MVUConfig(600, 64, weight_bits=2), None, None),
+            (MVUConfig(64, 1, mode="binary"), None, None),
+            (MVUConfig(96, 24, mode="xnor"), None, None),
+            (MVUConfig(27, 8), {"kernel": 3, "stride": 1, "pad": 0}, (8, 8, 3))]:
+        cands = autotune.enumerate_candidates(cfg, in_shape=shape, conv=conv)
+        assert cands and {c.backend for c in cands} == {"cuda"}
+    backends = []
+    for name in ("mvu", "conv_mvu"):
+        fn = getattr(ops, name)
+        monkeypatch.setattr(ops, name, lambda *a, _fn=fn, **kw: backends.append(
+            kw["backend"]) or _fn(*a, **kw))
+    timed = []
+    timer = (lambda fa, fb, *a, **kw: timed.append(1) or (1.0, 0.5, 2.0))
+    for mode, bits in (("standard", 2), ("binary", 2), ("xnor", 1)):
+        acc = build(nid_mlp.build_graph(0), weight_bits=bits, act_bits=bits, mode=mode,
+                    device="cpu")
+        autotune.tune_graph(acc.graph, cache=autotune.ScheduleCache(), mode="auto",
+                            timer=timer, sample_m=8, reps=1)
+    spec = cnv_bnn.spec_for({"act_bits": 2, "weight_bits": 2}, cnv_bnn.QUICK)
+    acc = build(cnv_bnn.build_graph(spec, seed=0), weight_bits=2, act_bits=2, device="cpu")
+    autotune.tune_graph(acc.graph, cache=autotune.ScheduleCache(), mode="auto",
+                        timer=timer, sample_m=8, reps=1)
+    assert timed and backends and set(backends) == {"cuda"}
+
+
+def test_no_try_guards_a_candidate():
+    """A kernel that fails to build or launch fails the tune: the search
+    module holds no ``try`` at all."""
+    path = os.path.join(PORT, "core", "autotune.py")
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    assert not [n.lineno for n in ast.walk(tree) if isinstance(n, ast.Try)]
