@@ -678,10 +678,12 @@ def tune_engine(
     heuristic tile h and 2h, 4h, 8h and the whole batch), holds each to
     the heuristic plan's output bit for bit, times each against it with
     the paired timer and records the winner under :func:`engine_key` of
-    the engine's graph.  The node entries must already be in ``cache``;
-    a prior engine entry there is ignored, so the speedup is always
-    against the heuristic plan.  A challenger must beat the incumbent by
-    ``margin``.
+    the engine's graph.  Each engine's first call (the bit-exactness
+    check) captures its CUDA graph on the card, so the timer races
+    replays, as the JAX tuner races jitted programs.  The node entries
+    must already be in ``cache``; a prior engine entry there is ignored,
+    so the speedup is always against the heuristic plan.  A challenger
+    must beat the incumbent by ``margin``.
     """
     from repro_torch.core.engine import FusedEngine
 

@@ -24,12 +24,21 @@ samples), so every stage's kernel sees M = one burst per launch, unless
 a tuned engine entry (``autotune.tune_engine``) sets the tile.  The
 engine is an ``nn.Module``: each stage's tensors are registered buffers,
 so ``engine.to(device)`` moves them all.
+
+On a CUDA device the whole microbatch stream is one compiled program,
+the counterpart of the JAX engine's ``jax.jit(self._stream)``: the first
+``dispatch`` of a key runs the stream eagerly (building and loading the
+kernels, as jit's trace does) and captures it as a CUDA graph, and every
+later call of that key replays the graph (:class:`_GraphCache`).  A CPU
+engine runs the stream eagerly on the kernels' plain versions.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
+from typing import Callable
 
 import torch
 from torch import nn
@@ -37,6 +46,7 @@ from torch import nn
 from repro_torch.core import dataflow, ir, lowering
 from repro_torch.core.ir import Graph
 from repro_torch.core.mvu import MVUParams
+from repro_torch.kernels import ops
 from repro_torch.kernels._common import pad_to
 
 
@@ -95,15 +105,151 @@ def resolve_device(d) -> torch.device:
     return d
 
 
-def _params_device(params, default: torch.device) -> torch.device:
-    """The one device a list of stage parameters lives on (``default`` when
-    it holds no tensor); parameters on several devices raise."""
-    devices = {t.device for p in params for t in _tensors(p)}
-    if len(devices) > 1:
-        raise ValueError(
-            f"stage parameters lie on several devices {sorted(map(str, devices))}; "
-            "a replica's parameters must all be on one device")
-    return devices.pop() if devices else default
+class StageParams(tuple):
+    """The stage parameters a chain runs with (MVUParams, a dict of tensors,
+    or None per stage), with what a dispatch reads of them computed once:
+    :attr:`device` and :attr:`addresses` (the graph key's part).  A tuple,
+    so the stages cannot be swapped under the cached values."""
+
+    @functools.cached_property
+    def addresses(self) -> tuple[int, ...]:
+        """The address of every tensor, in stage order."""
+        return tuple(t.data_ptr() for p in self for t in _tensors(p))
+
+    @functools.cached_property
+    def device(self) -> torch.device | None:
+        """The one device the tensors live on (None when there is no
+        tensor); tensors on several devices raise."""
+        devices = {t.device for p in self for t in _tensors(p)}
+        if len(devices) > 1:
+            raise ValueError(
+                f"stage parameters lie on several devices {sorted(map(str, devices))}; "
+                "a replica's parameters must all be on one device")
+        return devices.pop() if devices else None
+
+
+def _current_stream_id(device: torch.device) -> int:
+    # torch.cuda.current_stream(device).stream_id, without building the
+    # Stream object (a replay's host cost)
+    return torch._C._cuda_getCurrentStream(device.index)[0]
+
+
+def capture_cuda_graph(fn, x: torch.Tensor, pool, stream: torch.cuda.Stream):
+    """``fn(x)`` captured on ``stream`` as a CUDA graph in the memory pool
+    ``pool``; returns ``(replay, out)``: ``replay()`` reruns the captured
+    work on the current stream, rewriting the static output ``out``.
+    Captures that share a pool reuse each other's freed blocks only when
+    they also share the capture stream (the caching allocator keeps a
+    freed block for its stream)."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, pool=pool, stream=stream):
+        out = fn(x)
+    return graph.replay, out
+
+
+@dataclasses.dataclass(frozen=True)
+class _Home:
+    """What the graphs of one CUDA device share."""
+
+    pool: tuple  # their memory pool (torch.cuda.graph_pool_handle())
+    capture: torch.cuda.Stream  # the stream every capture runs on
+    replay: int  # the stream id every replay goes to
+
+
+@dataclasses.dataclass
+class _Graph:
+    replay: Callable[[], object]
+    x: torch.Tensor  # the static input every replay reads
+    out: torch.Tensor  # the static output every replay rewrites
+    launches: dict[str, int]  # kernel name -> its launches in one replay
+    stream: int | None  # the stream id every replay goes to; None off CUDA
+    params: StageParams  # the captured parameters, kept alive: the graph reads their addresses
+
+
+class _GraphCache:
+    """One engine's compiled executables: a captured stream per key.
+
+    The key (:meth:`key`) is what a replay bakes in: the device, the
+    input's shape and dtype, ``n_micro`` and the address of every
+    parameter tensor, so a replica's ``params_on`` copy or a retuned tile
+    gets a graph of its own.  :meth:`run` on a new key runs the stream
+    eagerly, which is that call's result (it builds and loads the kernel
+    libraries and modules and caches the launch plans, so none of that
+    happens while the stream captures), then captures it with
+    ``capture(fn, static_x, pool, stream) -> (replay, static_out)``.  A
+    later call copies its input into the static input, replays, and
+    returns a clone of the static output: batches in flight never share
+    an output.  A failed capture or replay raises; nothing reruns it
+    eagerly.
+
+    The graphs of one device share one memory pool and one capture
+    stream, so a capture reuses the blocks earlier captures freed: the
+    pool holds the largest graph's intermediates, not their sum, and a
+    key adds its static input and output.  They all replay on one stream,
+    the caller's current stream at the device's first capture, so no two
+    replays overlap and each replay's output is cloned before the next
+    starts; a replay from another stream raises.  A replay makes no
+    wrapper call, so the launch counters the capture added are taken back
+    and every replay adds them again.
+    """
+
+    def __init__(self, capture=None):
+        self._capture = capture if capture is not None else capture_cuda_graph
+        self._graphs: dict = {}
+        self._homes: dict[torch.device, _Home] = {}
+
+    def __len__(self) -> int:
+        return len(self._graphs)
+
+    @staticmethod
+    def applies(device: torch.device) -> bool:
+        """Whether a stream on ``device`` is captured: on CUDA only."""
+        return device.type == "cuda"
+
+    @staticmethod
+    def key(params: StageParams, x: torch.Tensor, n_micro: int) -> tuple:
+        """What a replay of the stream over ``params`` on ``x`` bakes in."""
+        return (x.device, tuple(x.shape), x.dtype, n_micro, params.addresses)
+
+    def run(self, fn, params: StageParams, x: torch.Tensor, n_micro: int) -> torch.Tensor:
+        """``fn(x)``, the stream over ``params`` in ``n_micro`` microbatches,
+        through the graph of its key (captured on the key's first call)."""
+        key = self.key(params, x, n_micro)
+        g = self._graphs.get(key)
+        if g is None:
+            out = fn(x)
+            self._graphs[key] = self._record(fn, params, x)
+            return out
+        if g.stream is not None and _current_stream_id(x.device) != g.stream:
+            raise RuntimeError(
+                f"the engine's graphs on {x.device} replay on stream {g.stream}, the caller's "
+                f"stream at their first capture; this call is on stream "
+                f"{_current_stream_id(x.device)}")
+        g.x.copy_(x)
+        g.replay()
+        ops.add_launch_counts(g.launches)
+        return g.out.clone()
+
+    def _record(self, fn, params: StageParams, x: torch.Tensor) -> _Graph:
+        home = None
+        if x.device.type == "cuda":
+            if x.device not in self._homes:
+                self._homes[x.device] = _Home(torch.cuda.graph_pool_handle(),
+                                              torch.cuda.Stream(x.device),
+                                              _current_stream_id(x.device))
+            home = self._homes[x.device]
+        static_x = x.clone()
+        before = ops.launch_counts()
+        if home is None:
+            replay, out = self._capture(fn, static_x, None, None)
+        else:
+            with torch.cuda.device(x.device):
+                replay, out = self._capture(fn, static_x, home.pool, home.capture)
+        launches = {k: n - before[k] for k, n in ops.launch_counts().items()
+                    if n != before[k]}
+        ops.add_launch_counts({k: -n for k, n in launches.items()})
+        return _Graph(replay, static_x, out, launches,
+                      None if home is None else home.replay, params)
 
 
 class FusedEngine(nn.Module):
@@ -153,6 +299,12 @@ class FusedEngine(nn.Module):
         self._in_names = tuple(n.inputs for n in order)
         self._out_name = ir.graph_output(self.graph).name
         self._microbatches = microbatches
+        self._graphs = _GraphCache()
+        self._own: StageParams | None = None  # self.params, built on first use
+
+    def _apply(self, fn, *args, **kwargs):
+        self._own = None  # the buffers move (.to(), .cuda(), ...): rebuild the params
+        return super()._apply(fn, *args, **kwargs)
 
     @property
     def device(self) -> torch.device:
@@ -205,20 +357,34 @@ class FusedEngine(nn.Module):
         ys = [self._chain(params, xs[i * mb:(i + 1) * mb]) for i in range(n_micro)]
         return torch.cat(ys)[:b]
 
-    @property
-    def params(self) -> list:
-        """The stage parameters the chain runs with (MVUParams, a dict of
-        tensors, or None per stage), resident on the engine's device."""
-        return [sp.value() for sp in self.stage_params]
+    def _run(self, params, x, n_micro: int):
+        if not self._graphs.applies(x.device):
+            return self._stream(params, x, n_micro)
+        return self._graphs.run(lambda xs: self._stream(params, xs, n_micro),
+                                params, x, n_micro)
 
-    def params_on(self, device) -> list:
+    @property
+    def captured_graphs(self) -> int:
+        """How many CUDA graphs this engine has captured (one a key)."""
+        return len(self._graphs)
+
+    @property
+    def params(self) -> StageParams:
+        """The stage parameters the chain runs with (MVUParams, a dict of
+        tensors, or None per stage), resident on the engine's device: one
+        shared :class:`StageParams`, built once (again after ``.to()``)."""
+        if self._own is None:
+            self._own = StageParams(sp.value() for sp in self.stage_params)
+        return self._own
+
+    def params_on(self, device) -> StageParams:
         """The stage parameters on ``device``: the engine's own on its own
         device, else a ``.to(device)`` copy of each stage's tensors (a
         serving replica's resident copy)."""
         device = resolve_device(device)
         if device == self.device:
             return self.params
-        return [_params_to(p, device) for p in self.params]
+        return StageParams(_params_to(p, device) for p in self.params)
 
     def dispatch(self, x, *, params=None, tracer=None) -> tuple[torch.Tensor, StreamPlan]:
         """Non-blocking submit: enqueue one batch, return the output tensor
@@ -226,8 +392,15 @@ class FusedEngine(nn.Module):
 
         ``params`` overrides the engine's resident parameters with a
         replica's copy (``repro_torch.serving.pool`` places them per device,
-        see :meth:`params_on`); ``x`` is moved to the device the parameters
-        live on, and parameters spread over several devices raise.
+        see :meth:`params_on`; a :class:`StageParams` is read once, any
+        other sequence on every call); ``x`` is moved to the device the
+        parameters live on, and parameters spread over several devices
+        raise.
+
+        On a CUDA device the first call of a key (device, ``x``'s shape and
+        dtype, ``n_micro``, the parameters' addresses) runs the stream
+        eagerly and captures it; later calls replay the captured graph
+        (:class:`_GraphCache`).  A CPU engine runs the stream eagerly.
 
         ``tracer`` (a :class:`repro_torch.telemetry.Tracer`) records the
         host-side enqueue as an ``engine.dispatch`` span -- on the card its
@@ -235,19 +408,18 @@ class FusedEngine(nn.Module):
         synchronise); per-node spans come from :meth:`profile`.
         """
         if params is None:
-            params, device = self.params, self.device
-        else:
-            params = list(params)
-            device = _params_device(params, self.device)
-        x = torch.as_tensor(x, device=device).contiguous()
+            params = self.params
+        elif not isinstance(params, StageParams):
+            params = StageParams(params)
+        x = torch.as_tensor(x, device=params.device or self.device).contiguous()
         plan = self.plan(int(x.shape[0]))
         if tracer is None:
-            return self._stream(params, x, plan.n_micro), plan
+            return self._run(params, x, plan.n_micro), plan
         with tracer.span("engine.dispatch", cat="engine",
                          batch=int(x.shape[0]), n_micro=plan.n_micro,
                          microbatch=plan.microbatch,
                          interval_cycles=plan.interval_cycles):
-            out = self._stream(params, x, plan.n_micro)
+            out = self._run(params, x, plan.n_micro)
         return out, plan
 
     def forward(self, x) -> torch.Tensor:
@@ -257,7 +429,8 @@ class FusedEngine(nn.Module):
         """Instrumented run: per-node, per-microbatch duration spans.
 
         Re-runs the SAME node runners (``dataflow.node_runner``) as
-        :meth:`dispatch`, microbatch by microbatch, and on a CUDA engine
+        :meth:`dispatch`, microbatch by microbatch and eagerly (never a
+        captured graph), and on a CUDA engine
         synchronises the card after each node, so a node's span covers its
         host dispatch and its device work.  Every op is per-sample, so the
         output is bit-exact with :meth:`dispatch`; only the timing differs

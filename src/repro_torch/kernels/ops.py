@@ -72,6 +72,15 @@ def reset_launch_counts() -> None:
         setattr(mod, attr, 0)
 
 
+def add_launch_counts(counts: dict[str, int]) -> None:
+    """Add ``counts`` (kernel name -> launches) to the launch counters: a
+    replayed CUDA graph's launches, which no wrapper sees
+    (``core/engine.py``)."""
+    for name, n in counts.items():
+        mod, attr = KERNELS[name]
+        setattr(mod, attr, getattr(mod, attr) + n)
+
+
 def mvu_layer_fn(mode: str = "standard", *, backend: str = "cuda", **blocks):
     """Stage callable for the streaming executors: ``fn(params, x) -> y``.
 

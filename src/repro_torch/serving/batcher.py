@@ -125,7 +125,8 @@ def calibrate_cycle_time(engine, *, batch: int = 128, reps: int = 3,
     of ``device`` (default: the engine's device) so
     ``dataflow.interval_seconds`` (and every batcher built afterwards) uses
     the measurement instead of the nominal clock.  On a CUDA engine the
-    warm-up call and each timed call end in ``torch.cuda.synchronize``.
+    warm-up call and each timed call end in ``torch.cuda.synchronize``; the
+    warm-up captures the batch's graph, so the timed calls are replays.
     """
     from repro_torch.core import autotune
 
@@ -137,7 +138,7 @@ def calibrate_cycle_time(engine, *, batch: int = 128, reps: int = 3,
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
-    run()  # first-use kernel builds and plan lookups outside the timed region
+    run()  # first-use kernel builds, plan lookups and the capture outside the timed region
     ts = []
     for _ in range(max(1, reps)):
         t0 = time.perf_counter()

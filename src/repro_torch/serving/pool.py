@@ -392,8 +392,10 @@ class ReplicaPool:
     def warmup(self, batch_sizes) -> None:
         """Run the bucket shape grid through the real dispatch path once per
         (bucket, replica), synchronised, at startup: the kernels' first-use
-        build and each launch plan's first lookup land here, never inside
-        the serving loop.
+        build, each launch plan's first lookup and, on a CUDA engine, the
+        capture of each bucket's graph (one per bucket and resident
+        parameter copy, as the JAX pool compiles one program per bucket and
+        replica) land here, never inside the serving loop.
         """
         from repro_torch.core import autotune
 

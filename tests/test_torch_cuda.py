@@ -12,7 +12,7 @@ import torch
 import torch_random_dag  # tests/ is on sys.path under pytest
 from repro_torch.build import build
 from repro_torch.configs import cnv_bnn, golden as golden_mod, nid_mlp, residual_mlp
-from repro_torch.core import autotune, dataflow
+from repro_torch.core import autotune, dataflow, engine as engine_mod
 from repro_torch.core.autotune import ScheduleCache, cycle_time_key, device_kind
 from repro_torch.core.engine import FusedEngine
 from repro_torch.data import nid
@@ -626,3 +626,138 @@ def test_nid_served_on_the_card(cuda):
     assert c["completed"] == len(x) and c["shed"] == 0
     # every batch of at most 128 flows is one microbatch: 4 launches
     assert launched == {k: 4 * c["flushes"] if k == "mvu_int" else 0 for k in ops.KERNELS}
+
+
+# ------------------------------------------------------------ CUDA graphs
+def _replay_case(config, cuda):
+    if config == "cnv_quick":
+        kw = {"mode": "standard", "weight_bits": 2, "act_bits": 2}
+        acc = build(cnv_bnn.build_graph(cnv_bnn.spec_for(kw, cnv_bnn.QUICK), seed=0), **kw)
+        xs = [cnv_bnn.images(24, 2, seed, image=cnv_bnn.QUICK.image) for seed in (0, 1)]
+    else:
+        golden = nid_mlp.load_golden()[config]
+        acc = build(nid_mlp.build_graph(golden["seed"]), folding=nid_mlp.foldings(),
+                    **golden["build"])
+        xs = [nid.make_dataset(1000, seed=seed)[0] for seed in (1, 2)]
+    return acc, [torch.from_numpy(x).to(cuda) for x in xs]
+
+
+@pytest.mark.parametrize("config", [*VARIANTS, "cnv_quick"])
+def test_replay_equals_eager_on_the_card(cuda, config):
+    """A key's first call runs the stream eagerly and captures it; later
+    calls replay: equal to the eager stream bit for bit, launching what it
+    launches, each into a buffer of its own, capturing nothing more."""
+    acc, (x, x2) = _replay_case(config, cuda)
+    eng = acc.engine
+    n_micro = acc.plan(x.shape[0]).n_micro
+    assert n_micro > 1
+    ops.reset_launch_counts()
+    want = eng._stream(eng.params, x, n_micro)
+    want2 = eng._stream(eng.params, x2, n_micro)
+    torch.cuda.synchronize()
+    eager = {k: v // 2 for k, v in ops.launch_counts().items()}
+    graphs = eng.captured_graphs
+    ops.reset_launch_counts()
+    ys = [acc(x)]  # the eager run and the capture
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == eager and eng.captured_graphs == graphs + 1
+    for xi in (x, x2, x):
+        ops.reset_launch_counts()
+        ys.append(acc(xi))
+        torch.cuda.synchronize()
+        assert ops.launch_counts() == eager
+    assert eng.captured_graphs == graphs + 1
+    for y, w in zip(ys, (want, want, want2, want)):
+        assert y.is_cuda and y.dtype == w.dtype and torch.equal(y, w)
+    assert len({y.data_ptr() for y in ys}) == len(ys)
+
+
+def test_no_capture_inside_a_timed_rep_of_tune_engine(cuda, tmp_path, monkeypatch):
+    """Each tile candidate captures on its first call (its bit-exactness
+    check), so the paired timer, warm-up and timed reps, races replays."""
+    monkeypatch.setenv(autotune.CACHE_PATH_ENV, str(tmp_path / "cache.json"))
+    captures = []
+    capture = engine_mod.capture_cuda_graph
+    monkeypatch.setattr(engine_mod, "capture_cuda_graph",
+                        lambda *a: captures.append(1) or capture(*a))
+    golden = nid_mlp.load_golden()["standard"]
+    acc = build(nid_mlp.build_graph(golden["seed"]), folding=nid_mlp.foldings(),
+                **golden["build"])
+    timed = []
+
+    def timer(fa, fb, *args, **kw):
+        before = len(captures)
+        r = autotune.paired_times(fa, fb, *args, **kw)
+        timed.append(len(captures) - before)
+        return r
+
+    built = len(captures)
+    entry = autotune.tune_engine(acc.graph, 1024, cache=ScheduleCache(), timer=timer, reps=2)
+    assert timed == [0] * 3 and len(captures) - built == 4
+    assert entry["microbatch"] in (128, 256, 512, 1024)
+
+
+def test_in_flight_batches_keep_their_outputs(cuda):
+    """Batches in flight on one replica replay one graph: each resolves to
+    its own rows, after the later replays rewrote the graph's output."""
+    acc, golden = _nid_standard("engine")
+    pool = ReplicaPool(acc.engine, devices=[cuda])
+    pool.warmup([128])
+    graphs = acc.engine.captured_graphs
+    xs = [nid.make_dataset(128, seed=seed)[0] for seed in (1, 2, 3, 4)]
+    ops.reset_launch_counts()
+    pending = [pool.dispatch(x, [], n_valid=128) for x in xs]
+    assert pool.total_inflight == 4
+    got = [p.resolve() for p in reversed(pending)][::-1]
+    assert acc.engine.captured_graphs == graphs and pool.idle
+    assert ops.launch_counts()["mvu_int"] == 4 * 4
+    for y, x in zip(got, xs):
+        want = acc.engine._stream(acc.engine.params, torch.from_numpy(x).to(cuda), 1)
+        assert np.array_equal(y, want.cpu().numpy())
+    assert not np.array_equal(got[0], got[1])
+
+
+def test_graphs_of_one_device_share_their_intermediates(cuda):
+    """The graphs of one engine and card share a memory pool and a capture
+    stream, so a second key's capture reuses the blocks the first one's
+    intermediates freed: the FULL CNV in one microbatch of 256 images
+    reserves its int32 activations once, and a key of 255 images adds
+    little beside them (a quarter of the first graph's at most; its
+    static input and output, not a second set of activations)."""
+    golden = cnv_bnn.load_golden()["standard"]
+    kw = golden["build"]
+    acc = build(cnv_bnn.build_graph(cnv_bnn.spec_for(kw), seed=golden["seed"]),
+                microbatches=1, **kw)
+    x = torch.from_numpy(cnv_bnn.images(256, kw["act_bits"], golden["data_seed"])).to(cuda)
+    assert acc.plan(256).n_micro == 1 == acc.plan(255).n_micro
+    graphs = acc.engine.captured_graphs  # the build's verification ran its engine too
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = [torch.cuda.memory_reserved()]
+    for xi in (x, x[:255]):
+        acc(xi)  # the eager run and the capture (which empties torch's cache first)
+        torch.cuda.synchronize()
+        reserved.append(torch.cuda.memory_reserved())
+    first, second = reserved[1] - reserved[0], reserved[2] - reserved[1]
+    assert acc.engine.captured_graphs == graphs + 2
+    # the first graph holds the 256 images' activations (154 MiB on an H100)
+    assert first > 32 * 2**20 and second < first / 4, (
+        f"the first graph reserved {first / 2**20:.1f} MiB, the second "
+        f"{second / 2**20:.1f} MiB beside it")
+    want = acc.engine._stream(acc.engine.params, x, 1)
+    assert torch.equal(acc(x), want) and torch.equal(acc(x[:255]), want[:255])
+
+
+def test_a_replay_on_another_stream_raises(cuda):
+    """Every replay of an engine's graphs on a card goes to one stream, the
+    caller's at the card's first capture: a call from another stream
+    raises rather than race a replay in flight."""
+    acc, (x, _) = _replay_case("standard", cuda)
+    acc(x)  # the eager run and the capture
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side), pytest.raises(RuntimeError, match="replay on stream"):
+        acc(x)
+    torch.cuda.synchronize()
+    assert torch.equal(acc(x), acc.engine._stream(acc.engine.params, x,
+                                                  acc.plan(x.shape[0]).n_micro))

@@ -11,9 +11,15 @@
 * The autotuner's candidates run the hand kernels (``backend="cuda"``),
   never the plain reference, and no ``try`` guards a candidate's build or
   launch.
+* No ``try`` encloses the engine's CUDA-graph capture or replay, and no
+  switch turns capture off; no module on the launch path reads a device
+  value on the host (``.item()``, ``.cpu()``, ``.tolist()``), which a
+  capture forbids.
 """
 
 import ast
+import glob
+import inspect
 import os
 import subprocess
 import sys
@@ -246,3 +252,32 @@ def test_no_try_guards_a_candidate():
     with open(path) as f:
         tree = ast.parse(f.read(), path)
     assert not [n.lineno for n in ast.walk(tree) if isinstance(n, ast.Try)]
+
+
+def test_no_try_encloses_the_capture_or_the_replay():
+    """A CUDA engine whose capture or replay fails raises: the engine module
+    holds no ``try`` at all, so nothing reruns the stream eagerly, and the
+    engine takes no argument that turns capture off."""
+    path = os.path.join(PORT, "core", "engine.py")
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    assert not [n.lineno for n in ast.walk(tree) if isinstance(n, ast.Try)]
+    assert list(inspect.signature(engine.FusedEngine).parameters) == [
+        "graph", "fuse", "microbatches", "tune", "cache", "tune_kwargs"]
+
+
+LAUNCH_PATH = sorted([os.path.join(PORT, "core", f) for f in ("engine.py", "dataflow.py",
+                                                              "mvu.py")]
+                     + glob.glob(os.path.join(PORT, "kernels", "*.py")))
+
+
+@pytest.mark.parametrize("path", LAUNCH_PATH, ids=lambda p: os.path.relpath(p, ROOT))
+def test_launch_path_reads_no_device_value(path):
+    """A host read of a device value synchronises, which a CUDA-graph
+    capture forbids: the launch path calls no ``.item()``, ``.cpu()`` or
+    ``.tolist()``."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    reads = [n.lineno for n in ast.walk(tree) if isinstance(n, ast.Call)
+             and isinstance(n.func, ast.Attribute) and n.func.attr in ("item", "cpu", "tolist")]
+    assert not reads, f"{path}: host reads at lines {reads}"

@@ -565,7 +565,7 @@ def test_engine_dispatch_runs_a_replicas_params():
     want = engine(xs)
     out, plan = engine.dispatch(xs, params=engine.params_on("cpu"))
     assert torch.equal(out, want) and plan == engine.plan(5)
-    mixed = engine.params_on("cpu")
+    mixed = list(engine.params_on("cpu"))
     mixed[1] = mixed[1].to("meta")
     with pytest.raises(ValueError, match="several devices"):
         engine.dispatch(xs, params=mixed)
