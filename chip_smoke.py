@@ -7,13 +7,17 @@ Phases, each printing its own line(s); any failure exits non-zero:
 
 1. env     torch and CUDA versions, the card's name and power limit.
 2. build   the six kernels from ``src/repro_torch/kernels/csrc/`` (five
-           sources): one nvcc per source, all started together, and beside
-           them ``nvcc -Xptxas -v`` on the five sources (``conv_mvu.cu``,
-           and ``mvu_int.cu``, ``mvu_binary.cu``, ``mvu_packed.cu``,
-           ``mvu_xnor.cu`` on the dense core ``dense_mvu.cuh``): registers,
-           shared memory and spills of each kernel instance.
+           sources, each with its small fixed set of compiled tiles as
+           template instances): one nvcc per source, all started together,
+           with ``-Xptxas -v``, whose report each build keeps
+           (``Library.report``; ``conv_mvu.cu``, and ``mvu_int.cu``,
+           ``mvu_binary.cu``, ``mvu_packed.cu``, ``mvu_xnor.cu`` on the
+           dense core ``dense_mvu.cuh``): registers, shared memory and
+           spills of each kernel instance.
 3. kernel  ``mvu_int`` against ``mvu_int_plain`` on the card at every
-           (N, K) of the NID path, M in {1, 3, 128, 4096}, and at the
+           (N, K) of the NID path, M in {1, 3, 128, 4096}, in the tile of
+           the layer's Table 6 folding as the path launches it
+           (``path_tile``: fc0 32 x 64 x 64, the rest 32 x 32 x 32), and at the
            FULL CNV's dense (N, K) at M = 1 (its one image a microbatch),
            all three epilogues, 2-bit and full-int8 weights: exact equality.  Device
            times (CUDA events, median) of the kernel, its plain version and
@@ -142,15 +146,20 @@ Phases, each printing its own line(s); any failure exits non-zero:
            against ``conv_mvu_plain`` at every image count the CNV's tile
            race can choose (2, 4, 8, 256) for the FULL CNV's six conv
            shapes, three modes, three epilogues.  Then each NID variant
-           (at 4096) and the CNV standard variant (at 256) built with
-           ``tune="auto"`` on the card: per node its cache key, the packed
-           choice, the entry's speedup, ``measured_candidates`` (the packed
-           kernel raced once by every dense node that is not xnor; conv and
-           xnor nodes race nothing) and the raced speedups with each side's
-           time on the card's clock; then
+           (at 4096), the three CNV variants (at 256) and the residual MLP
+           (at 4096) built with ``tune="auto"`` on the card, its output on
+           the golden batch (the capture and two replays) held to the golden
+           digest, its nodes raced at the heuristic microbatch h; then
            ``tune_engine`` races the microbatch tile (h, 2h, 4h, 8h and the
-           batch; every tile must be bit-exact, so raced) and prints each
-           tile's speedup and the choice.  Each is rebuilt with
+           batch; every tile must be bit-exact, so raced), prints each
+           tile's speedup and the choice, and races every node again at
+           the rows (images) a launch gets under it: per node its cache
+           key, the picked storage and tile, the entry's speedup and
+           ``sample_m`` (the chosen microbatch), ``measured_candidates``
+           (each compiled tile the node's candidates launch, and a dense
+           node that is not xnor its packed datapath, raced against the
+           default 32 tile) and each raced candidate's tile and speedup
+           with each side's time on the card's clock.  Each is rebuilt with
            ``tune="cache"`` from the filled cache with the timer replaced by
            one that raises: no miss, the recorded tile, and with every launch
            counter set to 0 just before it, its ``acc(x)`` on the golden
@@ -169,7 +178,8 @@ Phases, each printing its own line(s); any failure exits non-zero:
            through it (a CUDA engine captures each key's stream as a CUDA
            graph on the key's first call and replays it after).  For the
            five NID variants at 4096, untuned and tuned, the three CNV
-           variants at their golden batch and at 256, and the residual MLP:
+           variants at their golden batch and at 256 (and tuned at 256), and
+           the residual MLP, untuned and tuned:
            the second and third call of the key (replays) must equal the
            eager stream (``engine._stream``) and the golden digest (CNV at
            256: its first golden-batch images; tuned: ``tuned_digest``), and
@@ -190,8 +200,33 @@ Phases, each printing its own line(s); any failure exits non-zero:
            tuned CNV (255 images) must reserve less than a quarter of what
            its eager stream's intermediates peak at: the engine's graphs
            on the card share one pool and one capture stream.
-5. the kernels JSON line, the card's ``nvidia-smi`` line, and last the
-   result line ``{"ok": true, "device": {...}}``.
+   tiles   the per-layer kernel tiles.  Each entry point on the dense
+           core at each of its compiled tiles (``dense_mvu.tiles``: 32 rows
+           x 32 or 64 columns at K steps 32, and 64 and 128 for int8 rows
+           and 2-bit lanes, and 64 x 32 x 32), pinned by its tile kwargs and read back from the
+           plan, against its plain version and timed (CUDA events) at the
+           NID layers' shapes at M in {64, 4096} (the residual MLP's are
+           among them) and the FULL CNV's dense layers at 256 images (at 2
+           images: the gemv arrangement, which has no tile, once), and at
+           its ragged edges (K past a whole step, N below tile_n and N = 1,
+           M one past a tile, split K); ``conv_mvu`` in each mode at each
+           pixel x channel tile (``swu_mvu.CONV_TILES``) at the FULL CNV's
+           six conv layers at 2 and 256 images.  Each line has the tile's
+           registers and spill bytes from the build's ptxas report; every
+           time goes to ``chiprun_out/tiles.json``.  Then each build's
+           launched tile per layer, untuned (the folding's) and tuned, read
+           from the plans; the NID standard variant under Table 6's folding
+           and another, whose fc0 launches another tile: each fc0 launch of
+           an eager stream must pass the card its planned tile's index, and
+           both equal the golden digest; last the untuned and tuned ``acc(x)`` rates against
+           every layer pinned to the 32 x 32 x 32 tile by a cache entry, at
+           the untuned and at the tuned microbatch, in turns (F U F' T T F'
+           U F), NID standard at 4096 and CNV standard at 256: the tuned
+           arm's mean time may exceed F''s only by the largest spread of
+           an arm's two turns.
+5. the kernels JSON line (each kernel also with its tiles phase's times
+   by tile), the card's ``nvidia-smi`` line, and last the result line
+   ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package (``src/repro``).
 """
@@ -204,7 +239,6 @@ import statistics
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
@@ -231,8 +265,6 @@ TUNE_NID_BATCH = 4096
 # (B, H, W, C, N, stride, pad) of images too wide for conv_mvu's line
 # buffer: checked, not timed (the gather arrangement)
 CONV_WIDE = [(1, 8, 1000, 256, 64, 1, 0), (1, 5, 3000, 12, 16, 2, 1)]
-# the sources of the kernels designed for Hopper
-PTXAS_SOURCES = ("conv_mvu.cu", "mvu_int.cu", "mvu_binary.cu", "mvu_packed.cu", "mvu_xnor.cu")
 # the entry point the engine's xnor stages launch, and the kernel whose
 # launch counter it adds to
 XNOR_PATH_ENTRY = "mvu_xnor_bits"
@@ -241,6 +273,22 @@ DENSE_MS = (1, 9, 100, 128, 4096)  # the dense core's checks: both arrangements
 DENSE_KS = (27, 64, 600, 2304)
 CNV_DENSE_M = 1  # images a CNV microbatch: the dense layers' M on that path
 CNV_BATCH = 256  # images per acc(x) for the images/s line
+# the tiles phase: the NID layers' M (half the default burst of 128, and
+# the timed batch as one microbatch), the CNV's images (its dense layers' M)
+TILE_NID_MS = (64, 4096)
+TILE_CNV_IMAGES = (2, 256)
+TILE_SLEEP_CYCLES = 5_000_000  # covers the enqueue of a timed loop of 20 launches
+# the dense entry point -> (mode, packed) of the datapath it runs
+ENTRY_DATAPATH = {"mvu_int": ("standard", False), "mvu_binary": ("binary", False),
+                  "mvu_binary_packed": ("binary", True), "mvu_int2_packed": ("standard", True),
+                  "mvu_xnor": ("xnor", False), XNOR_PATH_ENTRY: ("xnor", False)}
+# the dense entry point -> its coding's substring in a kernel's demangled name
+ENTRY_CODING = {"mvu_int": "Coding<false,false,false>", "mvu_binary": "Coding<false,false,true>",
+                "mvu_binary_packed": "Coding<true,true,true>", "mvu_int2_packed": "Int2Lanes",
+                "mvu_xnor": "XnorWords", XNOR_PATH_ENTRY: "XnorBits"}
+# a NID folding that launches fc0 in another tile than Table 6's (64, 50):
+# PE 16 -> 32 output columns a block, SIMD 40 -> a 64-synapse step
+NID_OTHER_FOLDING = ((16, 40), (16, 32), (16, 32), (1, 8))
 TRACE_DIR = os.path.join(HERE, "chiprun_out")
 DRIFT_S_PER_CYCLE = 1e-8  # any fixed cycle time: the profile phase checks only the keys
 SERVE_BUCKETS = (1, 8, 32, 128)
@@ -313,18 +361,40 @@ def ptxas_lines(report: str) -> list[str]:
 
 
 def plan_text(plan) -> str:
-    """A launch plan as printed beside a time."""
-    return (f"plan={plan.arrangement} {plan.tile_m}x{plan.tile_n} splits={plan.splits} "
+    """A launch plan as printed beside a time: the tile is rows (pixels) x
+    columns, and the K step for the dense core."""
+    step = f"x{plan.kstep}" if hasattr(plan, "kstep") and plan.arrangement == "tiled" else ""
+    return (f"plan={plan.arrangement} {plan.tile_m}x{plan.tile_n}{step} splits={plan.splits} "
             f"smem={plan.smem_bytes}")
 
 
-def dense_plan_text(name: str, m: int, n: int, k: int) -> str:
+def dense_plan_text(name: str, m: int, n: int, k: int, **tile) -> str:
     """The launch plan of an entry point on the dense core at (M, N, K)
-    (packed xnor: K synapses are ceil(K/32) words, its K unit)."""
+    with the tile kwargs ``tile`` (packed xnor: K synapses are ceil(K/32)
+    words, its K unit)."""
     from repro_torch.kernels.dense_mvu import CODING, dense_launch_plan
 
     units = -(-k // 32) if CODING[name] == "words" else k
-    return plan_text(dense_launch_plan(m, n, units, CODING[name]))
+    return plan_text(dense_launch_plan(
+        m, n, units, CODING[name], block_n=tile.get("block_n", 32),
+        block_k=tile.get("block_k", tile.get("block_kw", 32)),
+        rows_per_tile=tile.get("rows_per_tile")))
+
+
+def path_tile(name: str, n: int, k: int) -> dict:
+    """The tile kwargs the main path launches dense entry point ``name``
+    with on an (N, K) NID layer: its Table 6 folding's
+    (``folding.to_gpu_blocks``); none for another shape (the CNV's dense
+    layers run at one image a microbatch: the gemv arrangement)."""
+    from repro_torch.configs import nid_mlp
+    from repro_torch.core.folding import Folding, to_gpu_blocks
+    from repro_torch.kernels import ops
+
+    for kk, nn, pe, simd in nid_mlp.LAYERS:
+        if (nn, kk) == (n, k):
+            mode, packed = ENTRY_DATAPATH[name]
+            return ops.tile_kwargs(name, **to_gpu_blocks(Folding(pe, simd), mode, packed=packed))
+    return {}
 
 
 def dense_case(name, m, n, k, g, dev):
@@ -613,16 +683,16 @@ def tuned_digest(gd, y, tuned, untuned) -> tuple[dict, dict]:
 
 def dense_at_tile(acc, m: int, g, dev) -> tuple[int, float, list]:
     """Each dense node of ``acc`` against its plain version at M = ``m``
-    rows (a tuned plan's microbatch), on the node's weights and epilogue:
-    both sides of its packed race (the unpacked kernel and the packed twin
-    from the same weights), or, for xnor, the bit entry the engine's
+    rows (a tuned plan's microbatch), on the node's weights, epilogue and
+    tile: both sides of its packed race (the unpacked kernel and the packed
+    twin from the same weights), or, for xnor, the bit entry the engine's
     stages launch; activations in [0, 4) and [-128, 128).  Returns the
     checks made, the largest |kernel - plain| and the (N, K) checked."""
     import torch
 
     from repro_torch.core.lowering import packable
     from repro_torch.kernels import mvu_binary as B, mvu_int as K, mvu_packed as P
-    from repro_torch.kernels import mvu_xnor as X, packing
+    from repro_torch.kernels import mvu_xnor as X, ops, packing
 
     n_checked, max_err, shapes = 0, 0.0, []
     for node in acc.engine.graph:
@@ -649,7 +719,8 @@ def dense_at_tile(acc, m: int, g, dev) -> tuple[int, float, list]:
             a = torch.randint(lo, hi, (m, k), generator=g, dtype=torch.int32).to(dev)
             for fn, plain, wk, extra in cases:
                 args = (a, wk, *extra)
-                got = fn(*args, p.thresholds, p.out_scale)
+                got = fn(*args, p.thresholds, p.out_scale,
+                         **ops.tile_kwargs(fn.__name__, **cfg.kernel_blocks()))
                 want = plain(*args, p.thresholds, p.out_scale)
                 torch.cuda.synchronize()
                 check(got.dtype == want.dtype and torch.equal(got, want),
@@ -673,7 +744,7 @@ def tune_phase(dev, smi: str, path_accs: dict) -> dict:
     import torch
 
     from repro_torch.build import build
-    from repro_torch.configs import cnv_bnn, golden as golden_mod, nid_mlp
+    from repro_torch.configs import cnv_bnn, nid_mlp, residual_mlp
     from repro_torch.core import autotune
     from repro_torch.data import nid
     from repro_torch.kernels import ops, swu_mvu as C
@@ -703,17 +774,22 @@ def tune_phase(dev, smi: str, path_accs: dict) -> dict:
           f"FULL CNV's six conv shapes x three modes x three epilogues: {n_checked} checks "
           f"equal to the plain version, max_abs_err={max_err}", flush=True)
 
-    races: list[tuple] = []  # the current node search's (t_a, t_b, speedup)
+    races: list[tuple] = []  # the current node search's (candidate, (t_a, t_b, speedup))
     node_races: list[tuple[str, list[tuple]]] = []  # per tune_node call, in order
     tile_races: dict[int, float] = {}
-    tune_node = autotune.tune_node
+    tune_node, node_fn = autotune.tune_node, autotune._node_fn
+
+    def tagged_node_fn(cfg, params, cand, conv):
+        fn = node_fn(cfg, params, cand, conv)
+        fn.candidate = cand  # the timer reads which candidate it races
+        return fn
 
     def timer(fa, fb, *args, **kw):
         r = autotune.paired_times(fa, fb, *args, **kw)
         if isinstance(getattr(fb, "_tile", None), int):
             tile_races[fb._tile] = r[2]
         else:
-            races.append(r)
+            races.append((fb.candidate, r))
         return r
 
     def traced_tune_node(node, *args, **kw):
@@ -727,16 +803,19 @@ def tune_phase(dev, smi: str, path_accs: dict) -> dict:
 
     cases = [("nid", v) for v in ("standard", *sorted(v for v in nid_mlp.load_golden()
                                                       if v != "standard"))]
-    cases.append(("cnv", "standard"))
+    cases += [("cnv", "standard"), ("cnv", "binary"), ("cnv", "xnor"),
+              ("residual", "standard")]
     tuned = {}
     with tempfile.TemporaryDirectory() as tmp:
         old_env = os.environ.get(autotune.CACHE_PATH_ENV)
         os.environ[autotune.CACHE_PATH_ENV] = os.path.join(tmp, "cache.json")
         for cfg_name, variant in cases:
-            if cfg_name == "nid":
-                gd = nid_mlp.load_golden()[variant]
-                graph = lambda gd=gd: nid_mlp.build_graph(gd["seed"])  # noqa: E731
-                extra = {"folding": nid_mlp.foldings()}
+            if cfg_name in ("nid", "residual"):
+                mlp = nid_mlp if cfg_name == "nid" else residual_mlp
+                gd = nid_mlp.load_golden()[variant] if cfg_name == "nid" else \
+                    residual_mlp.load_golden()
+                graph = lambda gd=gd, mlp=mlp: mlp.build_graph(gd["seed"])  # noqa: E731
+                extra = {"folding": mlp.foldings()}
                 batch = TUNE_NID_BATCH
                 xb = torch.from_numpy(nid.make_dataset(batch, seed=gd["data_seed"])[0])
                 xg = torch.from_numpy(nid.make_dataset(gd["batch"], seed=gd["data_seed"])[0])
@@ -752,52 +831,46 @@ def tune_phase(dev, smi: str, path_accs: dict) -> dict:
             xb, xg = xb.to(dev), xg.to(dev)
             untuned = path_accs[(cfg_name, variant)]
             label = f"{cfg_name} {variant}"
-            # the search: tune="auto" on the card, then the engine tile
+            # the search: tune="auto" on the card, then the engine tile and
+            # the nodes again at the rows a launch gets under it
             cache = autotune.ScheduleCache()
             node_races.clear()
             tile_races.clear()
             autotune.paired_timer, autotune.tune_node = timer, traced_tune_node
+            autotune._node_fn = tagged_node_fn
             t0 = time.perf_counter()
             acc = build(graph(), target="engine", tune="auto", cache=cache, device=dev,
                         **extra, **gd["build"])
             t_build = time.perf_counter() - t0
+            build_picks = {k: tile_pick(e) for k, e in cache.entries.items()}
+            build_races = list(node_races)
+            node_races.clear()
             t0 = time.perf_counter()
-            entry = autotune.tune_engine(acc.graph, batch, cache=cache)
+            entry = autotune.tune_engine(acc.graph, batch, cache=cache,
+                                         pack=gd["build"].get("pack", "auto"))
             t_engine = time.perf_counter() - t0
             autotune.paired_timer, autotune.tune_node = autotune.paired_times, tune_node
+            autotune._node_fn = node_fn
+            # the tune="auto" build on the golden batch: its capture, two replays
+            for _ in range(3):
+                y = acc(xg)
+                torch.cuda.synchronize()
+                got_digest, want_digest = tuned_digest(gd, y.cpu().numpy(), acc, untuned)
+                check(got_digest == want_digest, f"tune: {label}: the tune='auto' build's "
+                      "acc(x) differs from the golden digest")
             scope = autotune.device_kind(dev)
             check(all(k.split("|")[1] == scope for k in cache.entries if k.startswith("engine|"))
                   and all(k.startswith(scope + "|") for k in cache.entries
                           if not k.startswith("engine|")),
                   f"tune: {label}: cache keys outside the card's scope {scope}: "
                   f"{sorted(cache.entries)}")
-            print(f"tune: {label} {gd['build']}: tune='auto' build in {t_build:.2f} s "
-                  f"(report.tune {acc.report.tune}), tune_engine at batch {batch} in "
-                  f"{t_engine:.2f} s; {len(cache)} cache entries", flush=True)
-            # one tune_node call a miss, each putting its key: the same order.
-            # Every variant's dense weights pack (2-bit standard, binary), so a
-            # dense node that is not xnor races its packed kernel, once
-            node_keys = [k for k in cache.entries if not k.startswith("engine|")]
-            check(len(node_keys) == len(node_races), f"tune: {label}: {len(node_races)} "
-                  f"node searches for {len(node_keys)} entries")
-            for key, (name, raced) in zip(node_keys, node_races):
-                e = cache.get(key)
-                _, op, mode = key.split("|")[:3]
-                want_measured = int(op == "mvu" and mode != "xnor")
-                check(e["measured_candidates"] == want_measured == len(raced)
-                      and e["backend"] == "cuda",
-                      f"tune: {label} {name}: measured {e['measured_candidates']} candidates "
-                      f"({len(raced)} races) on {e['backend']!r}, want {want_measured} on "
-                      "'cuda' (a candidate that is not bit-exact is not raced)")
-                print(f"tune: {label} {name} {key}: packed={bool(e.get('packed'))} "
-                      f"speedup={e['speedup']:.4f} measured_candidates="
-                      f"{e['measured_candidates']} raced "
-                      + ", ".join(f"{r:.4f}x ({ta * 1e6:.2f} us own, {tb * 1e6:.2f} us packed "
-                                  "on the card's clock, per-side minima)"
-                                  for ta, tb, r in raced) + " "
-                      f"(margin 1.05: the entry's speedup / 1.05 = {e['speedup'] / 1.05:.4f})",
-                      flush=True)
             heur = untuned.plan(batch).microbatch
+            print(f"tune: {label} {gd['build']}: tune='auto' build in {t_build:.2f} s "
+                  f"(report.tune {acc.report.tune}; its nodes raced at h={heur}: "
+                  + ", ".join(f"{'|'.join(k.split('|')[1:5])} {p}"
+                              for k, p in build_picks.items())
+                  + f"), tune_engine at batch {batch} in {t_engine:.2f} s; {len(cache)} cache "
+                  "entries", flush=True)
             want_tiles = sorted({heur * 2, heur * 4, heur * 8, batch} - {heur})
             check(sorted(tile_races) == want_tiles,
                   f"tune: {label}: tiles {sorted(tile_races)} raced, want {want_tiles} (a "
@@ -806,6 +879,32 @@ def tune_phase(dev, smi: str, path_accs: dict) -> dict:
                   + ", ".join(f"{t} -> {r:.4f}x" for t, r in sorted(tile_races.items()))
                   + f"; chose microbatch={entry['microbatch']} speedup={entry['speedup']:.4f}"
                   f" (margin 1.10: clears it by {entry['speedup'] / 1.10:.4f}x)", flush=True)
+            # one tune_node call a node in the build and again in tune_engine,
+            # each putting its key, in the same order; tune_engine's at the
+            # rows (images) a launch gets under the chosen microbatch. A node
+            # races its compiled tiles (and, a dense node that is not xnor,
+            # its packed datapath) against the default 32 tile
+            node_keys = [k for k in cache.entries if not k.startswith("engine|")]
+            samples = -(-batch // -(-batch // entry["microbatch"]))
+            check(len(node_keys) == len(build_races) == len(node_races),
+                  f"tune: {label}: {len(build_races)} and {len(node_races)} node searches "
+                  f"for {len(node_keys)} entries")
+            for key, (name, raced) in zip(node_keys, node_races):
+                e = cache.get(key)
+                check(e["measured_candidates"] == len(raced) >= 1 and e["backend"] == "cuda"
+                      and e["sample_m"] == samples,
+                      f"tune: {label} {name}: measured {e['measured_candidates']} candidates "
+                      f"({len(raced)} races) on {e['backend']!r} at {e['sample_m']} samples, "
+                      f"want every race, at least one, on 'cuda' at {samples}")
+                print(f"tune: {label} {name} {key}: at {e['sample_m']} samples picked "
+                      f"{tile_pick(e)} speedup={e['speedup']:.4f} "
+                      f"measured_candidates={e['measured_candidates']} raced "
+                      + ", ".join(f"{'packed ' if c.packed else ''}n{c.blocks.block_n} "
+                                  f"k{c.blocks.block_k} rows{c.blocks.rows_per_tile} "
+                                  f"{r:.4f}x ({ta * 1e6:.2f} us 32 tile, {tb * 1e6:.2f} us it)"
+                                  for c, (ta, tb, r) in raced)
+                      + " (the card's clock, per-side minima; margin 1.05: the entry's "
+                      f"speedup / 1.05 = {e['speedup'] / 1.05:.4f})", flush=True)
             # the replay: tune="cache" from the filled cache, no timer
             autotune.paired_timer = no_timer
             t0 = time.perf_counter()
@@ -817,31 +916,34 @@ def tune_phase(dev, smi: str, path_accs: dict) -> dict:
                   and again.report.tune["engine_tile"] == entry["microbatch"],
                   f"tune: {label}: the cache rebuild reported {again.report.tune}")
             plan = again.plan(gd["batch"])
-            ops.reset_launch_counts()
-            y = again(xg)
-            torch.cuda.synchronize()
-            counts = ops.launch_counts()
-            want_counts = plan_launches(again, gd["batch"])
-            check(counts == want_counts, f"tune: {label}: the cache rebuild's acc(x) launched "
-                  f"{counts}, want {want_counts} (each node's kernel x n_micro={plan.n_micro})")
-            check(torch.equal(y, untuned(xg)), f"tune: {label}: the tuned acc(x) differs from "
-                  "the untuned one")
-            got_digest, want_digest = tuned_digest(gd, y.cpu().numpy(), again, untuned)
-            check(got_digest == want_digest,
-                  f"tune: {label}: the tuned run differs from the golden digest")
+            for call in range(3):  # the key's first call (capture), then two replays
+                ops.reset_launch_counts()
+                y = again(xg)
+                torch.cuda.synchronize()
+                counts = ops.launch_counts()
+                want_counts = plan_launches(again, gd["batch"])
+                check(counts == want_counts, f"tune: {label}: call {call + 1} of the cache "
+                      f"rebuild's acc(x) launched {counts}, want {want_counts} (each node's "
+                      f"kernel x n_micro={plan.n_micro})")
+                check(torch.equal(y, untuned(xg)), f"tune: {label}: the tuned acc(x) differs "
+                      "from the untuned one")
+                got_digest, want_digest = tuned_digest(gd, y.cpu().numpy(), again, untuned)
+                check(got_digest == want_digest,
+                      f"tune: {label}: the tuned run differs from the golden digest")
             # the timed batch too: the tuned plan's microbatch there is the
             # tile the race chose, and the dense kernels run at that M
             check(torch.equal(again(xb), untuned(xb)), f"tune: {label}: the tuned acc(x) "
                   f"differs from the untuned one at the timed batch {batch}")
             tile_m = again.plan(batch).microbatch
-            n_dense, dense_err, dense_nk = dense_at_tile(untuned, tile_m, g, dev)
+            n_dense, dense_err, dense_nk = dense_at_tile(again, tile_m, g, dev)
             print(f"tune: {label}: tuned acc(x) at the timed batch {batch} equals the untuned "
                   f"one; the dense kernels at M={tile_m} (the tuned microbatch) equal their "
                   f"plain versions: {n_dense} checks over {dense_nk}, max_abs_err={dense_err}",
                   flush=True)
             autotune.paired_timer = autotune.paired_times
             print(f"tune: {label}: tune='cache' rebuild in {t_again:.2f} s measured nothing; "
-                  f"acc(x) at batch {gd['batch']} equals the untuned acc(x) and the golden "
+                  f"acc(x) at batch {gd['batch']} (its capture and two replays; the "
+                  f"tune='auto' build's too) equals the untuned acc(x) and the golden "
                   f"digest (packed layers: "
                   f"{[n.name for n in again.graph if n.op == 'mvu' and n.attrs['config'].packed]}"
                   f"); launches {({k: v for k, v in counts.items() if v})} = the tuned plan "
@@ -850,14 +952,14 @@ def tune_phase(dev, smi: str, path_accs: dict) -> dict:
             secs = {"untuned": [], "tuned": []}
             for side in ("untuned", "tuned", "tuned", "untuned"):
                 secs[side].append(acc_seconds(untuned if side == "untuned" else again, xb))
-            unit = "flows/s" if cfg_name == "nid" else "images/s"
+            unit = "images/s" if cfg_name == "cnv" else "flows/s"
             print(f"tune: {label}: batch {batch}: untuned "
                   + ", ".join(f"{batch / t:.1f}" for t in secs["untuned"])
                   + " " + unit + "; tuned " + ", ".join(f"{batch / t:.1f}" for t in secs["tuned"])
                   + f" {unit} (each the median of 7 acc(x), in the turns U T T U; tuned plan "
                   f"n_micro={again.plan(batch).n_micro} against {untuned.plan(batch).n_micro}; "
                   f"{smi})", flush=True)
-            if variant == "standard":  # where the time goes under the tuned plan
+            if cfg_name != "residual" and variant == "standard":  # where the time goes
                 report_trace(again, xb, f"{cfg_name} standard tuned")
         if old_env is None:
             del os.environ[autotune.CACHE_PATH_ENV]
@@ -1051,6 +1153,351 @@ def graph_phase(dev, smi: str, path_accs: dict, tuned: dict, served) -> None:
           f"{grown / 2**20:.1f} MiB beside the engine's {graphs} graphs; the eager stream at "
           f"{CNV_BATCH} images peaks {transient / 2**20:.1f} MiB above what was allocated "
           f"({smi})", flush=True)
+
+
+def tile_ms(fn, reps: int = 20, trials: int = 3) -> float:
+    """Median device ms per call of ``fn``, as ``device_ms`` with a shorter
+    sleep (the tiles phase times a few hundred small launches)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(trials):
+        torch.cuda._sleep(TILE_SLEEP_CYCLES)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def instance_usage(ptxas: dict, *parts: str) -> tuple[int, int, int]:
+    """(fewest, most registers, most spill-store bytes) over the compiled
+    instances whose demangled names hold every one of ``parts`` (spaces
+    removed): a tile's instances over epilogues and load paths."""
+    import re
+
+    regs, spills = [], []
+    for name, line in ptxas.items():
+        if all(p in name.replace(" ", "") for p in parts):
+            regs.append(int(re.search(r"(\d+) registers", line).group(1)))
+            m = re.search(r"(\d+) bytes spill stores", line)
+            spills.append(int(m.group(1)) if m else 0)
+    check(regs, f"tiles: no compiled instance named {parts}")
+    return min(regs), max(regs), max(spills)
+
+
+def tile_label(tile) -> str:
+    return "x".join(str(v) for v in tile)
+
+
+def conv_rows(tile_m: int, ow: int):
+    """The rows_per_tile that pins a tile_m-pixel conv tile on rows of ow
+    pixels (None: the untuned 32)."""
+    from repro_torch.kernels import swu_mvu as C
+
+    return None if tile_m == C.TILE_M else max(1, tile_m // ow)
+
+
+def tile_pick(e: dict) -> str:
+    """A node entry's storage and tile blocks, as printed."""
+    return (f"{'packed ' if e.get('packed') else ''}block_n={e['block_n']} "
+            f"block_k={e['block_k']} block_kw={e['block_kw']} rows_per_tile={e['rows_per_tile']}")
+
+
+def layer_tiles(acc, batch: int) -> list[str]:
+    """Each MVU node's launched tile at ``batch``'s microbatch, read from its
+    launch plan: ``name=tile`` (dense: rows x columns x K step, or gemv;
+    conv: pixels x channels)."""
+    from repro_torch.core import autotune, ir
+    from repro_torch.core.mvu import KernelBlocks
+
+    mb = acc.plan(batch).microbatch
+    out = []
+    for node, ins, _ in ir.io_shapes(acc.engine.graph):
+        if node.op not in ("mvu", "conv_mvu"):
+            continue
+        cfg = node.attrs["config"]
+        conv = ({k: node.attrs[k] for k in ("kernel", "stride", "pad")}
+                if node.op == "conv_mvu" else None)
+        tile, _ = autotune.launched_tile(cfg, KernelBlocks.from_blocks(cfg.kernel_blocks()),
+                                         cfg.packed or cfg.mode == "xnor", m=mb, conv=conv,
+                                         in_shape=ins[0] if conv is not None else None)
+        out.append(f"{node.name}={tile[0]} {tile_label(tile[1:])}")
+    return out
+
+
+def tiles_phase(dev, smi: str, ptxas: dict, path_accs: dict, tuned: dict) -> dict:
+    """The tiles phase (see the module doc): every kernel against its plain
+    version at every compiled tile, on the main path's shapes and at its
+    ragged edges, timed, with its registers and spills; the layers' tiles
+    of every build; two foldings of one layer launching two tiles, as the
+    launches pass them to the card; the untuned (folding) and tuned acc(x) rates
+    against the fixed 32 tile in turns.  Returns, by kernel, each tile's
+    summed ms over the main path's shapes and its ptxas usage."""
+    import torch
+
+    from repro_torch.build import build
+    from repro_torch.configs import cnv_bnn, golden as golden_mod, nid_mlp
+    from repro_torch.core import autotune
+    from repro_torch.core.engine import FusedEngine
+    from repro_torch.core.folding import Folding
+    from repro_torch.data import nid
+    from repro_torch.kernels import dense_mvu, mvu_int as K, ops, swu_mvu as C
+
+    t_phase = time.perf_counter()
+    g = torch.Generator().manual_seed(29)
+    out = {name: [] for name in KERNELS}
+    records = []  # every timed (kernel, tile, shape, ms) for chiprun_out/tiles.json
+
+    def err(got, want):
+        return (got.double() - want.double()).abs().max().item() if got.numel() else 0.0
+
+    # 1. the dense core: each entry point at each of its compiled tiles
+    nid_shapes = [(m, n, k) for m in TILE_NID_MS for k, n, _, _ in nid_mlp.LAYERS]
+    cnv_dense = dense_shapes(cnv_bnn.FULL)
+    cnv_shapes_ = [(b, n, k) for b in TILE_CNV_IMAGES for n, k in cnv_dense]
+    for name, coding in dense_mvu.CODING.items():
+        kernel = COUNTER.get(name, name)
+        unit = 32 if coding == "words" else 1
+        cases = {}  # (m, n, k) -> (args, thresholds or scale, plain output)
+        for i, (m, n, k) in enumerate(nid_shapes + cnv_shapes_):
+            fn, plain, args = dense_case(name, m, n, k, g, dev)
+            head = n < 10 or (i >= len(nid_shapes) and n == cnv_dense[-1][0])
+            span = {"mvu_int": 128 * 300 * k, "mvu_xnor": k}.get(kernel, 300 * k)
+            thr = torch.sort(torch.randint(-span, span, (n, 3), generator=g,
+                                           dtype=torch.int32), dim=1).values.to(dev)
+            scale = (torch.rand(n, generator=g) + 0.01).to(dev)
+            epi = (None, scale) if head else (thr, None)
+            cases[(m, n, k)] = (args, epi, plain(*args, *epi))
+        gemv_ms = {}  # (m, n, k) -> ms of the gemv arrangement, which has no tile
+        for tile in dense_mvu.tiles(coding):
+            tm, tn, tk = tile
+            kw = ops.tile_kwargs(name, block_n=tn, block_k=tk, block_kw=tk, rows_per_tile=tm)
+            max_e, times, n_checked = 0.0, {}, 0
+            for (m, n, k), (args, epi, want) in cases.items():
+                plan = dense_mvu.dense_launch_plan(m, n, -(-k // unit), coding, block_n=tn,
+                                                   block_k=tk, rows_per_tile=tm)
+                if plan.arrangement == "gemv":
+                    if (m, n, k) in gemv_ms:
+                        continue  # no tile: once an entry point
+                else:
+                    check((plan.tile_m, plan.tile_n, plan.kstep) == tile,
+                          f"tiles: {name} at M={m} N={n} K={k} planned "
+                          f"{plan.tile_m}x{plan.tile_n}x{plan.kstep}, not {tile_label(tile)}")
+                got = fn(*args, *epi, **kw)
+                torch.cuda.synchronize()
+                check(got.dtype == want.dtype and torch.equal(got, want),
+                      f"tiles: {name} != its plain version at tile {tile_label(tile)} "
+                      f"M={m} N={n} K={k}")
+                max_e, n_checked = max(max_e, err(got, want)), n_checked + 1
+                ms = tile_ms(lambda: fn(*args, *epi, **kw))
+                (times if plan.arrangement == "tiled" else gemv_ms)[(m, n, k)] = ms
+                records.append({"kernel": name, "tile": tile_label(tile) if plan.arrangement
+                                == "tiled" else "gemv", "m": m, "n": n, "k": k, "ms": ms})
+            # the ragged edges: K past a whole step, N below tile_n and N = 1,
+            # M one past a tile, and an output of few tiles (split K)
+            for m, n, ku in ((tm + 1, tn - 3, tk + 5), (tm + 1, 1, 3 * tk - 1),
+                             (2 * tm - 1, tn + 1, 600), (4 * tm, 10, 2 * tk + 9)):
+                k = ku * unit
+                fn, plain, args = dense_case(name, m, n, k, g, dev)
+                thr = torch.sort(torch.randint(-300 * k, 300 * k, (n, 3), generator=g,
+                                               dtype=torch.int32), dim=1).values.to(dev)
+                for t in (None, thr):
+                    got, want = fn(*args, t, None, **kw), plain(*args, t, None)
+                    torch.cuda.synchronize()
+                    check(got.dtype == want.dtype and torch.equal(got, want),
+                          f"tiles: {name} != its plain version at tile {tile_label(tile)}, "
+                          f"ragged M={m} N={n} K={k}")
+                    max_e, n_checked = max(max_e, err(got, want)), n_checked + 1
+            rmin, rmax, spill = instance_usage(ptxas, ENTRY_CODING[name],
+                                               f"Tile<{tm},{tn},{tk}>")
+            nid_ms = {mm: sum(v for (m, _, _), v in times.items() if m == mm)
+                      for mm in TILE_NID_MS}
+            cnv_ms = sum(v for (m, _, _), v in times.items() if m == TILE_CNV_IMAGES[-1])
+            out[kernel].append({"entry": name, "tile": tile_label(tile), "max_abs_err": max_e,
+                                "nid_ms": nid_ms, "cnv_ms": cnv_ms, "registers": [rmin, rmax],
+                                "spill_bytes": spill})
+            print(f"tiles: {name} {tile_label(tile)} (rows x columns x K step): {n_checked} "
+                  f"checks equal to the plain version (ragged edges included), max_abs_err="
+                  f"{max_e}; ptxas {rmin}-{rmax} registers, spill stores <= {spill} B; NID "
+                  + "; ".join(f"M={mm}: " + " ".join(f"{times[(mm, n, k)]:.5f}"
+                                                      for k, n, _, _ in nid_mlp.LAYERS)
+                              + f" (sum {nid_ms[mm]:.5f})" for mm in TILE_NID_MS)
+                  + f" ms; CNV dense M={TILE_CNV_IMAGES[-1]}: "
+                  + " ".join(f"{times[(TILE_CNV_IMAGES[-1], n, k)]:.5f}" for n, k in cnv_dense)
+                  + f" (sum {cnv_ms:.5f}) ms", flush=True)
+        print(f"tiles: {name} gemv (M <= 8, no tile) at CNV dense M={TILE_CNV_IMAGES[0]}: "
+              "equal to the plain version, ms "
+              + " ".join(f"{gemv_ms[(m, n, k)]:.5f}" for m, n, k in sorted(gemv_ms)), flush=True)
+
+    # 2. conv_mvu: each mode at each compiled pixel x channel tile
+    cnv_convs = conv_shapes(cnv_bnn.FULL)
+    for mode in C.MODES:
+        cases = {}
+        for h, c, n in cnv_convs:
+            for b in TILE_CNV_IMAGES:
+                x, w, _, _, _ = conv_case(mode, b, h, c, n, 3, g, dev)
+                k = 9 * c
+                thr = torch.sort(torch.randint(-8 * k, 8 * k, (n, 3), generator=g,
+                                               dtype=torch.int32), dim=1).values.to(dev)
+                cases[(b, h, c, n)] = (x, w, thr, C.conv_mvu_plain(x, w, thr, kernel=3,
+                                                                   mode=mode))
+        for tile in C.CONV_TILES:
+            tm, tn = tile
+            max_e, times, n_checked = 0.0, {}, 0
+            for (b, h, c, n), (x, w, thr, want) in cases.items():
+                rows = conv_rows(tm, h - 2)
+                plan = C.conv_launch_plan(b, h, h, c, n, 3, block_n=tn, rows_per_tile=rows)
+                check((plan.tile_m, plan.tile_n) == tile, f"tiles: conv_mvu at B={b} H={h} "
+                      f"planned {plan.tile_m}x{plan.tile_n}, not {tile_label(tile)}")
+                kw = dict(kernel=3, mode=mode, block_n=tn, rows_per_tile=rows)
+                got = C.conv_mvu(x, w, thr, **kw)
+                torch.cuda.synchronize()
+                check(got.dtype == want.dtype and torch.equal(got, want),
+                      f"tiles: conv_mvu ({mode}) != its plain version at tile "
+                      f"{tile_label(tile)} B={b} H=W={h} C={c} N={n}")
+                max_e, n_checked = max(max_e, err(got, want)), n_checked + 1
+                ms = tile_ms(lambda: C.conv_mvu(x, w, thr, **kw), reps=10)
+                times[(b, h, c, n)] = ms
+                records.append({"kernel": "conv_mvu", "mode": mode, "tile": tile_label(tile),
+                                "b": b, "h": h, "c": c, "n": n, "ms": ms})
+            rmin, rmax, spill = instance_usage(ptxas, "conv_mvu_kernel",
+                                               f"ConvTile<{tm},{tn}>", f">,{C.MODES.index(mode)},")
+            sums = {b: sum(v for (bb, *_), v in times.items() if bb == b)
+                    for b in TILE_CNV_IMAGES}
+            out["conv_mvu"].append({"mode": mode, "tile": tile_label(tile), "max_abs_err": max_e,
+                                    "cnv_ms": sums, "registers": [rmin, rmax],
+                                    "spill_bytes": spill})
+            print(f"tiles: conv_mvu {mode} {tile_label(tile)} (pixels x channels): {n_checked} "
+                  f"checks equal to the plain version, max_abs_err={max_e}; ptxas {rmin}-{rmax} "
+                  f"registers, spill stores <= {spill} B; "
+                  + "; ".join(f"B={b}: " + " ".join(f"{times[(b, h, c, n)]:.5f}"
+                                                    for h, c, n in cnv_convs)
+                              + f" (sum {sums[b]:.5f})" for b in TILE_CNV_IMAGES) + " ms",
+                  flush=True)
+
+    # 3. the layers' tiles: folding-derived (untuned) and tuned, read from the plans
+    for key, acc in sorted(path_accs.items()):
+        batch = TUNE_NID_BATCH if key[0] != "cnv" else CNV_BATCH
+        line = f"tiles: {' '.join(key)} untuned (the folding's tiles) at batch {batch}: " + \
+            ", ".join(layer_tiles(acc, batch))
+        if key in tuned:
+            line += "; tuned: " + ", ".join(layer_tiles(tuned[key], batch))
+        print(line, flush=True)
+
+    # 4. one layer, two foldings: two tiles, read from the plan each launch
+    # passes the card (the eager stream: a replay makes no wrapper call)
+    gd = nid_mlp.load_golden()["standard"]
+    x = torch.from_numpy(nid.make_dataset(gd["batch"], seed=gd["data_seed"])[0]).to(dev)
+    seen = {}
+    lib_run = K.LIB.run
+    for label, folds in (("table 6", nid_mlp.foldings()),
+                         ("other", [Folding(*f) for f in NID_OTHER_FOLDING])):
+        acc = build(nid_mlp.build_graph(gd["seed"]), target="engine", folding=folds,
+                    device="cuda", **gd["build"])
+        fc0 = next(n for n in acc.engine.graph if n.op == "mvu")
+        mb = acc.plan(gd["batch"]).microbatch
+        plan = dense_mvu.dense_launch_plan(
+            mb, fc0.attrs["config"].out_features, fc0.attrs["config"].in_features, "int8",
+            **ops.tile_kwargs("mvu_int", **fc0.attrs["config"].kernel_blocks()))
+        launched = []  # (m, n, k, tile index) of each mvu_int launch, as the card got it
+
+        def recording_run(fn, device, *args, launched=launched):
+            m, n, k, tile = args[5], args[6], args[7], args[12]
+            launched.append((m, n, k, tile))
+            return lib_run(fn, device, *args)
+
+        K.LIB.run = recording_run  # an instance attribute over the method, deleted below
+        eng = acc.engine
+        y = eng._stream(eng.params, x, acc.plan(gd["batch"]).n_micro)
+        del K.LIB.run
+        torch.cuda.synchronize()
+        nk0 = (fc0.attrs["config"].out_features, fc0.attrs["config"].in_features)
+        fc0_tiles = [t for m, n, k, t in launched if (n, k) == nk0]
+        check(fc0_tiles and set(fc0_tiles) == {plan.tile}, f"tiles: NID {label} folding: fc0 "
+              f"launched tiles {sorted(set(fc0_tiles))}, planned {plan.tile}")
+        check(golden_mod.digest_like(gd, y.cpu().numpy(), acc.graph) == gd
+              and torch.equal(acc(x), y),
+              f"tiles: NID {label} folding: acc(x) differs from the golden digest")
+        seen[label] = plan.tile
+        fo = fc0.attrs["config"].folding
+        all_tiles = sorted({tile_label(dense_mvu.DENSE_TILES[t]) if t >= 0 else "gemv"
+                            for *_, t in launched})
+        print(f"tiles: NID standard, {label} folding (fc0 PE={fo.pe} SIMD={fo.simd}): each of "
+              f"fc0's {len(fc0_tiles)} launches at M={mb} passed the card tile {plan.tile} = "
+              f"{tile_label(dense_mvu.DENSE_TILES[plan.tile])} (rows x columns x K step); all "
+              f"{len(launched)} launches' tiles {all_tiles}; equals the golden digest",
+              flush=True)
+    check(seen["table 6"] != seen["other"], "tiles: two foldings of fc0 launched one tile")
+
+    # 5. untuned (folding) and tuned acc(x) against the fixed 32 tile, in turns
+    fixed = {"backend": "cuda", "block_n": 32, "block_k": 32, "block_kw": 32}
+    for cfg_name, variant, batch, unit in (("nid", "standard", TUNE_NID_BATCH, "flows/s"),
+                                           ("cnv", "standard", CNV_BATCH, "images/s")):
+        untuned = path_accs[(cfg_name, variant)]
+        cache = autotune.ScheduleCache({
+            k: {**fixed, "block_m": n.attrs["config"].block_m}
+            for k, n in zip(autotune.graph_node_keys(untuned.graph),
+                            [n for n in untuned.graph if n.op in ("mvu", "conv_mvu")])})
+        if cfg_name == "nid":
+            gd = nid_mlp.load_golden()[variant]
+            graph, extra = nid_mlp.build_graph(gd["seed"]), {"folding": nid_mlp.foldings()}
+            xb = torch.from_numpy(nid.make_dataset(batch, seed=gd["data_seed"])[0]).to(dev)
+        else:
+            gd = cnv_bnn.load_golden()[variant]
+            graph, extra = cnv_bnn.build_graph(cnv_bnn.spec_for(gd["build"]), seed=gd["seed"]), {}
+            xb = torch.from_numpy(cnv_bnn.images(batch, gd["build"]["act_bits"],
+                                                 gd["data_seed"])).to(dev)
+        fixed_acc = build(graph, target="engine", tune="cache", cache=cache, device="cuda",
+                          **extra, **gd["build"])
+        check(fixed_acc.report.tune["cache_misses"] == 0,
+              f"tiles: the fixed-32 {cfg_name} build missed entries: {fixed_acc.report.tune}")
+        # the fixed 32 tile at the tuned plan's microbatch: the tuned arm's
+        # gain over it is the tuned nodes' alone
+        tuned_acc = tuned[(cfg_name, variant)]
+        cache.put(autotune.engine_key(fixed_acc.engine.graph),
+                  {"microbatch": tuned_acc.plan(batch).microbatch, "batch": batch})
+        fixed_mb = FusedEngine(fixed_acc.graph, tune="cache", cache=cache, fuse=False)
+        check((fixed_mb.plan(batch).n_micro, fixed_mb.plan(batch).microbatch)
+              == (tuned_acc.plan(batch).n_micro, tuned_acc.plan(batch).microbatch),
+              f"tiles: {cfg_name}: the fixed-32 engine at the tuned microbatch plans "
+              f"{fixed_mb.plan(batch)}, the tuned build {tuned_acc.plan(batch)}")
+        for arm in (fixed_acc, fixed_mb):
+            check(torch.equal(arm(xb), untuned(xb)),
+                  f"tiles: {cfg_name} {variant}: the fixed 32 tile's output differs")
+        arms = {"fixed 32": fixed_acc, "folding": untuned, "fixed 32 at the tuned microbatch":
+                fixed_mb, "tuned": tuned_acc}
+        secs = {a: [] for a in arms}
+        for arm in ("fixed 32", "folding", "fixed 32 at the tuned microbatch", "tuned", "tuned",
+                    "fixed 32 at the tuned microbatch", "folding", "fixed 32"):
+            secs[arm].append(acc_seconds(arms[arm], xb))
+        print(f"tiles: {cfg_name} {variant} batch {batch}: "
+              + "; ".join(f"{a} " + ", ".join(f"{batch / t:.1f}" for t in ts) + f" {unit}"
+                          for a, ts in secs.items())
+              + " (each the median of 7 acc(x), turns F U F' T T F' U F; fixed 32 = every "
+              "layer pinned to the 32 x 32 x 32 tile by a cache entry, its tiles "
+              f"{layer_tiles(fixed_acc, batch)}; {smi})", flush=True)
+        # the tuned plan must not fall behind the fixed 32 tile at its own
+        # microbatch beyond the turns' spread: the 32 tile is in every race
+        mean = {a: sum(ts) / len(ts) for a, ts in secs.items()}
+        spread = max((max(ts) - min(ts)) / min(ts) for ts in secs.values())
+        ratio = mean["fixed 32 at the tuned microbatch"] / mean["tuned"]
+        check(ratio >= 1 / (1 + spread),
+              f"tiles: {cfg_name} {variant}: the tuned plan runs at {ratio:.4f}x of the fixed "
+              f"32 tile at the tuned microbatch, below the turns' spread {spread:.4f}")
+        print(f"tiles: {cfg_name} {variant}: tuned / fixed 32 at the tuned microbatch = "
+              f"{ratio:.4f}x (mean times), turns' largest spread {spread:.4f}: met", flush=True)
+
+    with open(os.path.join(TRACE_DIR, "tiles.json"), "w") as f:
+        json.dump({"card": smi, "records": records, "by_kernel": out}, f)
+    print(f"tiles: phase done in {time.perf_counter() - t_phase:.2f} s wall; every time in "
+          "chiprun_out/tiles.json", flush=True)
+    return out
 
 
 def bound_of(nbytes: int, ops: int) -> tuple[float, str]:
@@ -1404,15 +1851,14 @@ def main() -> int:
 
     # ---------------------------------------------------------- 2. build
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(PTXAS_SOURCES)) as pool:
-        reports = [pool.submit(_cuda.ptxas_report, src) for src in PTXAS_SOURCES]
-        libs = _cuda.build_all(ops.LIBRARIES)
-        reports = [r.result() for r in reports]
+    libs = _cuda.build_all(ops.LIBRARIES)
     print(f"build: {', '.join(os.path.relpath(p, HERE) for p in libs)} in "
           f"{time.perf_counter() - t0:.2f} s (one nvcc per source, in parallel)", flush=True)
-    for src, report in zip(PTXAS_SOURCES, reports):
-        for line in ptxas_lines(report):
-            print(f"build: ptxas {src}: {line}", flush=True)
+    ptxas = {}  # kernel instance (demangled) -> its ptxas line
+    for lib in ops.LIBRARIES:
+        for line in ptxas_lines(lib.report()):
+            ptxas[line.split(": ")[0]] = line
+            print(f"build: ptxas {lib.source}: {line}", flush=True)
 
     # --------------------------------------------------------- 3. kernel
     dev = torch.device("cuda")
@@ -1431,10 +1877,11 @@ def main() -> int:
                                        dtype=torch.int32), dim=1).values.to(dev)
         scale = (torch.rand(n, generator=g) + 0.01).to(dev)
         a = torch.randint(0, 4, (m, k), generator=g, dtype=torch.int32).to(dev)
+        pt = path_tile("mvu_int", n, k)  # the layer's folding's tile, as the path launches it
         for lo, hi in ((-1, 2), (-128, 128)):
             w = torch.randint(lo, hi, (n, k), generator=g, dtype=torch.int8).to(dev)
             for t, s in ((None, None), (thr, None), (None, scale)):
-                got = K.mvu_int(a, w, t, s)
+                got = K.mvu_int(a, w, t, s, **pt)
                 want = K.mvu_int_plain(a, w, t, s)
                 torch.cuda.synchronize()
                 check(got.dtype == want.dtype and torch.equal(got, want),
@@ -1453,9 +1900,9 @@ def main() -> int:
             return ((c[:, :, None] >= tf[None]).sum(-1, dtype=torch.int32)
                     if tf is not None else c * s)
 
-        check(torch.equal(library(), K.mvu_int(a, w, t, s)),
+        check(torch.equal(library(), K.mvu_int(a, w, t, s, **pt)),
               f"the float32 yardstick disagrees with the kernel at M={m} N={n} K={k}")
-        kms = device_ms(lambda: K.mvu_int(a, w, t, s), reps=100)
+        kms = device_ms(lambda: K.mvu_int(a, w, t, s, **pt), reps=100)
         pms = device_ms(lambda: K.mvu_int_plain(a, w, t, s), reps=10)
         lms = device_ms(library, reps=100)
         bms, bby = bound(m, n, k, t.numel() * 4 if t is not None else s.numel() * 4)
@@ -1463,7 +1910,8 @@ def main() -> int:
         print(f"kernel: mvu_int M={m} N={n} K={k} "
               f"{f'{n_thr} thresholds' if t is not None else 'scale'}: "
               f"ms={kms:.5f} plain_ms={pms:.5f} library_ms={lms:.5f} "
-              f"bound_ms={bms:.6f} ({bby}) {dense_plan_text('mvu_int', m, n, k)}", flush=True)
+              f"bound_ms={bms:.6f} ({bby}) {dense_plan_text('mvu_int', m, n, k, **pt)}",
+              flush=True)
 
     for name in ("mvu_xnor", XNOR_PATH_ENTRY, "mvu_binary", "mvu_binary_packed",
                  "mvu_int2_packed"):
@@ -1474,8 +1922,9 @@ def main() -> int:
                                            dtype=torch.int32), dim=1).values.to(dev)
             scale = (torch.rand(n, generator=g) + 0.01).to(dev)
             fn, plain, args, af, wf, nbytes = new_kernel_case(name, m, n, k, g, dev)
+            pt = path_tile(name, n, k)
             for t, s in ((None, None), (thr, None), (None, scale)):
-                got = fn(*args, t, s)
+                got = fn(*args, t, s, **pt)
                 want = plain(*args, t, s)
                 torch.cuda.synchronize()
                 check(got.dtype == want.dtype and torch.equal(got, want),
@@ -1491,9 +1940,9 @@ def main() -> int:
                 return ((c[:, :, None] >= tf[None]).sum(-1, dtype=torch.int32)
                         if tf is not None else c * s)
 
-            check(torch.equal(library(), fn(*args, t, s)),
+            check(torch.equal(library(), fn(*args, t, s, **pt)),
                   f"the float32 yardstick disagrees with {name} at M={m} N={n} K={k}")
-            kms = device_ms(lambda: fn(*args, t, s), reps=100)
+            kms = device_ms(lambda: fn(*args, t, s, **pt), reps=100)
             pms = device_ms(lambda: plain(*args, t, s), reps=10)
             lms = device_ms(library, reps=100)
             bms, bby = bound_of(nbytes + (t.numel() if t is not None else n) * 4
@@ -1502,7 +1951,8 @@ def main() -> int:
             print(f"kernel: {name} M={m} N={n} K={k} "
                   f"{f'{n_thr} thresholds' if t is not None else 'scale'}: "
                   f"ms={kms:.5f} plain_ms={pms:.5f} library_ms={lms:.5f} "
-                  f"bound_ms={bms:.6f} ({bby}) {dense_plan_text(name, m, n, k)}", flush=True)
+                  f"bound_ms={bms:.6f} ({bby}) {dense_plan_text(name, m, n, k, **pt)}",
+                  flush=True)
 
     # the dense core: both arrangements, split K or not, at a ragged N
     n = 10
@@ -1836,6 +2286,7 @@ def main() -> int:
     served = serve_phase(dev, smi)
     tuned = tune_phase(dev, smi, path_accs)
     graph_phase(dev, smi, path_accs, tuned, served)
+    tiles = tiles_phase(dev, smi, ptxas, path_accs, tuned)
 
     # -------------------------------------------------------- 5. results
     mb = plan.microbatch
@@ -1874,7 +2325,9 @@ def main() -> int:
             "launches": n_launches, "max_abs_err": max_err[name],
             "ms": per_acc[0], "plain_ms": per_acc[1], "library_ms": per_acc[2],
             "bound_ms": per_acc[3],
-            "bound_by": "bytes" if all(r[4] == "bytes" for r in rows) else "operations"})
+            "bound_by": "bytes" if all(r[4] == "bytes" for r in rows) else "operations",
+            # each compiled tile on the main path's shapes (the tiles phase)
+            "tiles": tiles[name]})
     for variant, (mode, dense, _, _) in sorted(cnv_runs.items()):
         conv_ms = sum(timing[("conv_mvu", mode, 1, h, c, n)][0] for h, c, n in cnv_shapes)
         dense_ms = sum(timing[(dense, CNV_DENSE_M, n, k)][0] for n, k in cnv_dense)

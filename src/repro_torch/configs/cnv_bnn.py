@@ -12,7 +12,7 @@ float weights.  ``QUICK`` is a channel/image-scaled variant for tests.
 The JAX package's ``cpu|...`` tuned schedules are not carried over: the
 port's come from its autotuner on the card (``core/autotune.py``), and
 none is committed before the first benchmark measures them (ROADMAP queue
-A item 3, step 1); only per-layer kernel tiles wait for step 3.
+A item 3, step 1).
 
 ``GOLDEN`` names the file of the JAX package's ``FULL`` outputs on one
 fixed batch of numpy-seeded images, a digest per build variant (made by

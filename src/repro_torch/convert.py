@@ -12,9 +12,9 @@ a lowered node (``mvu``, ``conv_mvu``), ``params["mvu"]`` is a dict
 of ``weights`` / ``thresholds`` / ``out_scale`` arrays (None where absent)
 and ``attrs["config"]`` a dict of :class:`MVUConfig` fields, ``folding`` as
 ``{"pe", "simd"}`` and a tuned schedule (``blocks``) as a dict of
-:class:`KernelBlocks` fields (the CUDA kernels run one compiled tile, so
-only its ``block_m``, the burst, acts; per-layer tiles wait for ROADMAP
-queue A item 3, step 3).  The JAX package's backend names map to the
+:class:`KernelBlocks` fields (``block_m`` the burst; ``block_n`` /
+``block_k`` / ``block_kw`` / ``rows_per_tile`` pick the CUDA kernel's
+compiled tile, rounded up onto its set, as they pick the Pallas blocks).  The JAX package's backend names map to the
 port's: ``pallas`` -> ``cuda``, ``xla`` -> ``torch``.  Packed uint32 words
 arrive as the port's int32 bit patterns (see :func:`_tensor`).  Whoever
 holds the JAX graph makes the description (``np.asarray`` on each param);

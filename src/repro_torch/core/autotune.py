@@ -5,21 +5,27 @@ search over what the hand-written kernels can tell apart.
 The search, as in the JAX package:
 
   1. enumerate candidate schedules per MVU / conv-MVU node
-     (:func:`enumerate_candidates`: on the card, the node's own schedule
-     and, for a packable dense node, its packed datapath),
+     (:func:`enumerate_candidates`: the JAX package's tile candidates,
+     each mapped onto the compiled tile it launches, one candidate a
+     launched tile, in both storage forms of a packable dense node),
   2. prune them on the launch plan's dynamic shared memory against the
-     card's ``_cuda.SMEM_BYTES`` (the JAX package's VMEM budget),
+     card's ``_cuda.SMEM_BYTES`` (the JAX package's VMEM budget), order
+     them by the cycle model and cap them at ``max_measure``, then add the
+     node's own (folding) tile and the default 32 tile,
   3. measure them with the paired interleaved timer (:func:`paired_times`,
-     on the card's clock) against the node's own schedule, keeping only
+     on the card's clock), at the samples each of the engine's launches
+     gets, against the default 32 tile on the node's own storage (what
+     the node launched before the folding set its tile), keeping only
      bit-exact winners that beat it by ``margin``,
   4. record winners in a :class:`ScheduleCache` keyed by ``(device kind,
      op / conv geometry, mode, N, K, epilogue form, n_pixels)``, with a
      ``|packed`` suffix for packed storage.
 
 :func:`tune_graph` pins every node's entry (``tune="cache"`` only looks
-up, ``tune="auto"`` measures misses); :func:`tune_engine` then races the
-engine's microbatch tile on the host's clock and records it under
-:func:`engine_key`.
+up, ``tune="auto"`` measures misses at the engine's heuristic microbatch);
+:func:`tune_engine` then races the engine's microbatch tile on the host's
+clock, records it under :func:`engine_key`, and races every node again at
+the samples a launch gets under that tile.
 
 How the JAX package's search space maps onto the card:
 
@@ -29,16 +35,22 @@ How the JAX package's search space maps onto the card:
     backend="xla"            not a candidate: the port's backend="torch" is
                              the plain reference, and an entry naming it
                              raises on a node off the CPU (:func:`apply_entry`)
-    block_n / block_k /      recorded in the entry, ignored by the kernels
-    block_kw / rows_per_tile (compiled for one tile, ``_cuda.py``), so not
-                             enumerated: each would time a launch against
-                             itself
+    block_n / block_k /      raced: each candidate rounded up onto the
+    block_kw / rows_per_tile kernels' compiled tiles (:func:`launched_tile`;
+                             ``dense_mvu.DENSE_TILES``,
+                             ``swu_mvu.CONV_TILES``); candidates that launch
+                             one tile are one candidate, so nothing is timed
+                             against itself.  The entry records the launched
+                             tile; a dense candidate pins its output rows
+                             a block in ``rows_per_tile``
     block_m                  a node candidate carries the node's own: the
-                             microbatch is :func:`tune_engine`'s axis alone
+                             microbatch is :func:`tune_engine`'s axis, and
+                             a node is raced at the samples (dense rows,
+                             conv images) a launch gets under it
     packed                   raced on the card's clock: ``mvu_int`` vs
                              ``mvu_int2_packed``, ``mvu_binary`` vs
                              ``mvu_binary_packed``; xnor is natively packed
-    VMEM pruning             the packed launch plan's ``smem_bytes``
+    VMEM pruning             the candidate's launch plan's ``smem_bytes``
 
 A candidate runs on the device its node's parameters lie on: on a CUDA
 tensor the kernels launch (or raise), on a CPU tensor their plain
@@ -55,6 +67,7 @@ for a graph's input (the serving warm-up and canary use it too).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 import json
 import os
@@ -64,15 +77,17 @@ import numpy as np
 import torch
 
 from repro_torch.core import ir
+from repro_torch.core.folding import Folding, block_candidates, divisors
 from repro_torch.core.ir import Graph, Node
-from repro_torch.core.lowering import packable
-from repro_torch.core.mvu import KernelBlocks, MVUConfig
+from repro_torch.core.lowering import pack_weights, packable
+from repro_torch.core.mvu import KernelBlocks, MVUConfig, MVUParams
+from repro_torch.core.swu import out_dim
 from repro_torch.kernels import ops, packing
 from repro_torch.kernels.ops import BACKEND_NAMES
-from repro_torch.kernels._cuda import SMEM_BYTES
+from repro_torch.kernels._cuda import BLOCK_K, BLOCK_N, SMEM_BYTES
 from repro_torch.kernels.dense_mvu import CODING, dense_launch_plan
-from repro_torch.kernels.mvu_packed import pack_mvu_weights
-from repro_torch.kernels.swu_mvu import conv_launch_plan
+from repro_torch.kernels.mvu_packed import pack_mvu_weights, unpack_mvu_weights
+from repro_torch.kernels.swu_mvu import conv_launch_plan, conv_rows_per_tile
 
 CACHE_VERSION = 1
 DEFAULT_CACHE_PATH = os.path.join("experiments", "autotune", "cache.json")
@@ -291,25 +306,65 @@ def _heuristic_blocks(cfg: MVUConfig) -> KernelBlocks:
     return KernelBlocks.from_blocks({**cfg.kernel_blocks(), "block_m": cfg.block_m})
 
 
+def _default_blocks(cfg: MVUConfig) -> KernelBlocks:
+    """The default 32 tile at the node's burst: what every layer launched
+    before the folding set the tile."""
+    return KernelBlocks(block_m=cfg.block_m, block_n=BLOCK_N, block_k=BLOCK_K, block_kw=BLOCK_K)
+
+
 def natively_packed(cfg: MVUConfig, backend: str) -> bool:
     """Whether this (coding, backend) kernel already IS the packed datapath:
     the xnor kernel takes packed words for both operands (paper Fig. 4a)."""
     return cfg.mode == "xnor" and backend == "cuda"
 
 
-def _dense_smem_bytes(cfg: MVUConfig, packed: bool) -> int:
-    """Dynamic shared memory of the launch a dense candidate makes: the
-    plan of its kernel (``ops.kernel_name``) at one burst of ``block_m``
-    samples, K in the kernel's unit (words for packed xnor)."""
-    coding = CODING[ops.kernel_name(cfg.mode, packed)]
-    k = cfg.in_features
-    units = packing.num_words(k) if coding == "words" else k
-    return dense_launch_plan(cfg.block_m, cfg.out_features, units, coding).smem_bytes
+def launched_tile(cfg: MVUConfig, blocks: KernelBlocks, packed: bool, *, m: int | None = None,
+                  conv: dict | None = None, in_shape: tuple | None = None):
+    """``(tile, smem_bytes)``: what a candidate launches on ``m`` samples
+    (dense rows, conv images; None: the node's burst, ``cfg.block_m``
+    rows or one image) -- the launch plan's arrangement and compiled tile,
+    and its dynamic shared memory.  A dense launch of at most 8 rows runs
+    the gemv arrangement, which has no tile."""
+    kw = blocks.as_kwargs(cfg.mode, packed)
+    n, k = cfg.out_features, cfg.in_features
+    if conv is not None:
+        h, w, c = in_shape
+        plan = conv_launch_plan(m or 1, h, w, c, n, conv["kernel"], conv["stride"], conv["pad"],
+                                block_n=kw["block_n"], rows_per_tile=kw.get("rows_per_tile"))
+        return (plan.arrangement, plan.tile_m, plan.tile_n), plan.smem_bytes
+    kernel = ops.kernel_name(cfg.mode, packed)
+    units = packing.num_words(k) if CODING[kernel] == "words" else k
+    tile = ops.tile_kwargs(kernel, **kw)
+    plan = dense_launch_plan(m or cfg.block_m, n, units, CODING[kernel], block_n=tile["block_n"],
+                             block_k=tile.get("block_k", tile.get("block_kw")),
+                             rows_per_tile=tile["rows_per_tile"])
+    return (plan.arrangement, plan.tile_m, plan.tile_n, plan.kstep), plan.smem_bytes
+
+
+def _tile_candidates(cfg: MVUConfig, conv: dict | None, in_shape: tuple | None,
+                     packed: bool) -> list[KernelBlocks]:
+    """The JAX package's tile candidates for a node, at its own burst: for
+    a dense node ``folding.block_candidates`` over the output rows a block
+    (``rows_per_tile``); for a conv node ``block_n`` over the divisors of N
+    and the pixel tile of ``block_m`` in (32, 128, 256), as the JAX search
+    makes them, and the untuned 32-pixel tile."""
+    n, k = cfg.out_features, cfg.in_features
+    if conv is not None:
+        h, w, _ = in_shape
+        oh = out_dim(h, conv["kernel"], conv["stride"], conv["pad"])
+        ow = out_dim(w, conv["kernel"], conv["stride"], conv["pad"])
+        rows = [None, *(conv_rows_per_tile(oh, ow, bm) for bm in (32, 128, 256))]
+        return [KernelBlocks(block_m=cfg.block_m, block_n=bn, rows_per_tile=r) for r in rows
+                for bn in sorted({max(8, d) for d in divisors(n)} | {128}) if bn <= 512]
+    return [KernelBlocks.from_blocks({**blk, "block_m": cfg.block_m, "rows_per_tile": rows})
+            for blk in block_candidates(n, k, cfg.mode, block_ms=(cfg.block_m,), packed=packed)
+            for rows in (32, 64)]
 
 
 def enumerate_candidates(
     cfg: MVUConfig,
     *,
+    m: int | None = None,
     n_pixels: int = 1,
     in_shape: tuple | None = None,
     conv: dict | None = None,
@@ -317,32 +372,58 @@ def enumerate_candidates(
     max_measure: int = 8,
 ) -> list[Candidate]:
     """One node's candidates on the card, every one ``backend="cuda"`` at
-    the node's own schedule and ``block_m``: the challengers first, then
-    the node's own schedule (the incumbent, never pruned).
+    the node's own ``block_m``, one for each compiled tile it launches on
+    ``m`` samples (:func:`launched_tile`).
 
-    The one challenger is the packed datapath of a packable dense node
-    that is not xnor (natively packed), dropped when its launch plan needs
-    more than ``smem_bytes`` of shared memory; ``max_measure`` caps the
-    challengers.  The JAX package's tile axes
-    (``folding.block_candidates``) are not enumerated: the kernels ignore
-    them (see the module doc), so each would time a launch against itself.
+    The JAX package's tile candidates (:func:`_tile_candidates`), in both
+    storage forms of a packable dense node that is not xnor (natively
+    packed), are mapped onto their launched tiles and pinned there (the
+    entry records the launched tile); those whose launch plan needs more
+    than ``smem_bytes`` of shared memory are dropped, the rest ordered by
+    the cycle model on the launched tile (output columns a block as PE, K
+    step as SIMD, as the JAX search orders by its blocks' folding; ties by
+    shared memory) and capped at ``max_measure``.  Then the default 32
+    tile (:func:`tune_node`'s incumbent), the packed datapath at the
+    node's own tile (a packable node; pruned on ``smem_bytes`` too) and,
+    last, the node's own schedule (its folding's tile) take the place of
+    any candidate that launches their tile: the default and the folding's
+    are never pruned, so a tuned plan can only match or beat them.
     """
+    launch = functools.partial(launched_tile, cfg, m=m, conv=conv, in_shape=in_shape)
     n, k = cfg.out_features, cfg.in_features
-    own_blocks = _heuristic_blocks(cfg)
-    cycles = cfg.resolved_folding().cycles(n, k, n_pixels)
-    if conv is not None:
-        h, w, c = in_shape
-        smem = conv_launch_plan(1, h, w, c, n, conv["kernel"], conv["stride"],
-                                conv["pad"]).smem_bytes
-        return [Candidate("cuda", own_blocks, cycles, smem)]
-    challengers = []
-    if packable(cfg) and cfg.mode != "xnor":
-        twin = Candidate("cuda", own_blocks, cycles, _dense_smem_bytes(cfg, True), packed=True)
-        if twin.smem_bytes <= smem_bytes:
-            challengers.append(twin)
-    own = Candidate("cuda", own_blocks, cycles, _dense_smem_bytes(cfg, False),
-                    packed=natively_packed(cfg, "cuda"))
-    return challengers[:max_measure] + [own]
+    storage = cfg.packed or natively_packed(cfg, "cuda")  # the node's own datapath
+
+    def tile_of(c: Candidate) -> tuple:
+        return c.packed, launch(c.blocks, c.packed)[0]
+
+    twin = conv is None and packable(cfg) and cfg.mode != "xnor"  # a packed datapath to race
+    forms = [False, True] if twin else [False]
+    found: dict[tuple, Candidate] = {}
+    for pk in forms:
+        for blocks in _tile_candidates(cfg, conv, in_shape, pk):
+            tile, smem = launch(blocks, pk)
+            tn, step = tile[2], (32 if conv is not None else tile[3])  # conv: 32 taps a step
+            pinned = KernelBlocks(block_m=cfg.block_m, block_n=tn, block_k=step, block_kw=step,
+                                  rows_per_tile=blocks.rows_per_tile if conv is not None
+                                  else tile[1])
+            cand = Candidate("cuda", pinned, Folding(tn, step).cycles(n, k, n_pixels), smem,
+                             packed=pk or natively_packed(cfg, "cuda"))
+            if smem <= smem_bytes:
+                found.setdefault(tile_of(cand), cand)
+    shortlist = sorted(found.values(), key=lambda c: (c.predicted_cycles, c.smem_bytes))
+    shortlist = shortlist[:max_measure]
+    own = _heuristic_blocks(cfg)
+    fixed = [(_default_blocks(cfg), storage, Folding(BLOCK_N, BLOCK_K).cycles(n, k, n_pixels))]
+    if twin and not storage:  # the packed datapath at the node's own tile
+        fixed.append((own, True, cfg.resolved_folding().cycles(n, k, n_pixels)))
+    fixed.append((own, storage, cfg.resolved_folding().cycles(n, k, n_pixels)))
+    for blocks, pk, cycles in fixed:
+        smem = launch(blocks, pk)[1]
+        cand = Candidate("cuda", blocks, cycles, smem, packed=pk)
+        if pk != storage and smem > smem_bytes:
+            continue
+        shortlist = [c for c in shortlist if tile_of(c) != tile_of(cand)] + [cand]
+    return shortlist
 
 
 # -------------------------------------------------------------------- timer
@@ -435,14 +516,13 @@ paired_timer = paired_times
 # -------------------------------------------------------------- measurement
 def _synth_activations(cfg: MVUConfig, m: int, in_shape: tuple | None,
                        conv: dict | None, device, seed: int = 0) -> torch.Tensor:
-    """Seeded activations for one node's candidates, on ``device``: one
-    image for a conv node (the engine's heuristic conv microbatch), else
-    ``m`` rows (packed words for xnor)."""
+    """Seeded activations for one node's candidates, on ``device``: ``m``
+    images for a conv node, else ``m`` rows (packed words for xnor)."""
     rng = np.random.default_rng(seed)
     if conv is not None:
         h, w, c = in_shape
         hi = 2 if cfg.mode == "xnor" else 2**cfg.act_bits
-        x = rng.integers(0, hi, (1, h, w, c))
+        x = rng.integers(0, hi, (m, h, w, c))
     elif cfg.mode == "xnor":
         x = rng.integers(0, 2, (m, cfg.in_features))
     else:
@@ -491,7 +571,7 @@ def tune_node(
     in_shape: tuple | None = None,
     *,
     smem_bytes: int = SMEM_BYTES,
-    sample_m: int = 256,
+    sample_m: int | None = None,
     reps: int = 3,
     max_measure: int = 8,
     margin: float = 0.05,
@@ -502,13 +582,20 @@ def tune_node(
     """Measure the pruned shortlist for one finalized mvu / conv_mvu node,
     on the device its parameters lie on; returns the winning cache entry.
 
-    A candidate whose output is not bit-exact with the node's own schedule
-    is discarded, and a challenger must beat the incumbent by ``margin``.
-    Candidates are timed on the card's clock (``clock="device"``): the
-    kernels differ there, while the host's launch path is the same.  A
-    candidate the launch cannot tell apart from the incumbent is not
-    timed.  No candidate's build or launch is guarded: a kernel that fails
-    to build or launch fails the tune.
+    The race runs on ``sample_m`` samples, what each of the engine's
+    launches gets: rows of a dense node, images of a conv node (None: the
+    node's own burst, ``block_m // n_pixels`` samples); a tile that wins
+    on other rows can lose on these.  The incumbent is the default 32
+    tile on the node's own storage, the launch before the folding set the
+    tile, so a tuned node never falls behind it by more than the timer's
+    noise.  A candidate whose output is not bit-exact with the
+    incumbent's is discarded, and a challenger must beat the incumbent by
+    ``margin``.  Candidates are timed on the card's clock
+    (``clock="device"``): the kernels differ there, while the host's
+    launch path is the same.  A candidate that launches the incumbent's
+    kernel and tile is not timed.  No candidate's build or launch is
+    guarded: a kernel that fails to build or launch fails the tune.  The
+    entry records ``sample_m``.
     """
     timer = timer if timer is not None else paired_timer
     cfg: MVUConfig = node.attrs["config"]
@@ -518,20 +605,22 @@ def tune_node(
     if node.op == "conv_mvu":
         conv = {k: node.attrs[k] for k in ("kernel", "stride", "pad")}
         n_pixels = ir.n_pixels(ir.propagate(node, in_shape))
-    cands = enumerate_candidates(cfg, n_pixels=n_pixels, in_shape=in_shape, conv=conv,
+    m = sample_m or max(1, cfg.block_m // n_pixels)
+    cands = enumerate_candidates(cfg, m=m, n_pixels=n_pixels, in_shape=in_shape, conv=conv,
                                  smem_bytes=smem_bytes, max_measure=max_measure)
 
-    x = _synth_activations(cfg, sample_m, in_shape, conv, params.weights.device, seed=seed)
-    base_cycles = cfg.resolved_folding().cycles(cfg.out_features, cfg.in_features, n_pixels)
-    base = Candidate(cfg.backend, _heuristic_blocks(cfg), base_cycles, 0,
-                     packed=cfg.packed or natively_packed(cfg, cfg.backend))
+    x = _synth_activations(cfg, m, in_shape, conv, params.weights.device, seed=seed)
+    base = Candidate(cfg.backend, _default_blocks(cfg),
+                     Folding(BLOCK_N, BLOCK_K).cycles(cfg.out_features, cfg.in_features, n_pixels),
+                     0, packed=cfg.packed or natively_packed(cfg, cfg.backend))
     base_fn = _node_fn(cfg, params, base, conv)
     want = _wait(base_fn(x))
 
     def effective(c: Candidate) -> tuple:
-        """What the launch consumes: the kernel (backend and storage); the
-        conv kernel has one storage form."""
-        return (c.backend,) if conv is not None else (c.backend, c.packed)
+        """What the launch consumes: the kernel (backend and storage) and
+        the compiled tile it launches."""
+        return (c.backend, c.packed,
+                launched_tile(cfg, c.blocks, c.packed, m=m, conv=conv, in_shape=in_shape)[0])
 
     best, best_speed = base, 1.0
     measured = 0
@@ -557,6 +646,7 @@ def tune_node(
         measured_candidates=measured,
         epilogue=epilogue_form(params),
         n_pixels=int(n_pixels),
+        sample_m=int(m),
     )
 
 
@@ -601,7 +691,8 @@ def tune_graph(
     ``mode="cache"`` is a pure lookup: hits rewrite the node's config,
     misses keep its schedule, nothing is measured.  ``mode="auto"``
     measures misses with :func:`tune_node` (on the device the graph's
-    parameters lie on) and fills the cache.  ``device`` is the cache scope
+    parameters lie on; by default at the engine's heuristic microbatch,
+    ``DataflowSchedule.burst_samples``) and fills the cache.  ``device`` is the cache scope
     (see the module doc; None: the graph's device).  Returns a new graph;
     the caller's keeps its configs.
     """
@@ -628,6 +719,10 @@ def tune_graph(
             # rewrite (xnor storage is words either way)
             entry = None
         elif entry is None and mode == "auto":
+            if tune_kwargs.get("sample_m") is None:
+                from repro_torch.core.dataflow import schedule
+
+                tune_kwargs = {**tune_kwargs, "sample_m": schedule(graph).burst_samples}
             entry = tune_node(node, ins[0] if ins else None, timer=timer,
                               smem_bytes=smem_bytes, allow_packed=allow_packed,
                               **tune_kwargs)
@@ -659,6 +754,21 @@ def synth_input(graph: Graph, batch: int, seed: int = 0, *,
     return x if device is None else x.to(device)
 
 
+def _canonical(node: Node) -> Node:
+    """A tuned node as the build's tune step raced it: its folding's
+    schedule on canonical storage (a packed node's weights unpacked)."""
+    cfg: MVUConfig = node.attrs["config"]
+    params = node.params["mvu"]
+    w = params.weights
+    if cfg.packed:
+        w = unpack_mvu_weights(w, cfg.mode, cfg.in_features)
+    return Node(node.op, node.name,
+                {**node.attrs,
+                 "config": MVUConfig(**{**cfg.__dict__, "blocks": None, "packed": False})},
+                {**node.params, "mvu": MVUParams(w, params.thresholds, params.out_scale)},
+                inputs=node.inputs)
+
+
 def tune_engine(
     graph: Graph,
     batch: int,
@@ -670,21 +780,38 @@ def tune_engine(
     margin: float = 0.1,
     timer=None,
     seed: int = 0,
+    pack: str = "auto",
+    node_kwargs: dict | None = None,
 ) -> dict:
     """Race the engine's microbatch tile (FINN's FIFO-depth analog) on the
-    device the graph's parameters lie on.
+    device the graph's parameters lie on, then race every node again at
+    the samples a launch gets under the winner.
 
     Builds cache-tuned engines over the candidate tiles (default: the
     heuristic tile h and 2h, 4h, 8h and the whole batch), holds each to
     the heuristic plan's output bit for bit, times each against it with
-    the paired timer and records the winner under :func:`engine_key` of
-    the engine's graph.  Each engine's first call (the bit-exactness
-    check) captures its CUDA graph on the card, so the timer races
-    replays, as the JAX tuner races jitted programs.  The node entries
-    must already be in ``cache``; a prior engine entry there is ignored,
-    so the speedup is always against the heuristic plan.  A challenger
-    must beat the incumbent by ``margin``.
+    the paired timer and keeps the winner.  Each engine's first call (the
+    bit-exactness check) captures its CUDA graph on the card, so the timer
+    races replays, as the JAX tuner races jitted programs.  The node
+    entries race in ``cache`` as they stand (missing ones keep their
+    schedules); a prior engine entry there is ignored, so the speedup is
+    always against the heuristic plan.  A challenger must beat the
+    incumbent by ``margin``.
+
+    Then every node (once a cache key), on its folding's schedule, is
+    raced again with :func:`tune_node` (``seed`` and ``node_kwargs``, its
+    ``timer`` among them) on the samples each launch gets at the winning
+    tile, and its entry replaced: a tile or datapath raced on other rows
+    can lose on these.  ``pack`` is the build's policy
+    (``BuildConfig.pack``), so the node races what the build will run:
+    ``"auto"`` both storage forms from canonical weights (a packed node's
+    unpacked), ``"never"`` canonical storage alone, ``"always"`` a
+    packable node's packed storage alone.  The engine entry goes under
+    :func:`engine_key` of the graph those entries and ``pack`` give,
+    which a ``tune="cache"`` rebuild looks up.
     """
+    if pack not in ("auto", "never", "always"):
+        raise ValueError(f"pack must be 'auto', 'never' or 'always', got {pack!r}")
     from repro_torch.core.engine import FusedEngine
 
     timer = timer if timer is not None else paired_timer
@@ -699,7 +826,7 @@ def tune_engine(
     x = synth_input(graph, batch, seed=seed, device=base.device)
     want = _wait(base(x))
 
-    best_tile, best_speed = heur_tile, 1.0
+    best, best_tile, best_speed = base, heur_tile, 1.0
     for tile in tiles:
         if tile == heur_tile or tile < 1:
             continue
@@ -711,8 +838,27 @@ def tune_engine(
             continue
         _, _, speedup = timer(base, cand, x, reps=reps)
         if speedup > best_speed * (1.0 + margin):
-            best_tile, best_speed = int(tile), speedup
+            best, best_tile, best_speed = cand, int(tile), speedup
+    samples = best.plan(batch).microbatch
+    canonical = Graph()
+    for node in base.graph:
+        canonical.append(_canonical(node) if _tunable(node) else node)
+    scope = _graph_scope(canonical, device)
+    raced = set()
+    for node, ins, out_shape in ir.io_shapes(canonical):
+        key = _key_of(node, ins, out_shape, scope) if _tunable(node) else None
+        if key is None or key in raced:
+            continue
+        raced.add(key)
+        if pack == "always":
+            node = pack_weights(Graph([node]), force=True)[0]
+        cache.put(key, tune_node(node, ins[0] if ins else None, sample_m=samples, seed=seed,
+                                 allow_packed=pack != "never", **(node_kwargs or {})))
+    tuned = tune_graph(canonical, cache=cache, mode="cache", device=device,
+                       allow_packed=pack != "never")
+    if pack != "never":
+        tuned = pack_weights(tuned, force=pack == "always")
     entry = {"microbatch": int(best_tile), "speedup": float(best_speed),
              "batch": int(batch)}
-    cache.put(engine_key(base.graph, device=device), entry)
+    cache.put(engine_key(tuned, device=device), entry)
     return entry

@@ -64,6 +64,13 @@ class DataflowSchedule:
         return self.bottleneck.cycles
 
     @property
+    def burst_samples(self) -> int:
+        """Samples in the smallest stage burst (``block_m // n_pixels``
+        whole samples, images for a conv stage; at least 1): the engine's
+        heuristic microbatch, so what each of its launches gets."""
+        return min(max(1, s.block_m // s.n_pixels) for s in self.stages)
+
+    @property
     def latency_cycles(self) -> int:
         if self.critical_path_cycles is not None:
             return self.critical_path_cycles
@@ -202,6 +209,7 @@ def node_runner(node):
     if node.op == "conv_mvu":
         cfg: MVUConfig = node.attrs["config"]
         kd, st, pd = node.attrs["kernel"], node.attrs["stride"], node.attrs["pad"]
+        blocks = cfg.kernel_blocks()  # the tile every launch of the stage takes
 
         def run_conv(p, x):
             b, h, w, _ = x.shape
@@ -209,6 +217,7 @@ def node_runner(node):
                 x, p.weights, kernel=kd, stride=st, pad=pd, mode=cfg.mode,
                 k_bits=cfg.in_features if cfg.mode == "xnor" else None,
                 thresholds=p.thresholds, out_scale=p.out_scale, backend=cfg.backend,
+                **blocks,
             )  # (B, OH*OW, N)
             return out.reshape(b, swu_mod.out_dim(h, kd, st, pd),
                                swu_mod.out_dim(w, kd, st, pd), cfg.out_features)
@@ -233,6 +242,7 @@ def node_runner(node):
         layer = MVULayer(cfg)
         if cfg.mode != "xnor":
             return node.params["mvu"], layer
+        tile = ops.tile_kwargs("mvu_xnor_bits", **layer.blocks)
 
         def run_xnor(p, x):
             # activations stream between nodes as integer levels (int32, as
@@ -242,7 +252,7 @@ def node_runner(node):
             # plain version
             if cfg.backend == "cuda" and x.device.type != "cpu":
                 out = mvu_xnor.mvu_xnor_bits(x.reshape(-1, x.shape[-1]), p.weights,
-                                             p.thresholds, p.out_scale)
+                                             p.thresholds, p.out_scale, **tile)
                 return out.reshape(*x.shape[:-1], cfg.out_features)
             return layer(p, packing.pack_bits(x))
 

@@ -171,11 +171,15 @@ class _GraphCache:
 
     The key (:meth:`key`) is what a replay bakes in: the device, the
     input's shape and dtype, ``n_micro`` and the address of every
-    parameter tensor, so a replica's ``params_on`` copy or a retuned tile
-    gets a graph of its own.  :meth:`run` on a new key runs the stream
-    eagerly, which is that call's result (it builds and loads the kernel
-    libraries and modules and caches the launch plans, so none of that
-    happens while the stream captures), then captures it with
+    parameter tensor, so a replica's ``params_on`` copy or a retuned
+    microbatch gets a graph of its own.  What each stage launches (its
+    kernel and tile) is not in the key: an engine fixes its stages in
+    ``__init__`` and owns its cache, so a retuned or refolded build, even
+    on the same parameter tensors, is a new engine with a new cache.
+    :meth:`run` on a new key runs the stream eagerly, which is that call's
+    result (it builds and loads the kernel libraries and modules and
+    caches the launch plans, so none of that happens while the stream
+    captures), then captures it with
     ``capture(fn, static_x, pool, stream) -> (replay, static_out)``.  A
     later call copies its input into the static input, replays, and
     returns a clone of the static output: batches in flight never share
@@ -329,7 +333,7 @@ class FusedEngine(nn.Module):
         fifo_bound = max(2, min(st.fifo_depth for st in s.stages))
         # an engine-level autotune entry (autotune.tune_engine) overrides
         # the heuristic tile; microbatches= overrides both
-        tile = self._tile or min(max(1, st.block_m // st.n_pixels) for st in s.stages)
+        tile = self._tile or s.burst_samples
         n_micro = max(1, min(math.ceil(batch / tile), batch))
         if self._microbatches is not None:
             n_micro = max(1, min(self._microbatches, batch))

@@ -9,8 +9,9 @@ onto a PE x SIMD array:
     total cycles = n_pixels * NF * SF
 
 The cycle model is the paper's FPGA schedule and gives the JAX reference's
-numbers exactly.  What runs on the GPU is :func:`to_gpu_blocks`: the tile
-the CUDA kernel is compiled for, whatever the folding.
+numbers exactly.  What runs on the GPU follows the folding too:
+:func:`to_gpu_blocks` maps (PE, SIMD) onto the CUDA kernels' compiled
+tiles, as the JAX package's ``to_tpu_blocks`` maps it onto Pallas blocks.
 
 The pipeline balancer reproduces FINN's *Folding and Resource Estimation*
 pass: given a cycle target, assign each layer the smallest PE*SIMD product
@@ -122,20 +123,31 @@ def balance_pipeline(
     ]
 
 
-def to_gpu_blocks() -> dict[str, int]:
-    """The tile the CUDA MVU kernels run: (block_m, block_n, block_k).
+def to_gpu_blocks(fold: Folding, mode: str, m: int = 128, *,
+                  packed: bool = False) -> dict[str, int]:
+    """Map (PE, SIMD) onto the CUDA kernels' tiles: the counterpart of the
+    JAX package's ``to_tpu_blocks``.
 
-    Every kernel in ``kernels/csrc/`` is compiled for one tile, whatever the
-    folding, mode or packing; ``block_k`` counts synapses a K step (32-bit
-    words for the xnor kernel's packed entry, which stages them as they
-    are; the packed kernels stage a step's weights in their packed form).
-    The folding keeps describing the FPGA schedule (cycles, memory depths).
-    The autotuner races the packed datapath and the engine's microbatch;
-    per-layer kernel tiles wait for ROADMAP queue A item 3, step 3.
+    ``block_n`` is PE (output columns in parallel) rounded up to the next
+    compiled ``tile_n`` (``kernels/dense_mvu.py`` TILE_NS: 32, 64), and
+    ``block_k`` SIMD (synapses a step) rounded up to the next compiled K
+    step (KSTEPS: 32, 64, 128), each the largest where the folding
+    exceeds the set: the minimum is 32, where the TPU's is 8.  The xnor
+    and packed binary datapaths step K in 32-bit words and take
+    ``block_kw``: their kernels stage one word a column (32 words a row
+    for packed xnor operands) a step, whatever SIMD, so it is 32.
+    ``block_m`` is the node's burst ``m`` (the engine's microbatch), not
+    a kernel tile: the dense kernels' output rows a block and a conv's
+    pixels are 32 unless a tuned entry pins ``rows_per_tile``.  The conv kernel takes ``block_n`` and steps K
+    by 32 taps, whatever ``block_k``, as the JAX conv kernel ignores it.
     """
-    from repro_torch.kernels._cuda import BLOCK_K, BLOCK_M, BLOCK_N
+    from repro_torch.kernels._cuda import round_up_to
+    from repro_torch.kernels.dense_mvu import KSTEPS, TILE_NS
 
-    return {"block_m": BLOCK_M, "block_n": BLOCK_N, "block_k": BLOCK_K}
+    block_n = round_up_to(fold.pe, TILE_NS)
+    if mode == "xnor" or (packed and mode == "binary"):
+        return {"block_m": m, "block_n": block_n, "block_kw": KSTEPS[0]}
+    return {"block_m": m, "block_n": block_n, "block_k": round_up_to(fold.simd, KSTEPS)}
 
 
 def block_candidates(
@@ -154,8 +166,8 @@ def block_candidates(
     full-tile defaults; ``block_kw`` (xnor and the packed binary datapath)
     over divisors of the packed word count; packed 2-bit block_k held to
     whole bytes.  Unique dicts; ordering and pruning are the caller's job
-    (``repro_torch.core.autotune``, which records these fields in an entry
-    and times only what the launch can tell apart).
+    (``repro_torch.core.autotune``, which maps each onto the compiled tile
+    it launches and times one candidate a tile).
     """
     bns = sorted({max(8, d) for d in divisors(n)} | {128})
     bns = [b for b in bns if b <= max(max_block, 8)]

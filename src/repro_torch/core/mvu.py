@@ -9,6 +9,7 @@ comes with the LM slice (ROADMAP queue A item 7).
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -36,13 +37,16 @@ class KernelBlocks:
     """An explicit tile schedule for one MVU instance, in the JAX package's
     fields.
 
-    The autotuner (``repro_torch.core.autotune``) pins a tuned entry's
-    schedule here.  On the card only ``block_m`` acts: it is the node's
-    burst (``MVUConfig.block_m``, the engine's microbatch).  The CUDA
-    kernels are compiled for one tile (``folding.to_gpu_blocks``), so
-    ``block_n`` / ``block_k`` / ``block_kw`` / ``rows_per_tile`` are
-    recorded and ignored.  Hashable so tuned configs stay usable as set
-    and dict members like untuned ones.
+    ``folding.to_gpu_blocks`` derives one from a (PE, SIMD) folding; the
+    autotuner (``repro_torch.core.autotune``) instead races the compiled
+    tiles and pins the winner here.  ``block_m`` is the node's burst
+    (``MVUConfig.block_m``, the engine's microbatch); ``block_n`` and
+    ``block_k`` (``block_kw`` on the word datapaths) pick the kernel's
+    output columns a block and K step, and ``rows_per_tile`` its output
+    rows a block (dense rows; a conv's rows of pixels), each rounded up
+    onto the compiled set (``kernels/dense_mvu.py::dense_tile``,
+    ``kernels/swu_mvu.py::conv_tile``).  Hashable so tuned configs stay
+    usable as set and dict members like untuned ones.
     """
 
     block_m: int = 128
@@ -52,10 +56,10 @@ class KernelBlocks:
     rows_per_tile: int | None = None  # conv line-buffer rows per grid step
 
     def as_kwargs(self, mode: str, packed: bool = False) -> dict[str, int]:
-        """The tile kwargs the kernel entry points take (the dense path
-        ignores ``rows_per_tile``, the conv path the K blocks; both accept
-        the full set).  The packed binary datapath steps K in 32-bit words
-        like xnor, so it takes ``block_kw``."""
+        """The tile kwargs the kernel entry points take (the conv path
+        ignores the K blocks; both paths accept the full set).  The packed
+        binary datapath steps K in 32-bit words like xnor, so it takes
+        ``block_kw``."""
         if mode == "xnor" or (packed and mode == "binary"):
             out = {"block_m": self.block_m, "block_n": self.block_n,
                    "block_kw": self.block_kw}
@@ -96,13 +100,13 @@ class MVUConfig:
 
     def kernel_blocks(self) -> dict[str, int]:
         """The schedule's tile kwargs: the tuned ``blocks`` where pinned,
-        else the node's burst and the tile the kernels are compiled for
-        (``folding.to_gpu_blocks``).  The untuned path resolves the
-        folding, so an illegal explicit folding raises here too."""
+        else the folding's (``folding.to_gpu_blocks``) at the node's
+        burst.  The untuned path resolves the folding, so an illegal
+        explicit folding raises here too."""
         if self.blocks is not None:
             return self.blocks.as_kwargs(self.mode, self.packed)
-        self.resolved_folding()
-        return {**to_gpu_blocks(), "block_m": self.block_m}
+        return to_gpu_blocks(self.resolved_folding(), self.mode, self.block_m,
+                             packed=self.packed)
 
 
 @dataclasses.dataclass
@@ -123,6 +127,12 @@ class MVUParams:
 class MVULayer:
     def __init__(self, config: MVUConfig):
         self.config = config
+
+    @functools.cached_property
+    def blocks(self) -> dict[str, int]:
+        """The config's tile kwargs (``MVUConfig.kernel_blocks``), resolved
+        once: every call launches that tile."""
+        return self.config.kernel_blocks()
 
     def init_params(self, generator: torch.Generator, device=None) -> MVUParams:
         """Random integer weights on the mode's grid (tests/benchmarks)."""
@@ -169,7 +179,7 @@ class MVULayer:
             x.reshape(-1, x.shape[-1]), w, cfg.mode,
             k_bits=cfg.in_features if cfg.mode == "xnor" or cfg.packed else None,
             thresholds=params.thresholds, out_scale=params.out_scale,
-            backend=cfg.backend, packed=cfg.packed,
+            backend=cfg.backend, packed=cfg.packed, **self.blocks,
         )
         return out.reshape(*lead, cfg.out_features)
 

@@ -24,6 +24,7 @@ from repro_torch.core.folding import (
     to_gpu_blocks,
     weight_mem_depth,
 )
+from repro_torch.kernels._cuda import BLOCK_M
 from repro_torch.kernels.packing import num_int2_bytes, num_words
 
 # The paper's RTL targets a 200 MHz FPGA clock (section 6).
@@ -74,15 +75,17 @@ def mvu_resources(
 ) -> MVUResources:
     """Closed-form resource estimate for one MVU layer instance.
 
-    ``lut_bytes`` is the CUDA kernel's shared memory for the tile it runs
-    (:func:`to_gpu_blocks`, one for every mode): a (block_k, block_m) int32
-    A tile and a (block_k, block_n) int32 W tile, each row padded by one
-    word against bank conflicts.  ``ff_bytes`` is the block's
-    block_m x block_n int32 accumulators.  BRAM/cycle terms stay on the
-    folding abstraction (paper Eq. 1/2) and equal the JAX reference's.
+    ``lut_bytes`` is the CUDA kernel's shared memory for the tile the
+    folding picks (:func:`to_gpu_blocks`; the default 32 output rows a
+    block): a (block_k, rows) int32 A tile and a (block_k, block_n) int32
+    W tile, each row padded by one word against bank conflicts.
+    ``ff_bytes`` is the block's rows x block_n int32 accumulators.
+    BRAM/cycle terms stay on the folding abstraction (paper Eq. 1/2) and
+    equal the JAX reference's.
     """
-    blocks = to_gpu_blocks()
-    bm, bn, bk = blocks["block_m"], blocks["block_n"], blocks["block_k"]
+    blocks = to_gpu_blocks(fold, mode, packed=packed)
+    bm, bn = BLOCK_M, blocks["block_n"]
+    bk = blocks.get("block_k", blocks.get("block_kw"))
     lut = bk * (bm + 1) * 4 + bk * (bn + 1) * 4
     ff = bm * bn * 4
     weight_store = int(n * k * weight_bits / 8.0)

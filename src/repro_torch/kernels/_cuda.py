@@ -16,13 +16,15 @@ Every dense MVU entry point has one C signature::
     int repro_<kernel>(const void* a, const void* w, const void* thr,
                        const void* scale, void* out, int m, int n, int k,
                        int w_cols, int n_thr, int epilogue, int arrangement,
-                       int tile_m, int tile_n, int splits, int smem,
-                       void* stream)
+                       int tile, int tile_m, int tile_n, int kstep,
+                       int splits, int smem, void* stream)
 
-(:meth:`Library.launch`, ``PLAN_ARGTYPES``; the five ints after the
-epilogue are the launch plan of ``kernels/dense_mvu.py``), and the conv
-kernel's takes the image geometry and its plan (``kernels/swu_mvu.py``,
-through :meth:`Library.run`).  Each returns the launch's CUDA error code.
+(:meth:`Library.launch`, ``PLAN_ARGTYPES``; the seven ints after the
+epilogue are the launch plan of ``kernels/dense_mvu.py``, ``tile`` the
+index of its compiled tile), and the conv kernel's takes the image
+geometry and its plan (``kernels/swu_mvu.py``, through
+:meth:`Library.run`).  Each returns the launch's CUDA error code, and a
+tile index outside the kernel's set is an error, never another tile.
 Importing this module builds nothing and imports nothing CUDA-only.
 """
 
@@ -36,12 +38,15 @@ import threading
 
 import torch
 
-# The output tile and K step of the kernels' tiled arrangements (the dense
-# core's TILE, conv_mvu's 32 x 32 tile); only per-layer tiles wait for
-# ROADMAP queue A item 3, step 3 (the autotuner records and ignores them).
+# The default tile of the kernels' tiled arrangements: output rows (dense
+# rows, conv pixels) and columns a block, and K units a step (synapses;
+# 32-bit words for packed xnor operands).  Each kernel is compiled for a
+# small set of tiles around it (kernels/dense_mvu.py DENSE_TILES,
+# kernels/swu_mvu.py CONV_TILES); a layer's folding or a tuned entry picks
+# one (core/folding.py::to_gpu_blocks), and this is the smallest.
 BLOCK_M = 32
 BLOCK_N = 32
-BLOCK_K = 32  # synapses per K step (32-bit words for packed xnor operands)
+BLOCK_K = 32
 
 # The Hopper-designed kernels' launch plans (kernels/swu_mvu.py,
 # kernels/dense_mvu.py; csrc/cluster_reduce.cuh): shared memory a block
@@ -56,8 +61,14 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 _SHARED = ("binding.cpp", "epilogue.cuh", "cluster_reduce.cuh", "dense_mvu.cuh")
 EPILOGUE = {"raw": 0, "thresholds": 1, "scale": 2}
 # a dense MVU entry point's arguments: five pointers, six ints, the launch
-# plan's five ints and the stream
-PLAN_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+# plan's seven ints and the stream
+PLAN_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+
+
+def round_up_to(value: int, choices) -> int:
+    """The smallest of ``choices`` (ascending) at least ``value``, else the
+    largest: how a folding or a tuned block maps onto a compiled tile."""
+    return next((c for c in choices if c >= value), choices[-1])
 
 
 def split_k(tiles: int, steps: int) -> int:
@@ -79,8 +90,10 @@ def k_slices(steps: int, splits: int, step: int, k: int) -> list[tuple[int, int]
 
 
 def nvcc_flags() -> list[str]:
+    # -Xptxas -v: ptxas reports each kernel's registers, shared memory and
+    # spills, which the build keeps beside the library (Library.report)
     return ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-            "-shared", "-Xcompiler", "-fPIC"]
+            "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC"]
 
 
 def _nvcc() -> str:
@@ -131,12 +144,21 @@ class Library:
                 _, err = proc.communicate()
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed to build {os.path.basename(path)}:\n{err}")
+            with open(f"{tmp}.ptxas", "w") as f:
+                f.write(err)
+            os.replace(f"{tmp}.ptxas", _report_path(path))  # before the library appears
             os.replace(tmp, path)  # atomic: a concurrent builder never loads half a file
         return path
 
     def build(self) -> str:
         """Compile the library (once per content) and return its path."""
         return self._finish(*self._start())
+
+    def report(self) -> str:
+        """What ``nvcc -Xptxas -v`` said of the library's kernels when it was
+        built (registers, shared memory, spills); builds it if need be."""
+        with open(_report_path(self.build())) as f:
+            return f.read()
 
     def load(self) -> ctypes.CDLL:
         with self._lock:
@@ -184,6 +206,10 @@ class Library:
         if err != 0:
             raise RuntimeError(f"{fn} launch failed: "
                                + lib.repro_cuda_error_string(err).decode())
+
+
+def _report_path(path: str) -> str:
+    return os.path.splitext(path)[0] + ".ptxas.txt"
 
 
 def device_ptr(t: torch.Tensor | None):

@@ -99,13 +99,16 @@ __device__ __forceinline__ void store_one(int32_t v, int gm, int gn, int n,
                    EPI == kScale ? scale[gn] : 0.0f, out);
 }
 
-// The epilogue operand of a block's tile_n (<= 32) columns, staged in
-// shared memory by cp.async while the K loop runs, so that the epilogue
-// does not wait on device memory: the threshold rows when a column has at
-// most EPI_STAGE_THR of them (else they are read where they lie), or the
-// scales.  The caller commits the copies with its first cp.async group.
+// The epilogue operand of a block's tile_n columns, staged in shared
+// memory by cp.async while the K loop runs, so that the epilogue does not
+// wait on device memory: the threshold rows when a column has at most
+// EPI_STAGE_THR of them (else they are read where they lie), or the
+// scales; epi_stage_bytes(tile_n) bytes.  The caller commits the copies
+// with its first cp.async group.
 constexpr int EPI_STAGE_THR = 16;
-constexpr int EPI_STAGE_BYTES = 32 * EPI_STAGE_THR * 4 + 64;  // + the overread of a row
+__host__ __device__ constexpr int epi_stage_bytes(int tile_n) {
+  return tile_n * EPI_STAGE_THR * 4 + 64;  // + the overread of a row
+}
 
 template <int EPI>
 __device__ __forceinline__ void stage_epilogue(unsigned char* stage, int n0, int tile_n, int n,

@@ -13,8 +13,9 @@
 // it is, int8 W rows, acc = 2 * (A . W^T) - rowsum(A) (gemv: A . (2w - 1)).
 // Two arrangements behind the one entry point, chosen by the Python plan
 // (kernels/dense_mvu.py::dense_launch_plan): a warp a column at M <= 8
-// (the CNV's dense layers at one image), cp.async double-buffered 32 x 32
-// tiles with K split across a thread-block cluster above (the NID path).
+// (the CNV's dense layers at one image), cp.async double-buffered tiles
+// (the layer's, of dense_mvu.cuh's set) with K split across a thread-block
+// cluster above (the NID path).
 //
 // What bounds it on the H100 at these shapes: latency.  A launch moves
 // < 1 MB and does < 0.1 G MAC; the arrangements cut the serial K loop of
@@ -29,8 +30,9 @@
 extern "C" int repro_mvu_binary(const void* a, const void* w, const void* thr,
                                 const void* scale, void* out, int m, int n, int k,
                                 int w_cols, int n_thr, int epilogue, int arrangement,
-                                int tile_m, int tile_n, int splits, int smem, void* stream) {
+                                int tile, int tile_m, int tile_n, int kstep, int splits,
+                                int smem, void* stream) {
   return repro::dense::launch<repro::dense::BinaryRows>(a, w, thr, scale, out, m, n, k, w_cols,
-                                                        n_thr, epilogue, arrangement, tile_m,
-                                                        tile_n, splits, smem, stream);
+                                                        n_thr, epilogue, arrangement, tile,
+                                                        tile_m, tile_n, kstep, splits, smem, stream);
 }

@@ -21,10 +21,10 @@
 // block's serial K loop runs and how few blocks share the work.  This is
 // dense_mvu.cuh's core with the IntRows coding (int32 A as it is, int8 W
 // rows, acc as it is), in its two arrangements: a warp a column at
-// M <= 8, whose lanes stride K together; cp.async double-buffered 32 x 32
-// tiles above, with K split across a cluster of up to 8 blocks when the
-// tiles are too few to fill the card (NID fc0 at M = 128: 8 tiles x 8
-// slices).  That gives 3.2-3.5 us a CNV dense layer at M = 1 and 4.9-5.9
+// M <= 8, whose lanes stride K together; cp.async double-buffered tiles
+// (the layer's, of dense_mvu.cuh's set) above, with K split across a
+// cluster of up to 8 blocks when the tiles are too few to fill the card
+// (NID fc0 at M = 128 in 32 x 32 tiles: 8 tiles x 8 slices).  That gives 3.2-3.5 us a CNV dense layer at M = 1 and 4.9-5.9
 // us a NID layer at M = 128 (scripts/torch_kernel_ab.py, H100 80GB HBM3
 // at 700 W), near a launch's own latency.
 
@@ -36,8 +36,9 @@
 extern "C" int repro_mvu_int(const void* a, const void* w, const void* thr,
                              const void* scale, void* out, int m, int n, int k,
                              int w_cols, int n_thr, int epilogue, int arrangement,
-                             int tile_m, int tile_n, int splits, int smem, void* stream) {
+                             int tile, int tile_m, int tile_n, int kstep, int splits,
+                             int smem, void* stream) {
   return repro::dense::launch<repro::dense::IntRows>(a, w, thr, scale, out, m, n, k, w_cols,
-                                                     n_thr, epilogue, arrangement, tile_m,
-                                                     tile_n, splits, smem, stream);
+                                                     n_thr, epilogue, arrangement, tile,
+                                                     tile_m, tile_n, kstep, splits, smem, stream);
 }

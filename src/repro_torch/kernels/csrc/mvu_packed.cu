@@ -24,9 +24,10 @@
 // weights are 2-38 KB and the activations at most 0.3 MB a launch, so
 // what counts is how long one block's serial K loop runs and how few
 // blocks share the work.  Both run dense_mvu.cuh's core, in its two
-// arrangements (a warp a column at M <= 8; double-buffered 32 x 32 tiles
-// with K split across a cluster above), on the plan of kernels/
-// dense_mvu.py::dense_launch_plan; each only stages its W its own way:
+// arrangements (a warp a column at M <= 8; double-buffered tiles of
+// dense_mvu.cuh's set with K split across a cluster above), on the plan
+// of kernels/dense_mvu.py::dense_launch_plan; each only stages its W its
+// own way:
 //
 // * mvu_binary_packed, coding BinaryBitplanes: one bitplane word a column
 //   staged by cp.async a 32-synapse step (128 bytes a step against 1,536
@@ -53,11 +54,11 @@
 extern "C" int repro_mvu_binary_packed(const void* a, const void* w, const void* thr,
                                        const void* scale, void* out, int m, int n, int k,
                                        int w_cols, int n_thr, int epilogue, int arrangement,
-                                       int tile_m, int tile_n, int splits, int smem,
-                                       void* stream) {
+                                       int tile, int tile_m, int tile_n, int kstep, int splits,
+                                       int smem, void* stream) {
   return repro::dense::launch<repro::dense::BinaryBitplanes>(
-      a, w, thr, scale, out, m, n, k, w_cols, n_thr, epilogue, arrangement, tile_m, tile_n,
-      splits, smem, stream);
+      a, w, thr, scale, out, m, n, k, w_cols, n_thr, epilogue, arrangement, tile, tile_m, tile_n,
+      kstep, splits, smem, stream);
 }
 
 // w (N, Bd) uint8 2-bit lanes, w_cols = Bd >= ceil(K/4); the plan is
@@ -65,9 +66,9 @@ extern "C" int repro_mvu_binary_packed(const void* a, const void* w, const void*
 extern "C" int repro_mvu_int2_packed(const void* a, const void* w, const void* thr,
                                      const void* scale, void* out, int m, int n, int k,
                                      int w_cols, int n_thr, int epilogue, int arrangement,
-                                     int tile_m, int tile_n, int splits, int smem,
-                                     void* stream) {
+                                     int tile, int tile_m, int tile_n, int kstep, int splits,
+                                     int smem, void* stream) {
   return repro::dense::launch<repro::dense::Int2Lanes>(a, w, thr, scale, out, m, n, k, w_cols,
-                                                       n_thr, epilogue, arrangement, tile_m,
-                                                       tile_n, splits, smem, stream);
+                                                       n_thr, epilogue, arrangement, tile,
+                                                       tile_m, tile_n, kstep, splits, smem, stream);
 }

@@ -20,8 +20,9 @@
 //
 // w is (N, Wd) words, Wd = ceil(K/32) for the bit entry.  Both run
 // dense_mvu.cuh's core on the plan of kernels/dense_mvu.py::
-// dense_launch_plan: a warp a column at M <= 8, double-buffered 32 x 32
-// tiles with K split across a cluster above.  The sum counts the
+// dense_launch_plan: a warp a column at M <= 8, double-buffered tiles of
+// dense_mvu.cuh's set (32-unit K steps) with K split across a cluster
+// above.  The sum counts the
 // disagreeing bits, acc = sum popc(a ^ w), and is finished once, after the
 // K slices are summed, as K - 2 * acc, which equals the identity above:
 // popc(~x) = 32 - popc(x) on each of Wd words.  So a word (or bit) that is
@@ -55,10 +56,11 @@
 extern "C" int repro_mvu_xnor(const void* a, const void* w, const void* thr,
                               const void* scale, void* out, int m, int n, int k,
                               int w_cols, int n_thr, int epilogue, int arrangement,
-                              int tile_m, int tile_n, int splits, int smem, void* stream) {
+                              int tile, int tile_m, int tile_n, int kstep, int splits,
+                              int smem, void* stream) {
   return repro::dense::launch<repro::dense::XnorWords>(a, w, thr, scale, out, m, n, k, w_cols,
-                                                       n_thr, epilogue, arrangement, tile_m,
-                                                       tile_n, splits, smem, stream);
+                                                       n_thr, epilogue, arrangement, tile,
+                                                       tile_m, tile_n, kstep, splits, smem, stream);
 }
 
 // a (M, K) int32 activations (their LSBs are the bits), w (N, Wd) words,
@@ -67,9 +69,9 @@ extern "C" int repro_mvu_xnor(const void* a, const void* w, const void* thr,
 extern "C" int repro_mvu_xnor_bits(const void* a, const void* w, const void* thr,
                                    const void* scale, void* out, int m, int n, int k,
                                    int w_cols, int n_thr, int epilogue, int arrangement,
-                                   int tile_m, int tile_n, int splits, int smem,
-                                   void* stream) {
+                                   int tile, int tile_m, int tile_n, int kstep, int splits,
+                                   int smem, void* stream) {
   return repro::dense::launch<repro::dense::XnorBits>(a, w, thr, scale, out, m, n, k, w_cols,
-                                                      n_thr, epilogue, arrangement, tile_m,
-                                                      tile_n, splits, smem, stream);
+                                                      n_thr, epilogue, arrangement, tile,
+                                                      tile_m, tile_n, kstep, splits, smem, stream);
 }

@@ -21,7 +21,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels._common import check_operands, epilogue_value, int_dot
-from repro_torch.kernels._cuda import PLAN_ARGTYPES, Library
+from repro_torch.kernels._cuda import BLOCK_K, BLOCK_N, PLAN_ARGTYPES, Library
 from repro_torch.kernels.dense_mvu import CODING, dense_launch_plan
 
 LIB = Library("mvu_binary.cu", {"repro_mvu_binary": PLAN_ARGTYPES})
@@ -35,11 +35,13 @@ LAUNCHES = 0
 
 def mvu_binary(a: torch.Tensor, w_bits: torch.Tensor,
                thresholds: torch.Tensor | None = None,
-               out_scale: torch.Tensor | None = None) -> torch.Tensor:
+               out_scale: torch.Tensor | None = None, *, block_n: int = BLOCK_N,
+               block_k: int = BLOCK_K, rows_per_tile: int | None = None) -> torch.Tensor:
     """out[M,N] = epilogue(A[M,K] . (2*W01[N,K]-1)^T).
 
     a: (M, K) int32 (int8/uint8/int16 are widened; the value is not
-    narrowed); w_bits: (N, K) int8 in {0,1}.
+    narrowed); w_bits: (N, K) int8 in {0,1}.  block_n / block_k /
+    rows_per_tile pick the kernel's compiled tile, as for ``mvu_int``.
     """
     global LAUNCHES
     a, epi = check_operands("mvu_binary", a, w_bits, thresholds, out_scale,
@@ -48,7 +50,8 @@ def mvu_binary(a: torch.Tensor, w_bits: torch.Tensor,
         return mvu_binary_plain(a, w_bits, thresholds, out_scale)
     (m, k), n = a.shape, w_bits.shape[0]
     out = LIB.launch("repro_mvu_binary", a, w_bits, thresholds, out_scale, epi, n=n, k=k,
-                     plan=dense_launch_plan(m, n, k, CODING["mvu_binary"]).c_args)
+                     plan=dense_launch_plan(m, n, k, CODING["mvu_binary"], block_n=block_n,
+                                            block_k=block_k, rows_per_tile=rows_per_tile).c_args)
     if out.numel():  # an empty output launches nothing
         LAUNCHES += 1
     return out

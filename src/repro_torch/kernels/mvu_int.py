@@ -25,7 +25,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels._common import check_operands, epilogue_value, int_dot
-from repro_torch.kernels._cuda import PLAN_ARGTYPES, Library
+from repro_torch.kernels._cuda import BLOCK_K, BLOCK_N, PLAN_ARGTYPES, Library
 from repro_torch.kernels.dense_mvu import CODING, dense_launch_plan
 
 LIB = Library("mvu_int.cu", {"repro_mvu_int": PLAN_ARGTYPES})
@@ -36,7 +36,8 @@ LAUNCHES = 0
 
 def mvu_int(a: torch.Tensor, w: torch.Tensor,
             thresholds: torch.Tensor | None = None,
-            out_scale: torch.Tensor | None = None) -> torch.Tensor:
+            out_scale: torch.Tensor | None = None, *, block_n: int = BLOCK_N,
+            block_k: int = BLOCK_K, rows_per_tile: int | None = None) -> torch.Tensor:
     """out[M,N] = epilogue(A[M,K] . W[N,K]^T); integer datapath.
 
     a: (M, K) int32 (int8/uint8/int16 are widened; float raises)
@@ -44,6 +45,9 @@ def mvu_int(a: torch.Tensor, w: torch.Tensor,
     thresholds: optional (N, T) int32, ascending -> int32 levels in [0, T]
     out_scale: optional (N,) float32 -> float32 ``float(acc) * s``
     Neither -> the raw int32 accumulator; both -> ValueError.
+    block_n / block_k / rows_per_tile: the layer's tile blocks, which pick
+    the kernel's compiled tile (``dense_mvu.dense_tile``); the plain
+    version takes none.
     """
     global LAUNCHES
     a, epi = check_operands("mvu_int", a, w, thresholds, out_scale, w_dtype=torch.int8)
@@ -51,7 +55,8 @@ def mvu_int(a: torch.Tensor, w: torch.Tensor,
         return mvu_int_plain(a, w, thresholds, out_scale)
     (m, k), n = a.shape, w.shape[0]
     out = LIB.launch("repro_mvu_int", a, w, thresholds, out_scale, epi, n=n, k=k,
-                     plan=dense_launch_plan(m, n, k, CODING["mvu_int"]).c_args)
+                     plan=dense_launch_plan(m, n, k, CODING["mvu_int"], block_n=block_n,
+                                            block_k=block_k, rows_per_tile=rows_per_tile).c_args)
     if out.numel():  # an empty output launches nothing
         LAUNCHES += 1
     return out

@@ -37,7 +37,7 @@ from repro_torch.kernels._common import (
     int_dot,
     narrow_int8,
 )
-from repro_torch.kernels._cuda import PLAN_ARGTYPES, Library
+from repro_torch.kernels._cuda import BLOCK_K, BLOCK_N, PLAN_ARGTYPES, Library
 from repro_torch.kernels.dense_mvu import CODING, dense_launch_plan
 from repro_torch.kernels.mvu_xnor import mvu_xnor, mvu_xnor_plain
 
@@ -57,11 +57,15 @@ def _check_k(name: str, a: torch.Tensor, k_bits: int) -> None:
 # ------------------------------------------------------- binary bitplanes
 def mvu_binary_packed(a: torch.Tensor, w_packed: torch.Tensor, k_bits: int,
                       thresholds: torch.Tensor | None = None,
-                      out_scale: torch.Tensor | None = None) -> torch.Tensor:
+                      out_scale: torch.Tensor | None = None, *, block_n: int = BLOCK_N,
+                      block_kw: int = BLOCK_K,
+                      rows_per_tile: int | None = None) -> torch.Tensor:
     """out[M,N] = epilogue(A8[M,K] . (2*W01[N,K]-1)^T) from bitplane weights.
 
     a: (M, K) integer activations (narrowed to int8 by a wrapping cast);
     w_packed: (N, Wd >= ceil(K/32)) int32 bitplanes of the {0,1} coding.
+    block_n / block_kw / rows_per_tile pick the kernel's compiled tile
+    (``dense_mvu.dense_tile``; bitplanes step K by 32 whatever block_kw).
     """
     global BINARY_LAUNCHES
     a, epi = check_operands("mvu_binary_packed", a, w_packed, thresholds, out_scale,
@@ -71,7 +75,9 @@ def mvu_binary_packed(a: torch.Tensor, w_packed: torch.Tensor, k_bits: int,
         return mvu_binary_packed_plain(a, w_packed, k_bits, thresholds, out_scale)
     (m, k), n = a.shape, w_packed.shape[0]
     out = LIB.launch("repro_mvu_binary_packed", a, w_packed, thresholds, out_scale, epi,
-                     n=n, k=k, plan=dense_launch_plan(m, n, k, CODING["mvu_binary_packed"]).c_args)
+                     n=n, k=k, plan=dense_launch_plan(
+                         m, n, k, CODING["mvu_binary_packed"], block_n=block_n, block_k=block_kw,
+                         rows_per_tile=rows_per_tile).c_args)
     if out.numel():  # an empty output launches nothing
         BINARY_LAUNCHES += 1
     return out
@@ -97,11 +103,14 @@ def mvu_binary_packed_ref(a, w_packed, k_bits, thresholds=None, out_scale=None):
 # ------------------------------------------------------------ 2-bit lanes
 def mvu_int2_packed(a: torch.Tensor, w_packed: torch.Tensor, k_bits: int,
                     thresholds: torch.Tensor | None = None,
-                    out_scale: torch.Tensor | None = None) -> torch.Tensor:
+                    out_scale: torch.Tensor | None = None, *, block_n: int = BLOCK_N,
+                    block_k: int = BLOCK_K,
+                    rows_per_tile: int | None = None) -> torch.Tensor:
     """out[M,N] = epilogue(A8[M,K] . W2[N,K]^T) from 2-bit lane weights.
 
     a: (M, K) integer activations (narrowed to int8 by a wrapping cast);
     w_packed: (N, Bd >= ceil(K/4)) uint8, four signed 2-bit lanes a byte.
+    block_n / block_k / rows_per_tile pick the kernel's compiled tile.
     """
     global INT2_LAUNCHES
     a, epi = check_operands("mvu_int2_packed", a, w_packed, thresholds, out_scale,
@@ -111,7 +120,9 @@ def mvu_int2_packed(a: torch.Tensor, w_packed: torch.Tensor, k_bits: int,
         return mvu_int2_packed_plain(a, w_packed, k_bits, thresholds, out_scale)
     (m, k), n = a.shape, w_packed.shape[0]
     out = LIB.launch("repro_mvu_int2_packed", a, w_packed, thresholds, out_scale, epi,
-                     n=n, k=k, plan=dense_launch_plan(m, n, k, CODING["mvu_int2_packed"]).c_args)
+                     n=n, k=k, plan=dense_launch_plan(
+                         m, n, k, CODING["mvu_int2_packed"], block_n=block_n, block_k=block_k,
+                         rows_per_tile=rows_per_tile).c_args)
     if out.numel():  # an empty output launches nothing
         INT2_LAUNCHES += 1
     return out
@@ -153,6 +164,15 @@ def pack_mvu_weights(w: torch.Tensor, mode: str) -> torch.Tensor:
     return packing.pack_int2(w)
 
 
+def unpack_mvu_weights(w_packed: torch.Tensor, mode: str, k: int) -> torch.Tensor:
+    """Inverse of :func:`pack_mvu_weights`: the canonical (N, k) int8 rows
+    (xnor words stay words)."""
+    if mode == "xnor":
+        return w_packed
+    unpack = packing.unpack_bits if mode == "binary" else packing.unpack_int2
+    return unpack(w_packed, k).to(torch.int8)
+
+
 def packed_weight_bytes(n: int, k: int, mode: str, weight_bits: int) -> int:
     """Device-resident bytes of the packed (N, K) weight matrix for ``mode``."""
     if mode in ("xnor", "binary"):
@@ -164,14 +184,15 @@ def packed_weight_bytes(n: int, k: int, mode: str, weight_bits: int) -> int:
 def mvu_packed(a: torch.Tensor, w_packed: torch.Tensor, mode: str, k_bits: int,
                thresholds: torch.Tensor | None = None,
                out_scale: torch.Tensor | None = None, *,
-               backend: str = "cuda") -> torch.Tensor:
+               backend: str = "cuda", **tile) -> torch.Tensor:
     """Dispatch over the packed kernel family (mirror of ``ops.mvu``):
-    ``backend="cuda"`` the hand kernels, ``"torch"`` the plain references."""
-    if mode == "xnor":
-        # the Fig. 4a kernel is natively packed -- the same datapath
-        fn = mvu_xnor_plain if backend == "torch" else mvu_xnor
-    elif mode == "binary":
-        fn = mvu_binary_packed_ref if backend == "torch" else mvu_binary_packed
-    else:
-        fn = mvu_int2_packed_ref if backend == "torch" else mvu_int2_packed
-    return fn(a, w_packed, k_bits, thresholds, out_scale)
+    ``backend="cuda"`` the hand kernels, with the tile kwargs ``tile`` of
+    that kernel's wrapper; ``"torch"`` the plain references, which take no
+    tile."""
+    if backend == "torch":
+        fn = {"xnor": mvu_xnor_plain, "binary": mvu_binary_packed_ref}.get(
+            mode, mvu_int2_packed_ref)
+        return fn(a, w_packed, k_bits, thresholds, out_scale)
+    # xnor: the Fig. 4a kernel is natively packed -- the same datapath
+    fn = {"xnor": mvu_xnor, "binary": mvu_binary_packed}.get(mode, mvu_int2_packed)
+    return fn(a, w_packed, k_bits, thresholds, out_scale, **tile)

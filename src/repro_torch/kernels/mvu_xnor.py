@@ -32,7 +32,7 @@ import torch
 from repro_torch.kernels import packing
 from repro_torch.kernels import _common
 from repro_torch.kernels._common import check_operands, epilogue_value
-from repro_torch.kernels._cuda import PLAN_ARGTYPES, Library
+from repro_torch.kernels._cuda import BLOCK_K, BLOCK_N, PLAN_ARGTYPES, Library
 from repro_torch.kernels.dense_mvu import CODING, dense_launch_plan
 
 LIB = Library("mvu_xnor.cu", {"repro_mvu_xnor": PLAN_ARGTYPES,
@@ -52,11 +52,15 @@ def _check_k(k_bits: int, wd: int) -> None:
 
 def mvu_xnor(a_packed: torch.Tensor, w_packed: torch.Tensor, k_bits: int,
              thresholds: torch.Tensor | None = None,
-             out_scale: torch.Tensor | None = None) -> torch.Tensor:
+             out_scale: torch.Tensor | None = None, *, block_n: int = BLOCK_N,
+             block_kw: int = BLOCK_K, rows_per_tile: int | None = None) -> torch.Tensor:
     """Bipolar out[M, N] from a (M, Wd) and w (N, Wd), both int32 words.
 
     thresholds: optional (N, T) int32 -> int32 levels; out_scale: optional
-    (N,) float32 -> float32; neither -> the raw int32 dot.
+    (N,) float32 -> float32; neither -> the raw int32 dot.  block_n /
+    block_kw / rows_per_tile pick the kernel's compiled tile
+    (``dense_mvu.dense_tile``; the word codings step K by 32 whatever
+    block_kw); the plain version takes none.
     """
     global LAUNCHES
     a, epi = check_operands("mvu_xnor", a_packed, w_packed, thresholds, out_scale,
@@ -66,7 +70,9 @@ def mvu_xnor(a_packed: torch.Tensor, w_packed: torch.Tensor, k_bits: int,
     if a.device.type == "cpu":
         return mvu_xnor_plain(a, w_packed, k_bits, thresholds, out_scale)
     out = LIB.launch("repro_mvu_xnor", a, w_packed, thresholds, out_scale, epi, n=n,
-                     k=k_bits, plan=dense_launch_plan(m, n, wd, CODING["mvu_xnor"]).c_args)
+                     k=k_bits, plan=dense_launch_plan(
+                         m, n, wd, CODING["mvu_xnor"], block_n=block_n, block_k=block_kw,
+                         rows_per_tile=rows_per_tile).c_args)
     if out.numel():  # an empty output launches nothing
         LAUNCHES += 1
     return out
@@ -74,10 +80,12 @@ def mvu_xnor(a_packed: torch.Tensor, w_packed: torch.Tensor, k_bits: int,
 
 def mvu_xnor_bits(a: torch.Tensor, w_packed: torch.Tensor,
                   thresholds: torch.Tensor | None = None,
-                  out_scale: torch.Tensor | None = None) -> torch.Tensor:
+                  out_scale: torch.Tensor | None = None, *, block_n: int = BLOCK_N,
+                  block_kw: int = BLOCK_K, rows_per_tile: int | None = None) -> torch.Tensor:
     """``mvu_xnor(pack_bits(a), w_packed, K)`` with the pack made in the
     kernel: a (M, K) integer activations, of which only the LSB counts
     (int8/uint8/int16 are widened); w_packed (N, ceil(K/32)) int32 words.
+    The tile blocks act as for :func:`mvu_xnor`.
     """
     global LAUNCHES
     a, epi = check_operands("mvu_xnor_bits", a, w_packed, thresholds, out_scale,
@@ -90,7 +98,9 @@ def mvu_xnor_bits(a: torch.Tensor, w_packed: torch.Tensor,
     if a.device.type == "cpu":
         return mvu_xnor_bits_plain(a, w_packed, thresholds, out_scale)
     out = LIB.launch("repro_mvu_xnor_bits", a, w_packed, thresholds, out_scale, epi, n=n,
-                     k=k, plan=dense_launch_plan(m, n, k, CODING["mvu_xnor_bits"]).c_args)
+                     k=k, plan=dense_launch_plan(
+                         m, n, k, CODING["mvu_xnor_bits"], block_n=block_n, block_k=block_kw,
+                         rows_per_tile=rows_per_tile).c_args)
     if out.numel():  # an empty output launches nothing
         LAUNCHES += 1
     return out

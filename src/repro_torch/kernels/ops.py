@@ -19,13 +19,16 @@ package's ``("pallas", "xla")``:
                      analog; for conv, the materialised sliding windows)
 
 Packed words are int32 bit patterns (``kernels/packing.py``).  The JAX
-package's tile kwargs (``block_m``/``block_n``/``block_k``/``block_kw``)
-are accepted for a like signature and ignored: the CUDA kernels are
-compiled for one tile (``conv_mvu`` and the five kernels on the dense
-core pick their arrangement and K splits from the shape).  The autotuner
-(``core/autotune.py``) races the packed datapath and the engine's
-microbatch; only per-layer kernel tiles wait for ROADMAP queue A item 3,
-step 3.
+package's tile kwargs act as they do there: ``block_n`` (output columns a
+block), ``block_k`` (K units a step; ``block_kw`` on the word datapaths,
+xnor and packed binary) and ``rows_per_tile`` (output rows a block: dense
+rows, or a conv's rows of pixels) pick the compiled tile each hand kernel
+launches (:func:`tile_kwargs`; ``dense_mvu.dense_tile``,
+``swu_mvu.conv_tile``), rounded up onto the kernel's small fixed set.
+``block_m`` is the node's burst (the engine's microbatch), not a kernel
+tile, and is taken and left alone here.  The plain oracles ignore the
+tile: integer sums do not depend on the order, so every tile gives the
+same result.
 """
 
 from __future__ import annotations
@@ -33,6 +36,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import mvu_binary, mvu_int, mvu_packed, mvu_xnor, packing, ref, swu_mvu
+from repro_torch.kernels._cuda import BLOCK_K, BLOCK_N
+from repro_torch.kernels.dense_mvu import CODING
 
 MODES = ("xnor", "binary", "standard")
 BACKENDS = ("cuda", "torch")
@@ -60,6 +65,19 @@ def kernel_name(mode: str, packed: bool = False) -> str:
     if packed:
         return "mvu_binary_packed" if mode == "binary" else "mvu_int2_packed"
     return "mvu_binary" if mode == "binary" else "mvu_int"
+
+
+def tile_kwargs(kernel: str, *, block_m: int | None = None, block_n: int = BLOCK_N,
+                block_k: int = BLOCK_K, block_kw: int = BLOCK_K,
+                rows_per_tile: int | None = None) -> dict:
+    """The tile kwargs the wrapper of dense kernel ``kernel`` takes, from a
+    schedule's (``MVUConfig.kernel_blocks``): its K step is ``block_kw`` on
+    the word codings (bitplanes, packed and bit xnor), else ``block_k``;
+    ``block_m``, the burst, is not a kernel tile."""
+    del block_m
+    words = CODING[kernel] in ("bitplanes", "words", "bits")
+    return {"block_n": block_n, "rows_per_tile": rows_per_tile,
+            **({"block_kw": block_kw} if words else {"block_k": block_k})}
 
 
 def launch_counts() -> dict[str, int]:
@@ -105,7 +123,11 @@ def mvu(
     out_scale: torch.Tensor | None = None,
     backend: str = "cuda",
     packed: bool = False,
-    **blocks,
+    block_m: int = 128,
+    block_n: int = BLOCK_N,
+    block_k: int = BLOCK_K,
+    block_kw: int = BLOCK_K,
+    rows_per_tile: int | None = None,
 ) -> torch.Tensor:
     """Matrix-vector(-batch) compute: epilogue(A . W^T).
 
@@ -113,18 +135,22 @@ def mvu(
     and w (N, Wd) int32 words with ``k_bits`` true synapses.
     ``packed=True``: ``w`` is the mode's packed storage (int32 bitplanes
     for binary, uint8 2-bit lanes for standard, the usual words for xnor)
-    and ``k_bits`` carries the true K for every mode.  ``blocks`` are
-    ignored (see the module doc).
+    and ``k_bits`` carries the true K for every mode.  The tile kwargs
+    pick the kernel's compiled tile (see the module doc; ``block_m`` is
+    the burst and does not).
     """
+    del block_m  # the node's burst: the engine's microbatch, not a kernel tile
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
     if (packed or mode == "xnor") and k_bits is None:
         raise ValueError(f"mode={mode!r}, packed={packed} needs k_bits")
+    tile = tile_kwargs(kernel_name(mode, packed), block_n=block_n, block_k=block_k,
+                       block_kw=block_kw, rows_per_tile=rows_per_tile)
     if packed:
         return mvu_packed.mvu_packed(a, w, mode, k_bits, thresholds, out_scale,
-                                     backend=backend)
+                                     backend=backend, **tile)
     if backend == "torch":
         if mode == "xnor":
             return ref.mvu_xnor_ref(a, w, k_bits, thresholds, out_scale)
@@ -132,10 +158,10 @@ def mvu(
             return ref.mvu_binary_ref(a, w, thresholds, out_scale)
         return ref.mvu_int_ref(a, w, thresholds, out_scale)
     if mode == "xnor":
-        return mvu_xnor.mvu_xnor(a, w, k_bits, thresholds, out_scale)
+        return mvu_xnor.mvu_xnor(a, w, k_bits, thresholds, out_scale, **tile)
     if mode == "binary":
-        return mvu_binary.mvu_binary(a, w, thresholds, out_scale)
-    return mvu_int.mvu_int(a, w, thresholds, out_scale)
+        return mvu_binary.mvu_binary(a, w, thresholds, out_scale, **tile)
+    return mvu_int.mvu_int(a, w, thresholds, out_scale, **tile)
 
 
 def conv_mvu(
@@ -150,7 +176,11 @@ def conv_mvu(
     thresholds: torch.Tensor | None = None,
     out_scale: torch.Tensor | None = None,
     backend: str = "cuda",
-    **blocks,
+    block_m: int = 128,
+    block_n: int = BLOCK_N,
+    block_k: int = BLOCK_K,
+    block_kw: int = BLOCK_K,
+    rows_per_tile: int | None = None,
 ) -> torch.Tensor:
     """Fused SWU+MVU convolution: epilogue(SWU(x) . W^T) -> (B, OH*OW, N).
 
@@ -160,8 +190,11 @@ def conv_mvu(
     ``backend="cuda"`` runs the line-buffer kernel (a CPU tensor: its plain
     version), which narrows x to int8 like the JAX package's Pallas kernel;
     ``backend="torch"`` is the materialising oracle, which does not.
-    ``blocks`` are ignored (see the module doc).
+    ``block_n`` and ``rows_per_tile`` pick the kernel's compiled tile; the
+    K blocks do not act (the kernel steps K by one mma k, 32 taps, as the
+    JAX kernel keeps the full K resident), nor does the burst ``block_m``.
     """
+    del block_m, block_k, block_kw
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     if backend not in BACKENDS:
@@ -175,4 +208,4 @@ def conv_mvu(
         return ref.conv_mvu_ref(x, w, kernel=kernel, stride=stride, pad=pad, mode=mode,
                                 thresholds=thresholds, out_scale=out_scale)
     return swu_mvu.conv_mvu(x, w, thresholds, out_scale, kernel=kernel, stride=stride,
-                            pad=pad, mode=mode)
+                            pad=pad, mode=mode, block_n=block_n, rows_per_tile=rows_per_tile)

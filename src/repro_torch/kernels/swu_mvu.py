@@ -12,8 +12,10 @@ image in device memory), multiplies on the int8 tensor cores
 ``cp.async`` stages and, for outputs of few tiles, splits K across a
 thread-block cluster summed in distributed shared memory: one launch a
 call.  :func:`conv_launch_plan` picks the arrangement, the K splits and
-the shared memory from the shape alone.  The window matrix never exists
-in device memory.  The source note says what bounds it.
+the shared memory from the shape and the layer's tile (:func:`conv_tile`:
+the output channels from ``block_n``, the pixels from a tuned
+``rows_per_tile``, one of :data:`CONV_TILES`).  The window matrix never
+exists in device memory.  The source note says what bounds it.
 
 Datapaths (the TPU kernel's ``MODES``), all narrowing x to int8 with a
 wrap as the TPU kernel does (an activation >= 128 wraps):
@@ -46,24 +48,40 @@ from repro_torch.kernels._cuda import (
     Library,
     device_ptr,
     k_slices,
+    round_up_to,
     split_k,
 )
 
 MODES = ("standard", "binary", "xnor")
 
 LIB = Library("conv_mvu.cu", {
-    "repro_conv_mvu": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 15 + [ctypes.c_void_p]})
+    "repro_conv_mvu": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 18 + [ctypes.c_void_p]})
 
-# The kernel's fixed shape (csrc/conv_mvu.cu): 32 pixels x 32 output
-# channels a block, K stepped 32 taps (one mma k) at a time; in shared
-# memory 32 int32 column sums and a step's 32 taps decoded (two int32
-# each), the epilogue operand of 32 columns (up to 16 thresholds each, and
-# 64 bytes of slack), and a ring of 8 weight stages of 32 rows x 48 bytes.
-TILE_M = 32
-TILE_N = 32
+# The kernel's compiled tiles (csrc/conv_mvu.cu ConvTile), (tile_m pixels,
+# tile_n output channels) by the index it dispatches on; K steps 32 taps
+# (one mma k) in each.  A block holds in shared memory tile_n int32 column
+# sums and a step's 32 taps decoded (two int32 each), the epilogue operand
+# of tile_n columns (up to 16 thresholds each, and 64 bytes of slack), and
+# a ring of 8 weight stages of tile_n rows x 48 bytes.
+# 32 x 32, and 32, 64 and 128 pixels at 64 channels: the taller pixel tiles
+# pay at 64 channels (chip_smoke's tiles phase), and PE rounds onto 32 or 64.
+CONV_TILE_NS = (32, 64)
+CONV_TILES = ((32, 32), (32, 64), (64, 64), (128, 64))
+TILE_M = 32  # the default tile, and every untuned launch's pixels
+TILE_N = CONV_TILE_NS[0]
 KSTEP = 32
-HEAD_BYTES = (TILE_N + 2 * KSTEP) * 4 + TILE_N * 16 * 4 + 64
-RING_BYTES = 8 * TILE_N * 48
+
+
+def head_bytes(tile_n: int) -> int:
+    """The column sums, the decoded taps and the staged epilogue operand."""
+    return (tile_n + 2 * KSTEP) * 4 + tile_n * 16 * 4 + 64
+
+
+def ring_bytes(tile_n: int) -> int:
+    """The weight ring: 8 stages of tile_n rows x 48 bytes."""
+    return 8 * tile_n * 48
+
+
 # Where the A fragments come from: the line buffer in shared memory, or
 # (an image whose rows do not fit it) each tap from the image itself.
 ARRANGEMENTS = ("line", "gather")
@@ -74,10 +92,24 @@ LAUNCHES = 0
 
 def conv_rows_per_tile(oh: int, ow: int, block_m: int) -> int:
     """Output rows per tile of the JAX kernel's grid: ~block_m pixels, as in
-    the JAX package.  The CUDA kernel tiles pixels, not rows: the autotuner
-    records it in a conv entry (``rows_per_tile``) and the launch ignores
-    it; only per-layer tiles wait for ROADMAP queue A item 3, step 3."""
+    the JAX package.  A conv entry's ``rows_per_tile`` pins the CUDA
+    kernel's pixel tile at about that many output rows
+    (:func:`conv_tile`)."""
     return max(1, min(oh, -(-block_m // ow)))
+
+
+def conv_tile(ow: int, *, block_n: int = TILE_N,
+              rows_per_tile: int | None = None) -> tuple[int, int]:
+    """The compiled tile (tile_m, tile_n) a launch on output rows of ``ow``
+    pixels takes: ``block_n`` rounded up onto :data:`CONV_TILE_NS`, then
+    32 pixels, or ``rows_per_tile * ow`` pixels rounded up onto the pixel
+    tiles compiled at that tile_n where a tuned entry pins the rows (the
+    largest where they exceed them)."""
+    tile_n = round_up_to(block_n, CONV_TILE_NS)
+    if rows_per_tile is None:
+        return TILE_M, tile_n
+    pixels = tuple(tm for tm, tn in CONV_TILES if tn == tile_n)
+    return round_up_to(rows_per_tile * ow, pixels), tile_n
 
 
 def line_buffer_pitch(c: int) -> int:
@@ -89,23 +121,24 @@ def line_buffer_pitch(c: int) -> int:
 
 
 def conv_smem_bytes(arrangement: str, h: int, w: int, c: int, kernel: int, stride: int = 1,
-                    pad: int = 0) -> int:
+                    pad: int = 0, tile_m: int = TILE_M, tile_n: int = TILE_N) -> int:
     """Dynamic shared memory of one block of a plan, in bytes: the xnor
     column sums, the decoded taps and the staged epilogue operand, then
     the weight ring and (arrangement ``"line"``) the line buffer, or the
-    (32, 32) uint32 partial tile of the cluster sum, which reuses them.
-    The line buffer holds the input rows a tile's windows can touch: 32
-    pixels span at most ``span`` output rows, so their windows at most
-    ``(span - 1) * stride + kernel`` input rows, all W pixels, C channels
-    as int8 in :func:`line_buffer_pitch` words a pixel.  The same formula
-    is ``smem_needed`` in ``csrc/conv_mvu.cu``, which checks it."""
+    (tile_m, tile_n) uint32 partial tile of the cluster sum, which reuses
+    them.  The line buffer holds the input rows a tile's windows can
+    touch: tile_m pixels span at most ``span`` output rows, so their
+    windows at most ``(span - 1) * stride + kernel`` input rows, all W
+    pixels, C channels as int8 in :func:`line_buffer_pitch` words a pixel.
+    The same formula is ``smem_needed`` in ``csrc/conv_mvu.cu``, which
+    checks it."""
     line = 0
     if arrangement == "line":
         oh, ow = out_dim(h, kernel, stride, pad), out_dim(w, kernel, stride, pad)
-        span = min(oh, (ow + TILE_M - 2) // ow + 1)
+        span = min(oh, (ow + tile_m - 2) // ow + 1)
         rows = min(h, (span - 1) * stride + kernel)
         line = rows * w * line_buffer_pitch(c) * 4
-    return HEAD_BYTES + max(RING_BYTES + line, TILE_M * TILE_N * 4)
+    return head_bytes(tile_n) + max(ring_bytes(tile_n) + line, tile_m * tile_n * 4)
 
 
 class ConvPlan(NamedTuple):
@@ -113,13 +146,15 @@ class ConvPlan(NamedTuple):
     ``tile_m`` pixels x ``tile_n`` channels a block, K cut into
     ``splits`` slices of its ``steps`` 32-tap steps (one cluster of
     ``splits`` blocks an output tile), ``smem_bytes`` of dynamic shared
-    memory a block."""
+    memory a block, ``tile`` the index of the compiled tile in
+    :data:`CONV_TILES`."""
     arrangement: str
     tile_m: int
     tile_n: int
     splits: int
     steps: int
     smem_bytes: int
+    tile: int = 0
 
     def k_slices(self, k: int) -> list[tuple[int, int]]:
         """The taps [lo, hi) of each K slice, in rank order."""
@@ -128,21 +163,23 @@ class ConvPlan(NamedTuple):
 
 @functools.lru_cache(maxsize=None)
 def conv_launch_plan(b: int, h: int, w: int, c: int, n: int, kernel: int, stride: int = 1,
-                     pad: int = 0) -> ConvPlan:
+                     pad: int = 0, *, block_n: int = TILE_N,
+                     rows_per_tile: int | None = None) -> ConvPlan:
     """The launch plan of ``conv_mvu`` on a (b, h, w, c) image with n output
-    channels: a function of the shape alone.
+    channels and a layer's tile blocks (:func:`conv_tile`).
 
     The line buffer where it fits the H100's 232,448 bytes of shared
     memory a block, else the gather arrangement (an image row too wide
-    for it); K split (``_cuda.split_k``) when the 32 x 32 output tiles are
-    too few to fill the card."""
+    for it); K split (``_cuda.split_k``) when the output tiles are too few
+    to fill the card."""
     oh, ow = out_dim(h, kernel, stride, pad), out_dim(w, kernel, stride, pad)
+    tm, tn = conv_tile(ow, block_n=block_n, rows_per_tile=rows_per_tile)
     steps = -(-kernel * kernel * c // KSTEP)
-    splits = split_k(b * -(-oh * ow // TILE_M) * -(-n // TILE_N), steps)
-    arrangement = ("line" if conv_smem_bytes("line", h, w, c, kernel, stride, pad) <= SMEM_BYTES
-                   else "gather")
-    return ConvPlan(arrangement, TILE_M, TILE_N, splits, steps,
-                    conv_smem_bytes(arrangement, h, w, c, kernel, stride, pad))
+    splits = split_k(b * -(-oh * ow // tm) * -(-n // tn), steps)
+    geometry = (h, w, c, kernel, stride, pad, tm, tn)
+    arrangement = "line" if conv_smem_bytes("line", *geometry) <= SMEM_BYTES else "gather"
+    return ConvPlan(arrangement, tm, tn, splits, steps, conv_smem_bytes(arrangement, *geometry),
+                    CONV_TILES.index((tm, tn)))
 
 
 def _check(x: torch.Tensor, w: torch.Tensor, thresholds, out_scale, *, kernel: int,
@@ -178,7 +215,8 @@ def conv_mvu(x: torch.Tensor, w: torch.Tensor,
              thresholds: torch.Tensor | None = None,
              out_scale: torch.Tensor | None = None, *,
              kernel: int, stride: int = 1, pad: int = 0,
-             mode: str = "standard") -> torch.Tensor:
+             mode: str = "standard", block_n: int = TILE_N,
+             rows_per_tile: int | None = None) -> torch.Tensor:
     """out[B, OH*OW, N] = epilogue(SWU(x) . W^T), without materialising SWU(x).
 
     x: (B, H, W, C) integer activations ({0,1} bits for xnor), contiguous;
@@ -186,6 +224,8 @@ def conv_mvu(x: torch.Tensor, w: torch.Tensor,
     rows), or for xnor the packed (N, ceil(K/32)) int32 words;
     thresholds: optional (N, T) int32 -> int32 levels; out_scale: optional
     (N,) float32 -> float32; neither -> the raw int32 accumulator.
+    ``block_n`` and ``rows_per_tile`` pick the kernel's compiled tile
+    (:func:`conv_tile`); the plain version takes none.
     """
     global LAUNCHES
     x, epi, oh, ow = _check(x, w, thresholds, out_scale, kernel=kernel,
@@ -204,13 +244,14 @@ def conv_mvu(x: torch.Tensor, w: torch.Tensor,
     out = torch.empty((m, n), dtype=torch.float32 if epi == "scale" else torch.int32,
                       device=x.device)
     if out.numel():  # an empty output launches nothing
-        plan = conv_launch_plan(b, h, wdim, c, n, kernel, stride, pad)
+        plan = conv_launch_plan(b, h, wdim, c, n, kernel, stride, pad, block_n=block_n,
+                                rows_per_tile=rows_per_tile)
         LIB.run("repro_conv_mvu", x.device, x.data_ptr(), w.data_ptr(),
                 device_ptr(thresholds), device_ptr(out_scale), out.data_ptr(),
                 b, h, wdim, c, n, kernel, stride, pad, w.shape[1],
                 thresholds.shape[1] if thresholds is not None else 0,
                 MODES.index(mode), EPILOGUE[epi], ARRANGEMENTS.index(plan.arrangement),
-                plan.splits, plan.smem_bytes)
+                plan.tile, plan.tile_m, plan.tile_n, plan.splits, plan.smem_bytes)
         LAUNCHES += 1
     return out.reshape(b, oh * ow, n)
 

@@ -33,7 +33,7 @@ from repro_torch.core.folding import Folding
 from repro_torch.core.ir import Graph, Node
 from repro_torch.core.mvu import KernelBlocks, MVUConfig
 from repro_torch.data import nid
-from repro_torch.kernels import dense_mvu, swu_mvu
+from repro_torch.kernels import swu_mvu
 from repro_torch.kernels._cuda import SMEM_BYTES
 
 CARD = "nvidia-h100-80gb-hbm3"
@@ -82,9 +82,11 @@ def _x(rng, batch, k, bits=2):
 @pytest.mark.parametrize("mode,weight_bits,twin", [
     ("standard", 4, False), ("standard", 2, True), ("binary", 1, True), ("xnor", 1, False)])
 def test_candidates_pruned_and_ordered(mode, weight_bits, twin):
-    """On the card a node's candidates are its packed twin (a packable
-    dense node that is not xnor) and then its own schedule: the kernels
-    ignore the JAX package's tile axes, so no tile candidate is made."""
+    """On the card a node's candidates are the JAX package's tile
+    candidates mapped onto the compiled tiles they launch, in both storage
+    forms of a packable dense node that is not xnor: unique by launched
+    tile, pinned there, in cycle-model order, then the default 32 tile and
+    last the node's own schedule (its folding's tile)."""
     cfg = MVUConfig(in_features=96, out_features=24, mode=mode, weight_bits=weight_bits)
     cands = autotune.enumerate_candidates(cfg)
     own = cands[-1]
@@ -92,26 +94,47 @@ def test_candidates_pruned_and_ordered(mode, weight_bits, twin):
                                                    "block_m": cfg.block_m})
     assert own.packed == (mode == "xnor")  # the xnor kernel is the packed datapath
     assert own.predicted_cycles == cfg.resolved_folding().cycles(24, 96, 1)
-    assert own.smem_bytes == autotune._dense_smem_bytes(cfg, False) > 0
-    assert [c.packed for c in cands[:-1]] == ([True] if twin else [])
-    # every candidate runs the hand kernels, at the node's own schedule
-    assert {c.backend for c in cands} == {"cuda"} and {c.blocks for c in cands} == {own.blocks}
+    tiles = [(c.packed, autotune.launched_tile(cfg, c.blocks, c.packed)[0]) for c in cands]
+    assert len(set(tiles)) == len(tiles)  # nothing is timed against itself
+    assert own.smem_bytes == autotune.launched_tile(cfg, own.blocks, own.packed)[1] > 0
+    default = (own.packed, ("tiled", 32, 32, 32))
+    assert default in tiles
+    assert {c.packed for c in cands} == ({False, True} if twin else {own.packed})
+    if twin:  # the packed datapath at the node's own tile, as before tiles were raced
+        assert cands[-2].packed and cands[-2].blocks == own.blocks
+    # every candidate runs the hand kernels at the node's own burst; the
+    # challengers are pinned on the tile they launch, in cycle-model order
+    assert {c.backend for c in cands} == {"cuda"}
+    assert {c.blocks.block_m for c in cands} == {cfg.block_m}
+    rest = [c for c, t in zip(cands[:-1], tiles) if t != default and c.blocks != own.blocks]
+    assert [c.predicted_cycles for c in rest] == sorted(c.predicted_cycles for c in rest)
+    for c, (_, (_, tm, tn, tk)) in zip(rest, [t for c, t in zip(cands, tiles) if c in rest]):
+        kw = c.blocks.as_kwargs(mode, c.packed)
+        assert (kw["rows_per_tile"], kw["block_n"], kw.get("block_k", kw.get("block_kw"))) == (
+            tm, tn, tk)
+    kstep = {"standard": 128, "binary": 128, "xnor": 32}[mode]  # SIMD 96 rounded up
+    assert tiles[-1] == (own.packed, ("tiled", 32, 32, kstep))
 
 
 def test_candidates_smem_pruning_rejects_over_budget():
-    """Pruning reads the packed launch plan's shared memory: at 12,000 bytes
-    the 2-bit-lane plan (11,840) stays, at 11,000 it goes; the node's own
-    schedule (the int8-row plan, 14,400) is the incumbent and never pruned.
+    """Pruning reads each candidate's launch plan's shared memory; the
+    node's own schedule and the default tile are never pruned, and
     ``max_measure`` caps the challengers."""
     cfg = MVUConfig(in_features=2048, out_features=512, weight_bits=2)
-    unpacked, packed = (dense_mvu.dense_launch_plan(cfg.block_m, 512, 2048, coding).smem_bytes
-                        for coding in ("int8", "int2"))
-    assert packed < 12000 < unpacked <= SMEM_BYTES
-    loose = autotune.enumerate_candidates(cfg, smem_bytes=12000)
-    assert [(c.packed, c.smem_bytes) for c in loose] == [(True, packed), (False, unpacked)]
-    tight = autotune.enumerate_candidates(cfg, smem_bytes=11000)
-    assert [(c.packed, c.smem_bytes) for c in tight] == [(False, unpacked)]
-    assert autotune.enumerate_candidates(cfg, max_measure=0) == tight
+    loose = autotune.enumerate_candidates(cfg, smem_bytes=1 << 30, max_measure=100)
+    fixed = loose[-3:]  # the default tile, the packed twin, the node's own
+    assert [(c.blocks.block_n, c.packed) for c in fixed] == [(32, False), (64, True),
+                                                             (64, False)]
+    budget = sorted(c.smem_bytes for c in loose[:-3])[len(loose) // 2]
+    tight = autotune.enumerate_candidates(cfg, smem_bytes=budget, max_measure=100)
+    assert all(c.smem_bytes <= budget for c in tight if c not in (fixed[0], fixed[2]))
+    assert 3 < len(tight) < len(loose)
+    assert fixed[0] in tight and tight[-1] == fixed[2]
+    assert max(c.smem_bytes for c in loose) <= SMEM_BYTES
+    assert autotune.enumerate_candidates(cfg, max_measure=0) == fixed
+    assert len(autotune.enumerate_candidates(cfg, max_measure=3)) <= 6
+    # at 10,000 bytes the twin goes too; the default and the incumbent stay
+    assert autotune.enumerate_candidates(cfg, smem_bytes=10000) == [fixed[0], fixed[2]]
 
 
 @pytest.mark.parametrize("n,k,mode,packed", [
@@ -127,16 +150,25 @@ def test_block_candidates_equal_jax(n, k, mode, packed):
 
 
 def test_conv_candidates_use_conv_launch_plan():
-    """A conv node has one candidate, its own schedule, with the conv
-    kernel's launch plan: the conv kernel has one storage form."""
+    """A conv node's candidates race its compiled pixel x channel tiles
+    (rows_per_tile from the JAX search's block_m, block_n over N's
+    divisors), one storage form, each with its conv launch plan's shared
+    memory; the default tile and the node's own come last."""
     cfg = MVUConfig(in_features=27, out_features=8, mode="xnor")
-    cands = autotune.enumerate_candidates(
-        cfg, n_pixels=36, in_shape=(8, 8, 3),
-        conv={"kernel": 3, "stride": 1, "pad": 0}, smem_bytes=1 << 30)
-    assert [(c.backend, c.packed, c.smem_bytes) for c in cands] == [
-        ("cuda", False, swu_mvu.conv_launch_plan(1, 8, 8, 3, 8, 3).smem_bytes)]
-    assert cands[0].blocks.block_m == cfg.block_m
-    assert cands[0].predicted_cycles == cfg.resolved_folding().cycles(8, 27, 36)
+    conv = {"kernel": 3, "stride": 1, "pad": 0}
+    cands = autotune.enumerate_candidates(cfg, n_pixels=36, in_shape=(8, 8, 3), conv=conv,
+                                          smem_bytes=1 << 30)
+    plans = [swu_mvu.conv_launch_plan(1, 8, 8, 3, 8, 3, block_n=c.blocks.block_n,
+                                      rows_per_tile=c.blocks.rows_per_tile) for c in cands]
+    assert [c.smem_bytes for c in cands] == [p.smem_bytes for p in plans]
+    assert len({(p.tile_m, p.tile_n) for p in plans}) == len(plans)
+    # 6 x 6 output pixels: block_n 8 -> 32 channels, 128 -> 64; the untuned 32
+    # pixels, or rows of 36 pixels -> 64 where 64-pixel tiles exist (64 channels)
+    assert {(p.tile_m, p.tile_n) for p in plans} == {(32, 32), (32, 64), (64, 64)}
+    assert (plans[-1].tile_m, plans[-1].tile_n) == (32, 32)  # own: PE 8 -> 32, 32 pixels
+    assert {c.backend for c in cands} == {"cuda"} and {c.packed for c in cands} == {True}
+    assert all(c.blocks.block_m == cfg.block_m for c in cands)
+    assert cands[-1].predicted_cycles == cfg.resolved_folding().cycles(8, 27, 36)
 
 
 # ----------------------------------------------------------------- cache
@@ -252,7 +284,7 @@ def test_node_race_times_the_card_clock():
     clocks = []
     autotune.tune_node(fin[1], sample_m=8, reps=1,
                        timer=lambda fa, fb, *a, **kw: clocks.append(kw["clock"]) or (1., 1., 1.))
-    assert clocks == ["device"]
+    assert clocks and set(clocks) == {"device"}  # each raced tile on the card's clock
     x = torch.ones(4, 4)
     t_a, t_b, speedup = autotune.paired_times(torch.neg, torch.abs, x, reps=2, clock="device")
     assert t_a > 0 and t_b > 0 and speedup > 0
@@ -372,11 +404,11 @@ def test_illegal_explicit_folding_fails_at_config_time():
     bad_simd = MVUConfig(in_features=600, out_features=64, folding=Folding(64, 7))
     with pytest.raises(ValueError, match="SIMD=7"):
         bad_simd.kernel_blocks()
-    # legal foldings (the paper's Table 6 choices) still resolve; the kernels
-    # run their one compiled tile, whatever the folding
+    # legal foldings (the paper's Table 6 choices) still resolve, and pick
+    # the kernel's tile: PE 64 -> 64 columns, SIMD 50 -> a 64-synapse step
     ok = MVUConfig(in_features=600, out_features=64, folding=Folding(64, 50))
     assert ok.resolved_folding() == Folding(64, 50)
-    assert ok.kernel_blocks() == {"block_m": 128, "block_n": 32, "block_k": 32}
+    assert ok.kernel_blocks() == {"block_m": 128, "block_n": 64, "block_k": 64}
 
 
 def test_explicit_blocks_override_folding_derivation():
@@ -556,12 +588,18 @@ def test_auto_build_and_its_cache_rebuild_on_the_cpu(monkeypatch):
     assert acc.report.tune == {"mode": "auto", "cache_hits": 0, "cache_misses": 4,
                                "cache_entries": 3, "engine_tile": None}
     assert all(k.startswith("cpu|mvu|standard|") for k in cache.entries)
-    assert all(e["measured_candidates"] == 1 for e in cache.entries.values())
+    # each node raced its compiled tiles (and the packed twin) against its own
+    assert all(e["measured_candidates"] >= 2 for e in cache.entries.values())
     assert all(n.tuned for n in acc.report.nodes)
-    entry = autotune.tune_engine(acc.graph, 512, cache=cache, reps=1)
-    assert autotune.engine_key(acc.engine.graph) in cache
+    entry = autotune.tune_engine(acc.graph, 512, cache=cache, reps=1,
+                                 node_kwargs={"reps": 1})
     monkeypatch.setattr(autotune, "paired_timer", _no_timer)
     again = tbuild(tnid.build_graph(0), tune="cache", cache=cache, **kw)
+    # the nodes were raced again at the rows a launch gets under the tile,
+    # and the entry is keyed on the graph their entries give
+    mb = again.plan(512).microbatch
+    assert all(e["sample_m"] == mb for k, e in cache.entries.items() if "|mvu|" in k)
+    assert cache.get(autotune.engine_key(again.engine.graph)) == entry
     assert again.report.tune == {"mode": "cache", "cache_hits": 4, "cache_misses": 0,
                                  "cache_entries": 4, "engine_tile": entry["microbatch"]}
     plain = tbuild(tnid.build_graph(0), **kw)
@@ -569,6 +607,48 @@ def test_auto_build_and_its_cache_rebuild_on_the_cpu(monkeypatch):
     y = again(x)
     assert torch.equal(y, plain(x)) and torch.equal(acc(x), y)
     assert again.plan(512).microbatch == min(512, entry["microbatch"])
+
+
+@pytest.mark.parametrize("packed_wins", [True, False])
+@pytest.mark.parametrize("pack", ["auto", "never", "always"])
+def test_tune_engine_races_the_nodes_under_the_builds_pack_policy(pack, packed_wins,
+                                                                  monkeypatch):
+    """tune_engine races each node again under the build's pack policy --
+    on a timer stub where the packed datapath always wins, or always
+    loses -- and keys the tile under the graph a ``tune="cache"`` rebuild
+    with that policy has: the rebuild finds it, packs what the policy and
+    the entries say, and equals the untuned build."""
+    kw = dict(target="engine", mode="standard", weight_bits=2, act_bits=2,
+              folding=tnid.foldings(), device="cpu", pack=pack)
+    node_fn = autotune._node_fn
+
+    def tagged(cfg, params, cand, conv):
+        fn = node_fn(cfg, params, cand, conv)
+        fn.packed = cand.packed
+        return fn
+
+    monkeypatch.setattr(autotune, "_node_fn", tagged)
+    monkeypatch.setattr(autotune, "paired_timer",
+                        lambda fa, fb, *a, **k: (1.0, 1.0, 2.0 if fb.packed == packed_wins
+                                                 else 0.5))
+    cache = autotune.ScheduleCache()
+    acc = tbuild(tnid.build_graph(0), tune="auto", cache=cache,
+                 tune_kwargs={"reps": 1, "sample_m": 16}, **kw)
+    entry = autotune.tune_engine(acc.graph, 64, cache=cache, pack=pack,
+                                 timer=lambda *a, **k: (1.0, 1.0, 1.0), node_kwargs={"reps": 1})
+    nodes = [e for k, e in cache.entries.items() if "|mvu|" in k]
+    assert len(nodes) == 3 and all(e["sample_m"] == 64 for e in nodes)
+    packed = pack == "always" or (pack == "auto" and packed_wins)
+    assert all(bool(e.get("packed")) == packed for e in nodes)
+    monkeypatch.setattr(autotune, "paired_timer", _no_timer)
+    again = tbuild(tnid.build_graph(0), tune="cache", cache=cache, **kw)
+    assert again.report.tune["engine_tile"] == entry["microbatch"]
+    assert [n.attrs["config"].packed for n in again.graph if n.op == "mvu"] == \
+        [packed] * 4
+    x = torch.from_numpy(nid.make_dataset(64, seed=1)[0])
+    assert torch.equal(again(x), tbuild(tnid.build_graph(0), **kw)(x))
+    with pytest.raises(ValueError, match="pack"):
+        autotune.tune_engine(acc.graph, 64, cache=cache, pack="sometimes")
 
 
 def test_cpu_entries_never_apply_on_the_card():
@@ -600,7 +680,10 @@ def test_pack_never_keeps_the_tuner_off_the_packed_datapath():
     tuned = autotune.tune_graph(fin, cache=cache, mode="auto", allow_packed=False,
                                 timer=lambda *a, **k: calls.append(1) or (1.0, 0.5, 2.0),
                                 sample_m=16, reps=1)
-    assert not calls and not any(n.attrs["config"].packed for n in tuned if n.op == "mvu")
+    # the unpacked tiles are raced; no packed candidate is, nor pinned
+    assert len(calls) == sum(e["measured_candidates"] for e in cache.entries.values()) > 0
+    assert not any(e.get("packed") for e in cache.entries.values())
+    assert not any(n.attrs["config"].packed for n in tuned if n.op == "mvu")
     packed = {k: {**v, "packed": True} for k, v in cache.entries.items()}
     again = autotune.tune_graph(fin, cache=autotune.ScheduleCache(packed), mode="cache",
                                 allow_packed=False)

@@ -318,6 +318,74 @@ def test_dense_arrangements_equal_plain(cuda, m, k, epilogue, kernel):
     assert got.dtype == want.dtype and torch.equal(got, want)
 
 
+def _tile_kw(kernel, tile):
+    """The tile kwargs that pin a dense entry point's compiled tile."""
+    tm, tn, tk = tile
+    return ops.tile_kwargs(kernel, block_n=tn, block_k=tk, block_kw=tk, rows_per_tile=tm)
+
+
+@pytest.mark.parametrize("kernel,tile", [
+    (kernel, tile) for kernel in sorted(dense_mvu.CODING)
+    for tile in dense_mvu.tiles(dense_mvu.CODING[kernel])])
+def test_dense_kernel_equals_plain_at_every_tile(cuda, kernel, tile):
+    """Every compiled tile of every entry point on the dense core, read
+    back from the plan, at its ragged edges: K not a multiple of the K
+    step, N below tile_n and N = 1, M one past a tile; and one output too
+    small to fill the card (split K); all three epilogues."""
+    tm, tn, tk = tile
+    coding = dense_mvu.CODING[kernel]
+    unit = 32 if coding == "words" else 1  # packed xnor steps K in words
+    for m, n, k_units in ((tm + 1, tn - 3, tk + 5), (tm + 1, 1, 3 * tk - 1),
+                          (2 * tm - 1, tn + 1, 600), (4 * tm, 10, 2 * tk + 9)):
+        k = k_units * unit
+        kw = _tile_kw(kernel, tile)
+        plan = dense_mvu.dense_launch_plan(m, n, k_units, coding, block_n=tn, block_k=tk,
+                                           rows_per_tile=tm)
+        assert (plan.tile_m, plan.tile_n, plan.kstep) == tile
+        assert dense_mvu.DENSE_TILES[plan.tile] == tile
+        g = torch.Generator().manual_seed(m * 7 + n + k)
+        a = torch.randint(-300, 300, (m, k), generator=g, dtype=torch.int32).to(cuda)
+        fn, plain, args = _dense_operands(kernel, a, g, n, k)
+        _, _, t, s = _inputs(1, n, 1, 0, 1, cuda, seed=k)
+        span = {"mvu_int": 128 * k, "mvu_xnor": 0, "mvu_xnor_bits": 0}.get(kernel, k)
+        for epilogue in ("raw", "thresholds", "scale"):
+            ekw = _epilogue_kw(epilogue, t * span if span else t * k // 300, s)
+            launches = ops.launch_counts()[_counter(kernel)]
+            got = fn(*args, **ekw, **kw)
+            assert ops.launch_counts()[_counter(kernel)] == launches + 1
+            want = plain(*args, **ekw)
+            torch.cuda.synchronize()
+            assert got.dtype == want.dtype and torch.equal(got, want), (m, n, k, epilogue)
+
+
+def _conv_rows(tile_m, ow):
+    """The rows_per_tile that pins a tile_m-pixel tile on rows of ow
+    pixels (None: the untuned 32)."""
+    return None if tile_m == swu_mvu.TILE_M else max(1, tile_m // ow)
+
+
+@pytest.mark.parametrize("mode", ["standard", "binary", "xnor"])
+@pytest.mark.parametrize("tile", swu_mvu.CONV_TILES)
+def test_conv_kernel_equals_plain_at_every_tile(cuda, mode, tile):
+    """Every compiled pixel x channel tile of conv_mvu, read back from the
+    plan: N below tile_n, N = 1 and one past it, a ragged last pixel tile,
+    C = 3 (taps decoded a step) and C % 32 == 0, K split or not; the
+    threshold and scale epilogues."""
+    tm, tn = tile
+    for b, h, c, n in ((2, 30, 64, tn - 3), (3, 12, 40, 1), (1, 3, 256, tn + 1),
+                       (5, 32, 3, 64)):
+        rows = _conv_rows(tm, h - 2)
+        plan = swu_mvu.conv_launch_plan(b, h, h, c, n, 3, block_n=tn, rows_per_tile=rows)
+        assert (plan.tile_m, plan.tile_n) == tile
+        x, w, t, s = _conv_operands(mode, b, h, h, c, n, 3, cuda, seed=h + c + n + tm)
+        for kw in ({"thresholds": t}, {"out_scale": s}):
+            got = swu_mvu.conv_mvu(x, w, kernel=3, mode=mode, block_n=tn, rows_per_tile=rows,
+                                   **kw)
+            want = swu_mvu.conv_mvu_plain(x, w, kernel=3, mode=mode, **kw)
+            torch.cuda.synchronize()
+            assert got.dtype == want.dtype and torch.equal(got, want), (b, h, c, n)
+
+
 @pytest.mark.parametrize("kernel", ["mvu_int", "mvu_binary"])
 @pytest.mark.parametrize("m", [1, 5, 128, 300])
 def test_dense_wraps_mod_2_32(cuda, m, kernel):
@@ -523,7 +591,8 @@ def test_nid_tuned_on_the_card(cuda, variant, tmp_path, monkeypatch):
     plain = build(nid_mlp.build_graph(golden["seed"]), **kw)
     want = plain(x)
     assert torch.equal(acc(x), want)
-    entry = autotune.tune_engine(acc.graph, golden["batch"], cache=cache)
+    entry = autotune.tune_engine(acc.graph, golden["batch"], cache=cache,
+                                 pack=kw.get("pack", "auto"))  # the build's pack policy
     assert entry["microbatch"] >= 1
     monkeypatch.setattr(autotune, "paired_timer", None)  # a timer call would raise
     again = build(nid_mlp.build_graph(golden["seed"]), tune="cache", cache=cache, **kw)

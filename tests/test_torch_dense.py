@@ -118,8 +118,10 @@ def test_codings_differ_only_in_shared_memory(m, n, k):
         assert plan._replace(smem_bytes=rows.smem_bytes) == rows
         assert rows.smem_bytes - plan.smem_bytes == (
             0 if m <= 8 else 2 * (W_STAGE["int8"] - W_STAGE[coding]))
-    assert rows.c_args == (D.ARRANGEMENTS.index(rows.arrangement), rows.tile_m, rows.tile_n,
-                           rows.splits, rows.smem_bytes)
+    assert rows.c_args == (D.ARRANGEMENTS.index(rows.arrangement), rows.tile, rows.tile_m,
+                           rows.tile_n, rows.kstep, rows.splits, rows.smem_bytes)
+    # the default tile (index 0, 32 x 32, 32 units a step); gemv has none
+    assert (rows.tile, rows.kstep) == ((-1, 32) if m <= 8 else (0, 32))
 
 
 # --------------------------------------------------- the kernels against JAX

@@ -12,6 +12,8 @@ JAX package's ``FusedEngine`` bit for bit.  The real capture is checked on
 the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``'s graph phase).
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,7 +24,9 @@ from repro.configs import nid_mlp as jnid, residual_mlp as jres
 from repro_torch.build import build
 from repro_torch.configs import nid_mlp, residual_mlp
 from repro_torch.core import autotune, engine as engine_mod
-from repro_torch.core.engine import StageParams, _GraphCache
+from repro_torch.core.engine import FusedEngine, StageParams, _GraphCache
+from repro_torch.core.folding import Folding
+from repro_torch.core.ir import Graph
 from repro_torch.core.mvu import MVUParams
 from repro_torch.kernels import mvu_int as K, ops
 
@@ -151,6 +155,45 @@ def test_a_new_key_captures_anew(change, tmp_path, monkeypatch):
     replays = cap.replays
     assert torch.equal(eng(x), want) and cap.replays == replays + 1
     assert eng.captured_graphs == 2
+
+
+@pytest.mark.parametrize("retile", ["folding", "entry"])
+def test_new_tiles_on_the_same_params_capture_anew(retile):
+    """A build whose stages launch other tiles on the same parameter
+    tensors -- another folding, or a cache entry pinned by ``apply_entry``
+    -- is a new engine with a graph cache of its own: its first call
+    captures anew although its key equals the old engine's, and neither
+    engine ever replays the other's graph."""
+    eng = _nid().engine
+    cap = Capturer()
+    _captured(eng, cap)
+    nodes = []
+    for n in eng.graph:
+        if n.op == "mvu":
+            cfg = n.attrs["config"]
+            cfg = (dataclasses.replace(cfg, folding=Folding(1, 8)) if retile == "folding"
+                   else autotune.apply_entry(cfg, {"backend": "cuda", "block_m": cfg.block_m,
+                                                   "block_n": 64, "block_k": 128,
+                                                   "rows_per_tile": 64}))
+            n = dataclasses.replace(n, attrs={**n.attrs, "config": cfg})
+        nodes.append(n)
+    other = FusedEngine(Graph(nodes), fuse=False)  # eng.graph is fused already
+    _captured(other, cap)
+    blocks = [[n.attrs["config"].kernel_blocks() for n in e.graph if n.op == "mvu"]
+              for e in (eng, other)]
+    assert blocks[0] != blocks[1]  # the stages launch other tiles
+    params = eng.params  # both run on the same parameter tensors
+    x = _x(300)
+    want = _eager(eng, x)
+    for _ in range(2):
+        assert torch.equal(eng(x), want)
+    assert len(cap.calls) == 1 and cap.replays == 1
+    for _ in range(2):
+        assert torch.equal(other.dispatch(x, params=params)[0], want)
+    assert len(cap.calls) == 2 and cap.replays == 2  # its own capture, then its replay
+    assert list(other._graphs._graphs) == list(eng._graphs._graphs)  # one key, two caches
+    assert other._graphs is not eng._graphs
+    assert torch.equal(eng(x), want) and len(cap.calls) == 2 and cap.replays == 3
 
 
 def test_successive_outputs_do_not_alias():

@@ -12,7 +12,7 @@ import torch
 import jax.numpy as jnp
 
 from repro.kernels import ops as jops, ref as jref
-from repro_torch.kernels import _common, mvu_int as K, ops, ref
+from repro_torch.kernels import _common, dense_mvu, mvu_int as K, ops, ref
 
 MS = (1, 3, 128, 300)
 NKS = ((1, 8), (1, 64), (16, 32), (64, 64), (64, 600))
@@ -156,12 +156,25 @@ def test_oracle_matches_plain_on_random_int8(monkeypatch):
 
 
 @pytest.mark.parametrize("backend", ["cuda", "torch"])
-def test_ops_mvu_ignores_tile_kwargs(backend):
-    """JAX's tile kwargs are taken for a like signature and change nothing:
-    the kernel is compiled for one tile."""
-    a, w, t, _ = _inputs(7, 16, 64, "int2", "thresholds", seed=4)
+def test_ops_mvu_ignores_tile_kwargs(backend, monkeypatch):
+    """JAX's tile kwargs change no number (integer sums do not depend on the
+    order, and the plain versions take no tile), but on the hand-kernel
+    backend they reach the kernel's wrapper, which launches the compiled
+    tile they round up to; ``block_m``, the burst, does not."""
+    a, w, t, _ = _inputs(40, 16, 64, "int2", "thresholds", seed=4)
     got = _port(a, w, t, None, backend=backend, block_m=8, block_n=8, block_k=256)
     _assert_same(got, _port(a, w, t, None, backend=backend))
+    seen = []
+    real = K.mvu_int
+    monkeypatch.setattr(K, "mvu_int", lambda *args, **kw: seen.append(kw) or real(*args, **kw))
+    _assert_same(_port(a, w, t, None, backend=backend, block_m=8, block_n=48, block_k=40,
+                       rows_per_tile=64), got)
+    if backend == "torch":
+        assert seen == []  # the oracle takes no tile
+        return
+    assert seen == [{"block_n": 48, "block_k": 40, "rows_per_tile": 64}]
+    plan = dense_mvu.dense_launch_plan(40, 16, 64, "int8", **seen[0])
+    assert (plan.tile_m, plan.tile_n, plan.kstep) == (32, 64, 64)  # 64 rows: 32 x 32 x 32 only
 
 
 def test_layer_fn_is_mvu_on_a_params_dict():
