@@ -224,6 +224,27 @@ Phases, each printing its own line(s); any failure exits non-zero:
            U F), NID standard at 4096 and CNV standard at 256: the tuned
            arm's mean time may exceed F''s only by the largest spread of
            an arm's two turns.
+   explore the design-space explorer (``repro_torch.explore``) on the card,
+           with every launch counter set to 0 just before each sweep: the
+           NID-MLP at 4096 flows and the QUICK CNV at 256 images, each over
+           the quick grid PE (1, 8, 64) x SIMD (8, 64, 600) x packing (18
+           points, ``tune="off"``), the records in
+           ``chiprun_out/explore/``.  Each point as the sweep measures it:
+           every node's planned tile must be the one its folding maps to
+           (``folding_tile``), and each dense launch of the engine's eager
+           stream must pass the card that tile's index; the replayed
+           ``acc(x)`` must equal the stream; a NID point's ``acc(x)`` on
+           ``nid.make_dataset(4096, seed=1)`` must equal the golden digest
+           of ``standard`` (unpacked) or ``standard_packed`` (packed).  Then
+           every point bit-exact, the NID sweep launching two or more tiles
+           on some layer, the sweep's kernels (NID: ``mvu_int`` and
+           ``mvu_int2_packed``; CNV: ``conv_mvu`` and ``mvu_xnor``) each
+           launched, the warm build of the cache phase all hits, and the
+           card holding no more at a later point than at the first beyond
+           one input.  Printed: each point's tiles, microbatch, samples/s,
+           resource analogs and node device times (one launch at the whole
+           batch), the frontier, ``s_per_cycle`` and ``model_error_p90``,
+           the cold/warm walls, the phase's wall seconds and peak memory.
 5. the kernels JSON line (each kernel also with its tiles phase's times
    by tile), the card's ``nvidia-smi`` line, and last the result line
    ``{"ok": true, "device": {...}}``.
@@ -299,6 +320,11 @@ TRACES: list[str] = []  # every report_trace call of this run, by name
 TRACE_RETAKES: list[str] = []  # traces taken again (no device event, or part of them)
 # the hand kernel a device function of the trace belongs to: a substring of
 # its demangled name (spaces removed) -> the kernel's launch counter
+# the explore phase: (config, batch) of each sweep, the kernels each must launch
+EXPLORE_RUNS = (("nid_mlp", 4096), ("cnv_quick", CNV_BATCH))
+EXPLORE_KERNELS = {"nid_mlp": ("mvu_int", "mvu_int2_packed"),
+                   "cnv_quick": ("conv_mvu", "mvu_xnor")}
+EXPLORE_DIR = os.path.join(TRACE_DIR, "explore")
 TRACE_KERNELS = {
     "conv_mvu_kernel": "conv_mvu",
     "Coding<false,false,false>": "mvu_int",
@@ -1209,10 +1235,11 @@ def tile_pick(e: dict) -> str:
             f"block_k={e['block_k']} block_kw={e['block_kw']} rows_per_tile={e['rows_per_tile']}")
 
 
-def layer_tiles(acc, batch: int) -> list[str]:
-    """Each MVU node's launched tile at ``batch``'s microbatch, read from its
-    launch plan: ``name=tile`` (dense: rows x columns x K step, or gemv;
-    conv: pixels x channels)."""
+def node_tiles(acc, batch: int) -> list[tuple]:
+    """Each MVU node of the engine and its launched tile at ``batch``'s
+    microbatch, read from its launch plan: ``(node, tile)``, the tile
+    ``(arrangement, rows, columns, K step)`` for a dense node (gemv: no
+    tile of its own) and ``(arrangement, pixels, channels)`` for a conv."""
     from repro_torch.core import autotune, ir
     from repro_torch.core.mvu import KernelBlocks
 
@@ -1227,8 +1254,16 @@ def layer_tiles(acc, batch: int) -> list[str]:
         tile, _ = autotune.launched_tile(cfg, KernelBlocks.from_blocks(cfg.kernel_blocks()),
                                          cfg.packed or cfg.mode == "xnor", m=mb, conv=conv,
                                          in_shape=ins[0] if conv is not None else None)
-        out.append(f"{node.name}={tile[0]} {tile_label(tile[1:])}")
+        out.append((node, tile))
     return out
+
+
+def layer_tiles(acc, batch: int) -> list[str]:
+    """Each MVU node's launched tile at ``batch``'s microbatch, read from its
+    launch plan: ``name=tile`` (dense: rows x columns x K step, or gemv;
+    conv: pixels x channels)."""
+    return [f"{node.name}={tile[0]} {tile_label(tile[1:])}" for node, tile in
+            node_tiles(acc, batch)]
 
 
 def tiles_phase(dev, smi: str, ptxas: dict, path_accs: dict, tuned: dict) -> dict:
@@ -1498,6 +1533,176 @@ def tiles_phase(dev, smi: str, ptxas: dict, path_accs: dict, tuned: dict) -> dic
     print(f"tiles: phase done in {time.perf_counter() - t_phase:.2f} s wall; every time in "
           "chiprun_out/tiles.json", flush=True)
     return out
+
+
+def folding_tile(node, mb: int) -> tuple:
+    """The tile a node's folding maps to at a microbatch of ``mb`` rows, from
+    its PE and SIMD alone (``folding.to_gpu_blocks``' rule): dense, 32 rows x
+    PE rounded up onto the compiled columns x SIMD rounded up onto its
+    coding's K steps, or ``("gemv",)`` at M <= 8, which has no tile; conv,
+    32 pixels x PE rounded up onto the compiled channels."""
+    from repro_torch.kernels import _cuda, dense_mvu, ops, swu_mvu as C
+
+    cfg = node.attrs["config"]
+    fold = cfg.resolved_folding()
+    if node.op == "conv_mvu":
+        return (C.TILE_M, _cuda.round_up_to(fold.pe, C.CONV_TILE_NS))
+    if mb <= dense_mvu.GEMV_MAX_M:
+        return ("gemv",)
+    coding = dense_mvu.CODING[ops.kernel_name(cfg.mode, cfg.packed)]
+    return ("tiled", _cuda.BLOCK_M, _cuda.round_up_to(fold.pe, dense_mvu.TILE_NS),
+            _cuda.round_up_to(fold.simd, dense_mvu.ksteps(coding)))
+
+
+def explore_phase(dev, smi: str) -> None:
+    """The explore phase (see the module doc): ``repro_torch.explore`` over
+    the quick grid of the NID-MLP at 4096 flows and of the QUICK CNV at 256
+    images, each point checked as the sweep measures it (its tiles against
+    its folding's, at the plan and at each dense launch of its stream; NID:
+    the golden digest), then the records' points, frontier, calibration and
+    cache phase."""
+    import torch
+
+    from repro_torch.configs import golden as golden_mod, nid_mlp
+    from repro_torch.data import nid
+    from repro_torch.explore import ExploreConfig, explore, explorer
+    from repro_torch.kernels import dense_mvu, ops, swu_mvu as C
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    golden = nid_mlp.load_golden()
+    dense_libs = [lib for lib in ops.LIBRARIES if lib is not C.LIB]
+    measure = explorer._measure_point
+    for config, batch in EXPLORE_RUNS:
+        seen = {}  # point id -> what the checks read of it
+        layer_tiles_seen = {}  # dense node -> the tile indices its launches passed the card
+        resident = []  # bytes allocated on the card as each point's measurement starts
+
+        def checked_measure(acc, x, *, reps, config=config, batch=batch, seen=seen,
+                            layer_tiles_seen=layer_tiles_seen, resident=resident):
+            resident.append((torch.cuda.memory_allocated(dev), x.numel() * x.element_size()))
+            measured = measure(acc, x, reps=reps)
+            pid = acc.report.sweep["point_id"]
+            plan = acc.plan(batch)
+            tiles = node_tiles(acc, batch)
+            for node, tile in tiles:
+                want = folding_tile(node, plan.microbatch)
+                got = tile[:1] if want == ("gemv",) else tile[1:] if node.op == "conv_mvu" \
+                    else tile
+                check(got == want and (node.op == "mvu" or tile[0] in C.ARRANGEMENTS),
+                      f"explore: {config} {pid}: {node.name} plans tile {tile}, its folding "
+                      f"{node.attrs['config'].resolved_folding()} maps to {want}")
+            # each dense launch of the engine's stream, as the card got it
+            launched = []  # (N, tile index) a launch
+
+            def recording(lib_run):
+                def run(fn, device, *args):
+                    launched.append((args[6], args[12]))
+                    return lib_run(fn, device, *args)
+                return run
+
+            for lib in dense_libs:
+                lib.run = recording(lib.run)  # an instance attribute over the method
+            eng = acc.engine
+            y = eng._stream(eng.params, x, plan.n_micro)
+            for lib in dense_libs:
+                del lib.run
+            dense = [node for node, _ in tiles if node.op == "mvu"]
+            check(len(launched) == len(dense) * plan.n_micro,
+                  f"explore: {config} {pid}: the stream made {len(launched)} dense launches, "
+                  f"want {len(dense)} x n_micro={plan.n_micro}")
+            for i, (n, index) in enumerate(launched):
+                node = dense[i % len(dense)]
+                want = folding_tile(node, plan.microbatch)
+                want_index = -1 if want == ("gemv",) else dense_mvu.DENSE_TILES.index(want[1:])
+                check(n == node.attrs["config"].out_features and index == want_index,
+                      f"explore: {config} {pid}: {node.name} launched N={n} tile {index}, "
+                      f"its folding's is {want_index}")
+                layer_tiles_seen.setdefault(node.name, set()).add(index)
+            check(torch.equal(y, acc(x)), f"explore: {config} {pid}: the replayed acc(x) "
+                  "differs from the eager stream")
+            variant = None
+            if config == "nid_mlp":
+                variant = "standard_packed" if acc.report.sweep["packed"] else "standard"
+                gd = golden[variant]
+                xg = torch.from_numpy(nid.make_dataset(gd["batch"], seed=gd["data_seed"])[0])
+                yg = acc(xg.to(dev))
+                check(golden_mod.digest_like(gd, yg.cpu().numpy(), acc.graph) == gd,
+                      f"explore: nid_mlp {pid}: acc(x) differs from the golden digest "
+                      f"{variant}")
+            seen[pid] = {"tiles": [f"{node.name}={tile[0]} {tile_label(tile[1:])}"
+                                   for node, tile in tiles],
+                         "microbatch": plan.microbatch, "n_micro": plan.n_micro,
+                         "golden": variant}
+            return measured
+
+        explorer._measure_point = checked_measure
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        rec = explore(ExploreConfig(config=config, quick=True, batch=batch,
+                                    out_dir=EXPLORE_DIR))
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        explorer._measure_point = measure
+        if config == "nid_mlp":
+            check(golden["standard"]["seed"] == 0 and golden["standard"]["batch"] == batch,
+                  "explore: the NID golden digests are not of seed 0 at this batch")
+        check(rec["bit_exact"] and all(p["bit_exact"] for p in rec["points"])
+              and set(seen) == {p["point_id"] for p in rec["points"]},
+              f"explore: {config}: not every point measured and bit-exact")
+        check(all(counts[k] > 0 for k in EXPLORE_KERNELS[config]),
+              f"explore: {config}: launched {counts}, want each of {EXPLORE_KERNELS[config]}")
+        n_nodes = len(rec["points"][0]["nodes"])
+        cache = rec["cache"]
+        check(cache["warm_hits"] == n_nodes and cache["warm_misses"] == 0,
+              f"explore: {config}: the warm build hit {cache['warm_hits']} and missed "
+              f"{cache['warm_misses']} of {n_nodes} nodes")
+        first, x_bytes = resident[0]
+        grown = max(r for r, _ in resident) - first
+        check(grown < x_bytes, f"explore: {config}: the card held {grown} bytes more at a "
+              f"later point than at the first, as much as an input of {x_bytes} bytes: a "
+              "point's engine or graphs outlived it")
+        distinct = {name: sorted(t) for name, t in layer_tiles_seen.items()}
+        if config == "nid_mlp":
+            check(any(len(t) > 1 for t in distinct.values()),
+                  f"explore: the NID sweep launched one tile a layer: {distinct}")
+        for p in rec["points"]:
+            info = seen[p["point_id"]]
+            node_us = ", ".join(f"{n['name']} {n['measured_s'] * batch * 1e6:.2f}"
+                                for n in p["nodes"])
+            print(f"explore: {config} {p['point_id']} foldings {p['foldings']}: tiles "
+                  f"{', '.join(info['tiles'])}; microbatch {info['microbatch']} x "
+                  f"n_micro={info['n_micro']}; {p['samples_per_s']:.1f} samples/s "
+                  f"({p['engine_us']:.1f} us an acc(x) of {batch}); lut_bytes={p['lut_bytes']} "
+                  f"ff_bytes={p['ff_bytes']} bram_bytes={p['bram_bytes']} "
+                  f"weight_bytes={p['weight_bytes']} interval_cycles={p['interval_cycles']}; "
+                  f"device us a launch at M={batch}: {node_us}; bit-exact"
+                  + (f", equals the golden digest {info['golden']}" if info["golden"] else "")
+                  + ("; on the frontier" if p["pareto"] else ""), flush=True)
+        rates = [p["samples_per_s"] for p in rec["points"]]
+        cal = rec["calibration"]
+        print(f"explore: {config}: {rec['n_points']} points in {wall:.2f} s; frontier "
+              f"{rec['pareto_front']} ({rec['packed_pareto_points']} packed); samples/s "
+              f"{min(rates):.1f}-{max(rates):.1f} ({max(rates) / min(rates):.3f}x); tiles "
+              f"launched a dense layer {distinct}; s_per_cycle={cal['s_per_cycle']:.6e} "
+              f"(clock analog {cal['clock_mhz_analog']:.3f} MHz, {cal['samples']} node times "
+              f"on the card's clock), model_error_p90={rec['model_error_p90']:.4f}, per node "
+              + ", ".join(f"{k} p90 {v['p90_abs']:.4f}" for k, v in cal["per_node"].items())
+              + f"; the card held at most {grown} bytes more than at the first point; "
+              f"launches {counts}; record {os.path.relpath(rec['path'], HERE)} ({smi})",
+              flush=True)
+        print(f"explore: {config}: cache phase: cold tune=\"auto\" build "
+              f"{cache['cold_wall_s']:.3f} s (tune step {cache['cold_tune_wall_s']:.3f} s, "
+              f"{cache['cold_misses']} misses), warm tune=\"cache\" "
+              f"{cache['warm_wall_s']:.3f} s (tune step {cache['warm_tune_wall_s']:.4f} s, "
+              f"{cache['warm_hits']} hits, {cache['warm_misses']} misses), "
+              f"{cache['cache_speedup']:.3f}x; {cache['entries']} entries ({smi})", flush=True)
+    torch.cuda.synchronize()
+    print(f"explore: phase done in {time.perf_counter() - t_phase:.2f} s wall; peak "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB allocated "
+          f"(torch.cuda.max_memory_allocated), {torch.cuda.memory_allocated(dev) / 2**20:.1f} "
+          f"MiB after ({smi})", flush=True)
 
 
 def bound_of(nbytes: int, ops: int) -> tuple[float, str]:
@@ -2287,6 +2492,7 @@ def main() -> int:
     tuned = tune_phase(dev, smi, path_accs)
     graph_phase(dev, smi, path_accs, tuned, served)
     tiles = tiles_phase(dev, smi, ptxas, path_accs, tuned)
+    explore_phase(dev, smi)
 
     # -------------------------------------------------------- 5. results
     mb = plan.microbatch

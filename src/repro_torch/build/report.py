@@ -83,7 +83,7 @@ class BuildReport:
     edges: list = dataclasses.field(default_factory=list)
     schedule: dict = dataclasses.field(default_factory=dict)
     tune: dict = dataclasses.field(default_factory=dict)
-    # design-space exploration (``explore``, a later slice): when this build is one point
+    # design-space exploration (``repro_torch.explore``): when this build is one point
     # of a sweep, ``sweep`` identifies the point (grid coordinates + the
     # realized per-node foldings) and ``calibration`` carries the fitted
     # cycle time + per-node model-error records the explorer attributed to
