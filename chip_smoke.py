@@ -95,6 +95,30 @@ Phases, each printing its own line(s); any failure exits non-zero:
            monitor; the median span of each node (host + device: the card
            is synchronised after every node, so these are not ``acc(x)``
            times).
+   qat     the paper's Section 6.5 flow (``repro_torch.launch.nid_qat``) at
+           full size: ``accuracy_check()``'s two halves, ``prepare`` (the
+           flows of ``nid.make_dataset``, 300 steps of straight-through
+           training on 4096, the float accuracy on 1024, the streamlined
+           build on the card) and ``score``, with its engine call between
+           them counted: with every launch counter set to 0 just before it,
+           ``acc(x_test)`` must launch ``mvu_int`` exactly 4 x n_micro times
+           and nothing else, equal ``acc.interpret(x_test)`` and meet the
+           reference's claims (Table 7 cycles, integer accuracy at least the
+           float one less 0.05, and above 0.95); its five keys are printed.
+           fc0's trained int8 weights (up to +/-127) through ``mvu_int`` at
+           its Table 6 tile against ``mvu_int_plain`` at M = the microbatch
+           and 1024; flows/s at 1024.  Then each variant of
+           ``configs/nid_qat_golden.json`` (seeded float weights, identity or
+           seeded batchnorm) built on the card: ``acc(x)`` on
+           ``nid.make_dataset(4096, seed=1)`` must equal the interpreter and
+           the JAX package's streamlined digest and launch ``mvu_int``
+           4 x n_micro times and nothing else.
+   examples each ``examples/torch_*.py``'s ``main(device="cuda",
+           out_dir=<tmp>)`` (NID with ``fast=True``), finishing with its own
+           asserts (engine equal to the interpreter, the kernels it
+           launched, served requests equal to the engine); its output in
+           ``chiprun_out/example_<name>.log``.  Both phases run before any
+           profiler trace.
    trace   one ``torch.profiler`` trace (CPU and CUDA activities) of one
            NID standard ``acc(x)`` at 4096 and one CNV standard ``acc(x)``
            at 256, after two untraced calls and one traced step whose
@@ -246,7 +270,8 @@ Phases, each printing its own line(s); any failure exits non-zero:
            batch), the frontier, ``s_per_cycle`` and ``model_error_p90``,
            the cold/warm walls, the phase's wall seconds and peak memory.
 5. the kernels JSON line (each kernel also with its tiles phase's times
-   by tile), the card's ``nvidia-smi`` line, and last the result line
+   by tile; ``mvu_int``'s launches and times include the qat phase's three
+   counted ``acc(x)``), the card's ``nvidia-smi`` line, and last the result line
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package (``src/repro``).
@@ -321,6 +346,8 @@ TRACE_RETAKES: list[str] = []  # traces taken again (no device event, or part of
 # the hand kernel a device function of the trace belongs to: a substring of
 # its demangled name (spaces removed) -> the kernel's launch counter
 # the explore phase: (config, batch) of each sweep, the kernels each must launch
+EXAMPLES = {"torch_quickstart": {}, "torch_cnv_dataflow": {}, "torch_residual_mlp": {},
+            "torch_nid_intrusion_detection": {"fast": True}}  # main()'s extra kwargs
 EXPLORE_RUNS = (("nid_mlp", 4096), ("cnv_quick", CNV_BATCH))
 EXPLORE_KERNELS = {"nid_mlp": ("mvu_int", "mvu_int2_packed"),
                    "cnv_quick": ("conv_mvu", "mvu_xnor")}
@@ -533,6 +560,127 @@ def record_dispatches(pool) -> list[tuple[int, int, list[int]]]:
 
     pool.dispatch = logged
     return log
+
+
+def qat_phase(dev, smi: str) -> list[tuple[int, int]]:
+    """The paper's Section 6.5 flow on the card (``repro_torch.launch.nid_qat``):
+    ``accuracy_check`` at full size, its engine call counted, then the QAT
+    golden variants.  Returns the (microbatch, n_micro) of every counted
+    ``acc(x)``, for the kernels line."""
+    import torch
+
+    from repro_torch.configs import golden as golden_mod, nid_mlp
+    from repro_torch.core.folding import Folding, to_gpu_blocks
+    from repro_torch.data import nid
+    from repro_torch.kernels import mvu_int as K, ops
+    from repro_torch.launch import nid_qat
+
+    t_phase = time.perf_counter()
+    counted = []
+
+    def only_mvu_int(counts, plan, what):
+        n_micro = plan.n_micro
+        check(plan.microbatch in KERNEL_MS, f"qat {what}: microbatch {plan.microbatch}, but "
+              f"the kernel phase timed mvu_int at M in {KERNEL_MS} only")
+        check(counts == {k: 4 * n_micro if k == "mvu_int" else 0 for k in counts},
+              f"qat {what}: acc(x) launched {counts}, want mvu_int 4 x {n_micro} times "
+              "and nothing else")
+
+    # accuracy_check() is prepare() then score(acc(x_test)); the engine call
+    # between them is the one counted (its first call: eager, then captured)
+    t0 = time.perf_counter()
+    run = nid_qat.prepare(device="cuda")  # 4096 train / 1024 test flows, 300 steps
+    torch.cuda.synchronize()
+    t_prep = time.perf_counter() - t0
+    n_test = run.x_test.shape[0]
+    plan = run.acc.plan(n_test)
+    ops.reset_launch_counts()
+    out = run.acc(run.x_test)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    only_mvu_int(counts, plan, "accuracy_check")
+    counted.append((plan.microbatch, plan.n_micro))
+    check(out.is_cuda and out.dtype == torch.float32 and tuple(out.shape) == (n_test, 1)
+          and bool(torch.isfinite(out).all()), f"qat: bad output {out.dtype} {tuple(out.shape)}")
+    res = nid_qat.score(run, out)  # raises unless out equals acc.interpret(x_test)
+    check(torch.equal(out, run.acc.interpret(run.x_test)),
+          "qat: acc(x_test) differs from acc.interpret(x_test)")
+    claims = nid_qat.check_claims(nid_qat.layer_rows(), res)
+    print(f"qat: accuracy_check() on the card: {json.dumps(res)}; trained and built in "
+          f"{t_prep:.2f} s ({run.acc.report.step_names})", flush=True)
+    print(f"qat: acc(x_test) at {n_test} flows equals acc.interpret(x_test); "
+          f"{counts['mvu_int']} mvu_int launches = 4 x n_micro={plan.n_micro}, no other "
+          f"kernel; claims {claims}", flush=True)
+
+    # fc0 at its Table 6 tile on the trained full-range int8 weights
+    fc0 = next(n for n in run.acc.graph if n.op == "mvu").params["mvu"]
+    _, _, pe, simd = nid_mlp.LAYERS[0]
+    tile = ops.tile_kwargs("mvu_int", **to_gpu_blocks(Folding(pe, simd), "standard"))
+    wmax = int(fc0.weights.abs().max())
+    for m in (plan.microbatch, n_test):
+        a = run.x_test[:m]
+        got = K.mvu_int(a, fc0.weights, fc0.thresholds, None, **tile)
+        want = K.mvu_int_plain(a, fc0.weights, fc0.thresholds, None)
+        torch.cuda.synchronize()
+        check(got.dtype == want.dtype and torch.equal(got, want),
+              f"qat: mvu_int != mvu_int_plain on fc0's trained weights at M={m} "
+              f"(|w| <= {wmax}, {dense_plan_text('mvu_int', m, 64, 600, **tile)})")
+    print(f"qat: fc0's trained weights (int8, |w| up to {wmax}) through mvu_int at its "
+          f"Table 6 tile {tile} equal mvu_int_plain at M={plan.microbatch} and {n_test}",
+          flush=True)
+    med = acc_seconds(run.acc, run.x_test)
+    print(f"qat: batch {n_test}: {n_test / med:.1f} flows/s (median of 7 acc(x), "
+          f"{med * 1e3:.3f} ms)", flush=True)
+
+    # the golden variants: the JAX package's streamlined graph on seeded weights
+    for variant, gd in sorted(nid_qat.load_golden().items()):
+        acc = nid_qat.build_streamlined(nid_qat.variant_graph(variant))
+        x = torch.from_numpy(nid.make_dataset(gd["batch"], seed=gd["data_seed"])[0]).to(dev)
+        vplan = acc.plan(gd["batch"])
+        ops.reset_launch_counts()
+        y = acc(x)
+        torch.cuda.synchronize()
+        only_mvu_int(ops.launch_counts(), vplan, variant)
+        counted.append((vplan.microbatch, vplan.n_micro))
+        check(torch.equal(y, acc.interpret(x)), f"qat {variant}: acc(x) differs from "
+              "acc.interpret(x)")
+        check(golden_mod.digest_like(gd, y.cpu().numpy(), acc.graph) == gd,
+              f"qat {variant}: the card's output differs from the JAX package's "
+              "streamlined golden digest")
+        print(f"qat: golden {variant}: acc(x) at {gd['batch']} flows equals "
+              f"acc.interpret(x) and the JAX golden digest; {4 * vplan.n_micro} mvu_int "
+              f"launches = 4 x n_micro={vplan.n_micro}", flush=True)
+    print(f"qat: phase {time.perf_counter() - t_phase:.2f} s ({smi})", flush=True)
+    return counted
+
+
+def examples_phase(smi: str) -> None:
+    """Each ``examples/torch_*.py`` ``main(device="cuda", out_dir=<tmp>)`` (the
+    NID example with ``fast=True``), finishing with its own asserts; its
+    output goes to ``chiprun_out/example_<name>.log``."""
+    import contextlib
+    import importlib.util
+    import tempfile
+
+    t_phase = time.perf_counter()
+    os.makedirs(TRACE_DIR, exist_ok=True)
+    for name, kwargs in EXAMPLES.items():
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(HERE, "examples", f"{name}.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        log = os.path.join(TRACE_DIR, f"example_{name}.log")
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp, open(log, "w") as f, \
+                contextlib.redirect_stdout(f):
+            mod.main(device="cuda", out_dir=tmp, **kwargs)
+            reports = sorted(os.listdir(tmp))
+        with open(log) as f:
+            oks = [ln.strip() for ln in f if ln.startswith("OK") or "ran the" in ln]
+        print(f"examples: {name}.main(device='cuda'{', fast=True' if kwargs else ''}) "
+              f"finished in {time.perf_counter() - t0:.2f} s; reports {reports}; "
+              f"{' | '.join(oks)}", flush=True)
+    print(f"examples: phase {time.perf_counter() - t_phase:.2f} s ({smi})", flush=True)
 
 
 def serve_phase(dev, smi: str):
@@ -2484,6 +2632,10 @@ def main() -> int:
               "synchronised after each node, so not acc(x) time): "
               + ", ".join(f"{k} {v * 1e6:.1f}" for k, v in med.items()), flush=True)
 
+    # the Section 6.5 flow and the examples, before any profiler trace
+    qat_runs = qat_phase(dev, smi)
+    examples_phase(smi)
+
     # trace: torch.profiler of one acc(x) each, after warm-up
     for cfg_name, xp in prof_inputs.items():
         report_trace(path_accs[(cfg_name, "standard")], xp.to(dev), f"{cfg_name} standard")
@@ -2512,6 +2664,11 @@ def main() -> int:
             entry = XNOR_PATH_ENTRY if name == "mvu_xnor" else name
             rows = [timing[(entry, mb, n, k)] for k, n, _, _ in nid_mlp.LAYERS] * plan.n_micro
             n_launches = launches[name]
+            if name == "mvu_int":  # the Section 6.5 flow's acc(x) runs, the qat phase
+                for q_mb, q_n_micro in qat_runs:
+                    rows += [timing[(name, q_mb, n, k)]
+                             for k, n, _, _ in nid_mlp.LAYERS] * q_n_micro
+                    n_launches += 4 * q_n_micro
             for _, dense, n_micro, counts in cnv_runs.values():
                 if dense == name:
                     rows += [timing[(entry, CNV_DENSE_M, n, k)] for n, k in cnv_dense] * n_micro

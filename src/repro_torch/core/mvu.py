@@ -3,7 +3,8 @@
 :class:`MVULayer` is the faithful FINN unit: integer tensors in, integer
 activations out through the fused multi-threshold epilogue (or a float32
 dequant scale on the last layer).  ``quantized_linear``, the LM facing,
-comes with the LM slice (ROADMAP queue A item 7).
+waits for ROADMAP queue A item 7, step 2 (the Section 6.5 flow of step 1,
+``repro_torch.launch.nid_qat``, needs only this unit).
 """
 
 from __future__ import annotations

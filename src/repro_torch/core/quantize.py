@@ -8,8 +8,10 @@ Conventions
 * 1-bit weights are bipolar {-1, +1} (paper Fig. 4a/4b).
 
 ``torch.round`` rounds half to even, as ``jnp.round`` does, so the integer
-weights equal the JAX reference's.  Fake-quantizers and straight-through
-estimators come with the QAT slice (ROADMAP queue A item 7).
+weights equal the JAX reference's.  The Section 6.5 flow trains with the
+straight-through trick inline (``repro_torch.launch.nid_qat``, as the
+reference's ``benchmarks/nid_mlp.py`` does); the fake quantizers and
+``_ste`` of this module wait for ROADMAP queue A item 7, step 2.
 """
 
 from __future__ import annotations

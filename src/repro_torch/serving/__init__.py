@@ -49,7 +49,8 @@ quarantines as annotated events -- plus live measured-vs-predicted
 cycle-model drift per replica.  ``None`` costs one identity test per site.
 
 The JAX package's deprecated ``repro.launch.serve.EngineServer`` shim is
-not ported here (ROADMAP queue A item 7).
+ported as :class:`repro_torch.launch.serve.EngineServer`, a thin
+manual-flush front end over :class:`ContinuousBatcher`.
 """
 
 from repro_torch.serving.batcher import (

@@ -2,7 +2,8 @@
 
 * ``repro_torch`` and every submodule import with no ``jax``, ``jaxlib`` or
   ``repro`` module loaded (checked in a fresh interpreter), and no file of
-  the port nor ``chip_smoke.py`` imports one (checked on the source).
+  the port, nor ``chip_smoke.py``, nor an ``examples/torch_*.py`` imports
+  one (checked on the source).
 * A tensor that is neither on the CPU nor on a CUDA device makes the kernel
   wrapper raise instead of returning the plain version's result.
 * ``build()`` without a device raises when CUDA is absent.
@@ -62,6 +63,7 @@ def _sources():
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+    yield from glob.glob(os.path.join(ROOT, "examples", "torch_*.py"))
 
 
 @pytest.mark.parametrize("path", sorted(_sources()), ids=lambda p: os.path.relpath(p, ROOT))
