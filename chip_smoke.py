@@ -269,9 +269,35 @@ Phases, each printing its own line(s); any failure exits non-zero:
            resource analogs and node device times (one launch at the whole
            batch), the frontier, ``s_per_cycle`` and ``model_error_p90``,
            the cold/warm walls, the phase's wall seconds and peak memory.
+   pipeline the FINN dataflow as a GPipe schedule (``acc.as_pipeline``, one
+           CUDA stream a stage, events between them).  The full-width chain
+           of ``configs/mvu_chain.py`` (eight of the NID's 64 x 64 hidden
+           layers, PE 16 x SIMD 32, a batchnorm and a 2-bit quantizer after
+           each, so every stage carries thresholds) built with
+           ``target="pipeline"`` in standard (2-bit weights, ``mvu_int``)
+           and binary (1-bit, ``mvu_binary``) mode; 4,096 numpy-seeded flows
+           in 32 microbatches of 128.  ``acc(x)`` must equal the chain run
+           layer by layer through the kernel's plain version on the card;
+           at 1, 2, 4 and 8 stages on the one card, each run must equal
+           ``acc(x)`` and, with every launch counter set to 0 just before
+           it, launch the mode's kernel 32 x 8 = 256 times and nothing else.
+           The same ticks on the caller's stream alone
+           (``run(xs, stage_streams=False)``) must equal it too.  Printed:
+           each run's ms on the stage streams and on one stream (CUDA events
+           on the caller's stream, median of 7 after a warm-up) beside the
+           replayed ``acc(x)``, one stage layer call's host time alone, and
+           one stage layer timed as the kernel phase times a layer.  Then
+           the JAX package's test chain (d = 32, four layers, 2 bits, 8 x 4)
+           at 1, 2 and 4 stages, equal to ``acc(x)``; one traced run at four
+           stages (one ``pipeline.run`` span, lanes ``stage0``-``stage3``,
+           occupancy 32/35) and a ``torch.profiler`` trace of that schedule
+           (streams, busy and overlap, no gate on its events); the float
+           example (``examples/torch_dataflow_pipeline.py``), forward and
+           gradients against ``sequential_reference``.
 5. the kernels JSON line (each kernel also with its tiles phase's times
    by tile; ``mvu_int``'s launches and times include the qat phase's three
-   counted ``acc(x)``), the card's ``nvidia-smi`` line, and last the result line
+   counted ``acc(x)``; ``mvu_int``'s and ``mvu_binary``'s the pipeline
+   phase's counted runs), the card's ``nvidia-smi`` line, and last the result line
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package (``src/repro``).
@@ -347,7 +373,12 @@ TRACE_RETAKES: list[str] = []  # traces taken again (no device event, or part of
 # its demangled name (spaces removed) -> the kernel's launch counter
 # the explore phase: (config, batch) of each sweep, the kernels each must launch
 EXAMPLES = {"torch_quickstart": {}, "torch_cnv_dataflow": {}, "torch_residual_mlp": {},
-            "torch_nid_intrusion_detection": {"fast": True}}  # main()'s extra kwargs
+            "torch_nid_intrusion_detection": {"fast": True},
+            "torch_dataflow_pipeline": {}}  # main()'s extra kwargs
+# the pipeline phase: the chain's seed, stage counts and weight bits by mode
+PIPE_SEED = 0
+PIPE_STAGES = (1, 2, 4, 8)
+PIPE_WEIGHT_BITS = {"standard": 2, "binary": 1}
 EXPLORE_RUNS = (("nid_mlp", 4096), ("cnv_quick", CNV_BATCH))
 EXPLORE_KERNELS = {"nid_mlp": ("mvu_int", "mvu_int2_packed"),
                    "cnv_quick": ("conv_mvu", "mvu_xnor")}
@@ -368,11 +399,13 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
-def device_ms(fn, reps: int, trials: int = 5) -> float:
+def device_ms(fn, reps: int, trials: int = 5, sleep: int = SLEEP_CYCLES) -> float:
     """Median device milliseconds per call of ``fn`` (CUDA events).
 
-    The card sleeps while the host enqueues ``reps`` calls, so the events
-    time back-to-back device work, not the host's launch rate."""
+    The card sleeps ``sleep`` cycles while the host enqueues ``reps``
+    calls, so the events time back-to-back device work, not the host's
+    launch rate.  With ``sleep=0`` and ``reps=1`` they time one call as the
+    card sees it, the host's enqueue included (a wall time)."""
     import torch
 
     fn()
@@ -380,7 +413,8 @@ def device_ms(fn, reps: int, trials: int = 5) -> float:
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     times = []
     for _ in range(trials):
-        torch.cuda._sleep(SLEEP_CYCLES)
+        if sleep:
+            torch.cuda._sleep(sleep)
         start.record()
         for _ in range(reps):
             fn()
@@ -1329,26 +1363,6 @@ def graph_phase(dev, smi: str, path_accs: dict, tuned: dict, served) -> None:
           f"({smi})", flush=True)
 
 
-def tile_ms(fn, reps: int = 20, trials: int = 3) -> float:
-    """Median device ms per call of ``fn``, as ``device_ms`` with a shorter
-    sleep (the tiles phase times a few hundred small launches)."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    times = []
-    for _ in range(trials):
-        torch.cuda._sleep(TILE_SLEEP_CYCLES)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / reps)
-    return statistics.median(times)
-
-
 def instance_usage(ptxas: dict, *parts: str) -> tuple[int, int, int]:
     """(fewest, most registers, most spill-store bytes) over the compiled
     instances whose demangled names hold every one of ``parts`` (spaces
@@ -1478,7 +1492,8 @@ def tiles_phase(dev, smi: str, ptxas: dict, path_accs: dict, tuned: dict) -> dic
                       f"tiles: {name} != its plain version at tile {tile_label(tile)} "
                       f"M={m} N={n} K={k}")
                 max_e, n_checked = max(max_e, err(got, want)), n_checked + 1
-                ms = tile_ms(lambda: fn(*args, *epi, **kw))
+                ms = device_ms(lambda: fn(*args, *epi, **kw), reps=20, trials=3,
+                               sleep=TILE_SLEEP_CYCLES)
                 (times if plan.arrangement == "tiled" else gemv_ms)[(m, n, k)] = ms
                 records.append({"kernel": name, "tile": tile_label(tile) if plan.arrangement
                                 == "tiled" else "gemv", "m": m, "n": n, "k": k, "ms": ms})
@@ -1545,7 +1560,8 @@ def tiles_phase(dev, smi: str, ptxas: dict, path_accs: dict, tuned: dict) -> dic
                       f"tiles: conv_mvu ({mode}) != its plain version at tile "
                       f"{tile_label(tile)} B={b} H=W={h} C={c} N={n}")
                 max_e, n_checked = max(max_e, err(got, want)), n_checked + 1
-                ms = tile_ms(lambda: C.conv_mvu(x, w, thr, **kw), reps=10)
+                ms = device_ms(lambda: C.conv_mvu(x, w, thr, **kw), reps=10, trials=3,
+                               sleep=TILE_SLEEP_CYCLES)
                 times[(b, h, c, n)] = ms
                 records.append({"kernel": "conv_mvu", "mode": mode, "tile": tile_label(tile),
                                 "b": b, "h": h, "c": c, "n": n, "ms": ms})
@@ -1853,6 +1869,236 @@ def explore_phase(dev, smi: str) -> None:
           f"MiB after ({smi})", flush=True)
 
 
+def stage_params(acc) -> list:
+    """The MVUParams of each MVU stage of ``acc``'s engine, in chain order."""
+    mvus = {n.name for n in acc.engine.graph if n.op == "mvu"}
+    return [p for name, p in zip(acc.engine._names, acc.engine.params) if name in mvus]
+
+
+def stage_layer_row(kernel: str, p, m: int, tile: dict, g, dev) -> tuple:
+    """One pipeline layer's launch timed as the kernel phase times a layer:
+    (kernel, plain, library, bound) ms and what bounds it, on the stage's
+    own weights and thresholds at M = ``m`` rows of 2-bit activations; the
+    float32 yardstick must equal the kernel."""
+    import torch
+
+    from repro_torch.kernels import mvu_binary as B, mvu_int as K
+
+    fn, plain = ((K.mvu_int, K.mvu_int_plain) if kernel == "mvu_int"
+                 else (B.mvu_binary, B.mvu_binary_plain))
+    n, k = p.weights.shape
+    a = torch.randint(0, 4, (m, k), generator=g, dtype=torch.int32).to(dev)
+    w, t = p.weights, p.thresholds
+    # binary weights are {0,1}-coded +/-1
+    wf = w.float() if kernel == "mvu_int" else 2 * w.float() - 1
+    af, tf = a.float(), t.float()
+
+    def library():
+        return (torch.matmul(af, wf.T)[:, :, None] >= tf[None]).sum(-1, dtype=torch.int32)
+
+    check(torch.equal(library(), fn(a, w, t, **tile)),
+          f"pipeline: the float32 yardstick disagrees with {kernel} at M={m} N={n} K={k}")
+    kms = device_ms(lambda: fn(a, w, t, **tile), reps=100)
+    pms = device_ms(lambda: plain(a, w, t), reps=10)
+    lms = device_ms(library, reps=100)
+    return (kms, pms, lms, *bound(m, n, k, t.numel() * 4))
+
+
+def pipeline_phase(dev, smi: str) -> dict:
+    """The pipeline phase (see the module doc): ``as_pipeline`` of the
+    full-width chain in both modes at 1, 2, 4 and 8 stages and of the JAX
+    package's test chain, held to ``acc(x)`` and the plain chain; the
+    traced run; the float example.  Returns, by kernel, the counted runs'
+    launches and a timing row for each launch."""
+    import contextlib
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from repro_torch.build import build
+    from repro_torch.configs import mvu_chain
+    from repro_torch.kernels import mvu_binary as B, mvu_int as K, ops
+    from repro_torch.telemetry import Tracer
+
+    t_phase = time.perf_counter()
+    g = torch.Generator().manual_seed(PIPE_SEED)
+    launches: dict[str, int] = {}
+    rows: dict[str, list] = {}
+
+    def counted(run, xs, kernel: str, want_launches: int, what: str):
+        """One run with every launch counter set to 0 just before it: the
+        mode's kernel ``want_launches`` times and nothing else."""
+        ops.reset_launch_counts()
+        got = run(xs)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        check(counts == {k: want_launches if k == kernel else 0 for k in counts},
+              f"pipeline: {what} launched {counts}, want {kernel} {want_launches} times "
+              "and nothing else")
+        launches[kernel] = launches.get(kernel, 0) + want_launches
+        return got
+
+    cfg = mvu_chain.FULL
+    full = {}  # mode -> (acc, xs, want)
+    for mode in ("standard", "binary"):
+        kernel = ops.kernel_name(mode)
+        rng = np.random.default_rng(PIPE_SEED)
+        t0 = time.perf_counter()
+        acc = build(mvu_chain.build_graph(rng, cfg["d"], cfg["layers"], cfg["bits"]),
+                    target="pipeline", mode=mode, weight_bits=PIPE_WEIGHT_BITS[mode],
+                    act_bits=cfg["bits"], folding=mvu_chain.foldings(), device=dev)
+        build_s = time.perf_counter() - t0
+        x = torch.from_numpy(rng.integers(0, 2 ** cfg["bits"], (cfg["batch"], cfg["d"]))
+                             .astype(np.int32)).to(dev)
+        plan = acc.plan(cfg["batch"])
+        check((plan.n_micro, plan.microbatch) == (cfg["batch"] // cfg["microbatch"],
+                                                  cfg["microbatch"]),
+              f"pipeline {mode}: acc.plan({cfg['batch']}) is {plan}, want microbatches of "
+              f"{cfg['microbatch']}")
+        want = acc(x)
+        torch.cuda.synchronize()
+        check(want.is_cuda and want.dtype == torch.int32 and tuple(want.shape) == tuple(x.shape)
+              and int(want.min()) >= 0 and int(want.max()) < 2 ** cfg["bits"],
+              f"pipeline {mode}: acc(x) is {want.dtype} {tuple(want.shape)}, want 2-bit levels")
+        # the same chain layer by layer through the kernel's plain version
+        plain = K.mvu_int_plain if kernel == "mvu_int" else B.mvu_binary_plain
+        stages = stage_params(acc)
+        h = x
+        for p in stages:
+            h = plain(h, p.weights, p.thresholds, p.out_scale)
+        check(torch.equal(h, want), f"pipeline {mode}: acc(x) differs from the chain run "
+              "layer by layer through the plain version")
+        mvu0 = next(n for n in acc.engine.graph if n.op == "mvu")
+        tile = ops.tile_kwargs(kernel, **mvu0.attrs["config"].kernel_blocks())
+        print(f"pipeline: {mode} chain {cfg['layers']} x {cfg['d']}x{cfg['d']} "
+              f"(PE {cfg['pe']} x SIMD {cfg['simd']}, {PIPE_WEIGHT_BITS[mode]}-bit weights, "
+              f"{cfg['bits']}-bit activations) built in {build_s:.2f} s; {cfg['batch']} flows "
+              f"in {plan.n_micro} microbatches of {plan.microbatch}; every stage launches "
+              f"{kernel} {dense_plan_text(kernel, plan.microbatch, cfg['d'], cfg['d'], **tile)}; "
+              "acc(x) equals the plain chain", flush=True)
+        xs = x.reshape(plan.n_micro, plan.microbatch, cfg["d"])
+        # one call as the card sees it, the host's enqueue included
+        acc_ms = device_ms(lambda: acc(x), reps=1, trials=7, sleep=0)
+        n_layer_calls = plan.n_micro * cfg["layers"]
+        # the host's time for one stage layer call alone (no schedule, no
+        # stream): what a run's 256 calls cost before streams and events
+        layer_fn = ops.mvu_layer_fn(mode, **mvu0.attrs["config"].kernel_blocks())
+        p0 = {"w": stages[0].weights, "t": stages[0].thresholds}
+        host = []
+        for _ in range(7):
+            t0 = time.perf_counter()
+            for _ in range(n_layer_calls):
+                layer_fn(p0, xs[0])
+            host.append((time.perf_counter() - t0) / n_layer_calls * 1e6)
+            torch.cuda.synchronize()
+        layer_us = statistics.median(host)
+        print(f"pipeline: {mode} one stage layer call (ops.mvu_layer_fn at M="
+              f"{plan.microbatch}) holds the host {layer_us:.2f} us (perf_counter over "
+              f"{n_layer_calls} calls, median of 7): {layer_us * n_layer_calls / 1e3:.4f} ms "
+              "for a run's calls", flush=True)
+        for n_stages in PIPE_STAGES:
+            run = acc.as_pipeline([dev] * n_stages)
+            got = counted(run, xs, kernel, n_layer_calls, f"{mode} S={n_stages}")
+            check(got.is_cuda and got.dtype == want.dtype
+                  and torch.equal(got.reshape(want.shape), want),
+                  f"pipeline {mode} S={n_stages}: differs from acc(x)")
+            # the same ticks on the caller's stream: what the stage streams cost
+            one = run(xs, stage_streams=False)
+            check(torch.equal(one.reshape(want.shape), want),
+                  f"pipeline {mode} S={n_stages}: the one-stream run differs from acc(x)")
+            ms = device_ms(lambda: run(xs), reps=1, trials=7, sleep=0)
+            one_ms = device_ms(lambda: run(xs, stage_streams=False), reps=1, trials=7,
+                               sleep=0)
+            print(f"pipeline: {mode} S={n_stages}: equals acc(x) and the plain chain; "
+                  f"{n_layer_calls} {kernel} launches a run, nothing else; {ms:.4f} ms a run "
+                  f"on {n_stages} stage streams, {one_ms:.4f} ms on one stream (equal too), "
+                  f"so streams and events cost {(ms - one_ms) / n_layer_calls * 1e3:.2f} us a "
+                  f"layer call beside the call's own {layer_us:.2f} us (CUDA events, median of "
+                  f"7 after a warm-up; replayed acc(x) "
+                  f"{acc_ms:.4f} ms) ({smi})", flush=True)
+        row = stage_layer_row(kernel, stages[0], plan.microbatch, tile, g, dev)
+        rows.setdefault(kernel, []).extend([row] * (n_layer_calls * len(PIPE_STAGES)))
+        print(f"pipeline: {mode} one stage layer at M={plan.microbatch}: ms={row[0]:.5f} "
+              f"plain_ms={row[1]:.5f} library_ms={row[2]:.5f} bound_ms={row[3]:.6f} "
+              f"({row[4]})", flush=True)
+        full[mode] = (acc, xs, want, row)
+
+    # the JAX package's pipeline test chain (tests/test_engine.py)
+    small = mvu_chain.SMALL
+    rng = np.random.default_rng(0)
+    acc = build(mvu_chain.build_graph(rng, small["d"], small["layers"], small["bits"]),
+                target="pipeline", mode="standard", weight_bits=4, act_bits=small["bits"],
+                device=dev)
+    xs = torch.from_numpy(rng.integers(0, 2 ** small["bits"], (
+        small["n_micro"], small["microbatch"], small["d"])).astype(np.int32)).to(dev)
+    want = acc(xs.reshape(-1, small["d"])).reshape(xs.shape)
+    n_small = small["n_micro"] * small["layers"]
+    for n_stages in (1, 2, 4):
+        got = counted(acc.as_pipeline([dev] * n_stages), xs, "mvu_int", n_small,
+                      f"small chain S={n_stages}")
+        check(torch.equal(got, want), f"pipeline: the small chain at S={n_stages} differs "
+              "from acc(x)")
+    mvu0 = next(n for n in acc.engine.graph if n.op == "mvu")
+    row = stage_layer_row("mvu_int", stage_params(acc)[0], small["microbatch"],
+                          ops.tile_kwargs("mvu_int", **mvu0.attrs["config"].kernel_blocks()),
+                          g, dev)
+    rows["mvu_int"].extend([row] * (n_small * 3))
+    print(f"pipeline: the JAX test's chain ({small['layers']} x {small['d']}, "
+          f"{small['bits']} bits, {small['n_micro']} x {small['microbatch']}) at S = 1, 2, 4 "
+          f"equals acc(x); {n_small} mvu_int launches a run", flush=True)
+
+    # one traced run at four stages: its span, lanes and occupancy
+    acc, xs, want, row = full["standard"]
+    n_micro = int(xs.shape[0])
+    tr = Tracer()
+    got = counted(acc.as_pipeline([dev] * 4, tracer=tr), xs, "mvu_int",
+                  n_micro * cfg["layers"], "the traced S=4 run")
+    check(torch.equal(got.reshape(want.shape), want), "pipeline: the traced run differs "
+          "from acc(x)")
+    rows["mvu_int"].extend([row] * (n_micro * cfg["layers"]))
+    runs = tr.spans(name="pipeline.run")
+    lanes = {sp["tid"] for sp in tr.spans(cat="pipeline") if isinstance(sp["tid"], str)}
+    occ = runs[0]["args"].get("occupancy") if len(runs) == 1 else None
+    check(len(runs) == 1 and lanes == {f"stage{s}" for s in range(4)}
+          and occ is not None and abs(occ - n_micro / (n_micro + 3)) < 1e-12,
+          f"pipeline: the traced run has {len(runs)} pipeline.run spans, lanes "
+          f"{sorted(lanes)}, occupancy {occ}; want 1, stage0-stage3, {n_micro}/{n_micro + 3}")
+    print(f"pipeline: traced S=4: one pipeline.run span of {runs[0]['dur'] * 1e3:.3f} ms "
+          f"(host clock, every stage synchronised), lanes {sorted(lanes)}, occupancy "
+          f"{occ:.6f} = {n_micro}/{n_micro + 3}, bubble ticks "
+          f"{runs[0]['args']['bubble_ticks']}", flush=True)
+    # the profiler reads only this run's schedule; no gate rests on its events
+    TRACES.append("pipeline standard S=4")
+    run4 = acc.as_pipeline([dev] * 4)
+    r = trace_acc(run4, xs, "pipeline_standard_s4")
+    print(f"trace: pipeline standard S=4: window {r['window_us'] / 1e3:.3f} ms in the trace; "
+          f"device busy {r['busy_us'] / 1e3:.4f} ms ({r['device_events']} device events on "
+          f"{len(r['kernel_streams'])} streams, kernels summed {r['kernel_sum_us'] / 1e3:.4f} "
+          f"ms: {max(0.0, r['kernel_sum_us'] - r['busy_us']) / 1e3:.4f} ms of overlap at "
+          f"most); idle share {r['idle_share'] * 100:.2f}%; host split: torch ops "
+          f"{r['torch_ops_us'] / 1e3:.3f} ms, CUDA runtime {r['runtime_us'] / 1e3:.3f} ms, "
+          f"Python {r['python_us'] / 1e3:.3f} ms; hand-kernel events "
+          f"{ {k: v for k, v in r['seen'].items() if v} } against the counters "
+          f"{ {k: v for k, v in r['counts'].items() if v} } (not a gate)", flush=True)
+
+    # the float example: forward and gradients through the stage streams
+    spec = importlib.util.spec_from_file_location(
+        "torch_dataflow_pipeline", os.path.join(HERE, "examples", "torch_dataflow_pipeline.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    with open(os.devnull, "w") as f, contextlib.redirect_stdout(f):
+        ex = mod.main(device=str(dev))
+    check(ex["forward_err"] < 1e-5 and ex["grad_err"] < 1e-4,
+          f"pipeline: the float example's errors {ex}")
+    print(f"pipeline: float example (8 tanh layers of 64, 8 x 4, {ex['stages']} stage "
+          f"streams): forward max err {ex['forward_err']:.3e} (< 1e-5), gradients "
+          f"{ex['grad_err']:.3e} (< 1e-4) against sequential_reference", flush=True)
+    print(f"pipeline: launches of the counted runs {launches}; phase "
+          f"{time.perf_counter() - t_phase:.2f} s ({smi})", flush=True)
+    return {"launches": launches, "rows": rows}
+
+
 def bound_of(nbytes: int, ops: int) -> tuple[float, str]:
     """Least ms the card needs: ``nbytes`` at the HBM rate or ``ops`` at the
     int8 tensor-core peak, whichever is larger."""
@@ -2084,6 +2330,8 @@ def trace_acc(acc, x, label: str) -> dict:
         "gaps": [(g1 - g0, g0 - w0, *under(g0, g1))
                  for g0, g1 in sorted(gaps, key=lambda g: g[0] - g[1])[:5]],
         "n_gaps": len(gaps), "path": path, "n_events": len(events),
+        "kernel_streams": {(e.get("args") or {}).get("stream") for e in kernels},
+        "kernel_sum_us": sum(float(e["dur"]) for e in kernels),
         "by_cat": {c: sum(1 for e in events if cat(e) == c)
                    for c in sorted({cat(e) for e in events})},
     }
@@ -2645,6 +2893,7 @@ def main() -> int:
     graph_phase(dev, smi, path_accs, tuned, served)
     tiles = tiles_phase(dev, smi, ptxas, path_accs, tuned)
     explore_phase(dev, smi)
+    piped = pipeline_phase(dev, smi)
 
     # -------------------------------------------------------- 5. results
     mb = plan.microbatch
@@ -2673,6 +2922,9 @@ def main() -> int:
                 if dense == name:
                     rows += [timing[(entry, CNV_DENSE_M, n, k)] for n, k in cnv_dense] * n_micro
                     n_launches += counts[name]
+            # the pipeline phase's counted runs, each launch at its stage's shape
+            rows += piped["rows"].get(name, [])
+            n_launches += piped["launches"].get(name, 0)
             if name == "mvu_xnor":  # the packed entry on the same launches, beside it
                 packed = [timing[(name, mb, n, k)] for k, n, _, _ in nid_mlp.LAYERS]
                 packed = packed * plan.n_micro + [

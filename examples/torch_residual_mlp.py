@@ -11,11 +11,10 @@ A NID-style variant with a residual connection around the middle layer:
 
   1. author the fan-out/fan-in graph (``repro_torch.configs.residual_mlp``),
   2. validate it (``ir.validate_graph``: arity, broadcast, single sink),
-  3. build it for the interpret and engine targets through the
-     ``repro_torch.build`` step pipeline with every verification hook on,
-     each transform held bit-exact against the DAG interpreter (the
-     ``pipeline`` target of the JAX package's example waits for the
-     multi-device slice, ROADMAP queue A item 6),
+  3. build it for all three targets -- interpret, engine, pipeline --
+     through the ``repro_torch.build`` step pipeline with every
+     verification hook on, each transform held bit-exact against the DAG
+     interpreter,
   4. print the lowered topology: edge list, branch labels, and the
      join's branch-latency skew + FIFO depth from the dataflow schedule,
   5. write the BuildReport JSON (carrying ``edges`` and per-node
@@ -56,9 +55,9 @@ def main(fast: bool = False, device: str = "cuda",
                                       (batch, residual_mlp.LAYERS[0][0]))
                          .astype(np.int32)).to(dev)
 
-    print("== repro_torch.build: same graph, two targets, all verified ==")
+    print("== repro_torch.build: same graph, three targets, all verified ==")
     accs = {}
-    for target in ("interpret", "engine"):
+    for target in ("interpret", "engine", "pipeline"):
         # the engine build writes the BuildReport
         accs[target] = build(graph, target=target, mode="standard",
                              weight_bits=residual_mlp.WEIGHT_BITS,
@@ -71,6 +70,9 @@ def main(fast: bool = False, device: str = "cuda",
               f"| verified {sum(1 for s in rep.steps if s.verified)}")
 
     ref = accs["interpret"](x)
+    same = torch.equal(accs["pipeline"](x), ref)
+    print(f"  pipeline  vs interpret: bit-exact={same}")
+    assert same, "pipeline diverged from the DAG reference interpreter"
     acc = accs["engine"]
     ops.reset_launch_counts()
     got = acc(x)
@@ -100,7 +102,7 @@ def main(fast: bool = False, device: str = "cuda",
     assert sched.joins and sched.joins[0].fifo_depth >= 2
     print(f"  build report   : {rep.path}")
     print("OK: skip-connection graph builds and streams bit-exactly "
-          "on both targets")
+          "on every target")
 
 
 if __name__ == "__main__":

@@ -4,7 +4,7 @@
 
     acc = build.build(
         graph,                      # raw chain: input/linear/bn/quant
-        target="engine",            # interpret | engine
+        target="engine",            # interpret | engine | pipeline | serving
         mode="standard", weight_bits=2, act_bits=2,
         folding="balance",          # or "none", or explicit [Folding, ...]
         device="cuda",              # default; "cpu" runs the plain versions

@@ -125,8 +125,11 @@ class Accelerator:
             fault_policy=fault_policy, faults=faults, **kwargs)
         return batcher.warmup() if warmup else batcher
 
-    def as_pipeline(self, *args, **kwargs):
-        return self.engine.as_pipeline(*args, **kwargs)
+    # ------------------------------------------------------------- pipeline
+    def as_pipeline(self, devices, *, tracer=None):
+        """Map the stage chain onto GPipe stages, one a device of
+        ``devices`` (``FusedEngine.as_pipeline``)."""
+        return self.engine.as_pipeline(devices, tracer=tracer)
 
     # --------------------------------------------------------------- report
     def report_path(self) -> str:

@@ -4,9 +4,7 @@
 :func:`repro_torch.build.build` -- the FINN ``DataflowBuildConfig`` analog.
 One config names a *target* (which default step list runs), the lowering
 parameters every step shares, the folding policy, the verification +
-report policy, and the device the built design runs on.  Settings whose
-machinery belongs to a later slice of the port raise NotImplementedError
-naming their ROADMAP item.
+report policy, and the device the built design runs on.
 """
 
 from __future__ import annotations
@@ -56,9 +54,9 @@ class BuildConfig:
     """Declarative build recipe consumed by :func:`repro_torch.build.build`.
 
     target: ``interpret`` (eager reference only), ``engine``
-        (FusedEngine) or ``serving`` (the engine plus the ``calibrate``
-        step, for :meth:`Accelerator.serve`); ``pipeline`` is a later
-        slice (ROADMAP queue A item 6).
+        (FusedEngine), ``pipeline`` (the engine's steps, for
+        :meth:`Accelerator.as_pipeline`) or ``serving`` (the engine plus
+        the ``calibrate`` step, for :meth:`Accelerator.serve`).
     mode / weight_bits / act_bits / backend: lowering parameters
         (``lowering.lower_to_mvu``); mode is ``"standard"``, ``"binary"``
         or ``"xnor"`` (paper Fig. 4); backend is ``"cuda"`` (the hand
@@ -153,9 +151,6 @@ class BuildConfig:
             raise BuildError(
                 f"folding must be {FOLD_BALANCE!r}, {FOLD_NONE!r} or a "
                 f"sequence of Folding, got {self.folding!r}")
-        if self.target == "pipeline":
-            raise NotImplementedError(
-                "target='pipeline' is a later slice: ROADMAP queue A item 6")
 
     def resolved_device(self) -> torch.device:
         """The device the built design runs on (see the ``device`` field)."""

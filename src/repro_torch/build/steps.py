@@ -126,6 +126,7 @@ DEFAULT_STEPS: dict[str, tuple[str, ...]] = {
     "interpret": ("validate", "lower", "finalize", "fold", "pack_weights",
                   "dataflow"),
     "engine": _ENGINE_STEPS,
+    "pipeline": _ENGINE_STEPS,
     "serving": _ENGINE_STEPS + ("calibrate",),
 }
 

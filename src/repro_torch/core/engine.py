@@ -480,6 +480,91 @@ class FusedEngine(nn.Module):
                     outs.append(env[self._out_name])
         return torch.cat(outs)[:b], plan
 
-    def as_pipeline(self, *args, **kwargs):
-        raise NotImplementedError(
-            "FusedEngine.as_pipeline is the multi-device slice: ROADMAP queue A item 6")
+    # ---------------------------------------------------------- multi-stage
+    def as_pipeline(self, devices, *, tracer=None):
+        """Map the chain onto GPipe stages, one contiguous layer range per
+        entry of ``devices`` (a device may repeat: on one card each stage
+        is a CUDA stream of it), reusing
+        :func:`repro_torch.distributed.pipeline.run_stages` (events
+        between stage streams as the AXI links).
+
+        Stacking per-stage params requires a homogeneous chain: every node an
+        MVU of the same (N, K) and mode (not xnor — its static packed width
+        breaks stacking) with a uniform epilogue and canonical (unpacked)
+        weights.  Heterogeneous graphs run on one stream via ``__call__``.
+        Every stage launches the tile of the first node's schedule.  Returns
+        ``run(xs)`` taking microbatched input ``(n_micro, mb, K)``; a CUDA
+        stage launches the hand kernel or raises.  The run is eager: no
+        CUDA graph captures it.  ``run(xs, stage_streams=False)`` runs the
+        same ticks on the caller's stream with no events: the yardstick for
+        what the stage streams cost.
+
+        With ``tracer``, each ``run`` records a ``pipeline.run`` span (every
+        stage device synchronised before it closes) plus reconstructed
+        per-stage occupancy lanes: the measured wall interval is overlaid
+        with the static GPipe schedule -- busy ``microN`` spans and
+        ``bubble`` fill/drain spans per stage, with the occupancy fraction
+        in the span args (see
+        :func:`repro_torch.distributed.pipeline.emit_schedule_spans`).
+        """
+        from repro_torch.distributed.pipeline import (
+            emit_schedule_spans,
+            place_stages,
+            run_stages,
+            stage_params_split,
+        )
+
+        non_input = [n for n in self.graph if n.op != "input"]
+        if any(n.op != "mvu" for n in non_input):
+            raise ValueError(
+                "as_pipeline needs a pure MVU chain; fuse_epilogues removes "
+                f"bn/quant nodes, got ops {[n.op for n in non_input]}"
+            )
+        cfgs = [n.attrs["config"] for n in non_input]
+        shapes = {(c.mode, c.out_features, c.in_features) for c in cfgs}
+        if len(shapes) != 1 or cfgs[0].mode == "xnor":
+            raise ValueError(f"stages must be homogeneous non-xnor MVUs, got {shapes}")
+        own = dict(zip(self._names, self.params))  # the engine's resident tensors
+        mvus = [own[n.name] for n in non_input]
+        thr = [p.thresholds for p in mvus]
+        scl = [p.out_scale for p in mvus]
+        for part in (thr, scl):
+            if any(p is None for p in part) and not all(p is None for p in part):
+                raise ValueError("stages must share one epilogue form")
+        if any(c.packed for c in cfgs):
+            # the JAX package's as_pipeline hands the packed storage to the
+            # canonical kernel, whose shape check fails
+            raise ValueError(
+                "as_pipeline runs canonical weights; this chain was built with packed "
+                "weight storage (pack='always' or a tuned packed schedule): build it "
+                "with pack='never'")
+        stacked = {"w": torch.stack([p.weights for p in mvus])}
+        if thr[0] is not None:
+            stacked["t"] = torch.stack(thr)
+        if scl[0] is not None:
+            stacked["s"] = torch.stack(scl)
+        layer_fn = ops.mvu_layer_fn(
+            cfgs[0].mode, backend=cfgs[0].backend, **cfgs[0].kernel_blocks()
+        )
+        devices = [resolve_device(d) for d in devices]
+        n_stages = len(devices)
+        # each stage's layers placed on its device once, not on every run
+        stages = place_stages(stage_params_split(stacked, n_stages), devices)
+        cards = sorted({d for d in devices if d.type == "cuda"}, key=str)
+
+        def run(xs, *, stage_streams: bool = True) -> torch.Tensor:
+            xs = torch.as_tensor(xs)
+            if tracer is None:
+                return run_stages(layer_fn, stages, xs, devices, stage_streams=stage_streams)
+            n_micro = int(xs.shape[0])
+            with tracer.span("pipeline.run", cat="pipeline",
+                             n_stages=n_stages, n_micro=n_micro) as sp:
+                out = run_stages(layer_fn, stages, xs, devices, stage_streams=stage_streams)
+                for d in cards:
+                    torch.cuda.synchronize(d)
+            occ = emit_schedule_spans(tracer, n_stages, n_micro, sp.t0, sp.t1)
+            sp.args.update(occupancy=occ["occupancy"],
+                           bubble_ticks=occ["bubble_ticks_per_stage"])
+            return out
+
+        return run

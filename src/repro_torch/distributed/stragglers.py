@@ -6,7 +6,7 @@ consumer here is the serving-side replica health machine
 (:mod:`repro_torch.serving.health`), which flags replica dispatches whose
 resolve latency straggles relative to the replica's own recent history;
 the training-side step watchdog that also uses it in the JAX package
-comes with the multi-device slice (ROADMAP queue A item 6).
+comes with the LM training distribution (ROADMAP queue A item 7, step 3).
 
 The trailing *median* (not mean) is the robust center: a single straggler
 landing in the window must not drag the threshold up and mask the next

@@ -11,7 +11,6 @@ Ported so far:
   the counterpart of the JAX package's ``benchmarks/nid_mlp.py``.
 
 Not ported yet: ``shard_serve_fns`` and ``serve_loop`` (``serve.py``),
-``mesh.py`` and ``dryrun.py`` wait for the multi-device paths (ROADMAP
-queue A item 6); ``train.py`` and the LM serving loop for the LM stack
-(item 7, step 3).
+``mesh.py``, ``dryrun.py``, ``train.py`` and the LM serving loop wait for
+the LM stack and its sharding (ROADMAP queue A item 7, step 3).
 """

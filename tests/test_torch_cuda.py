@@ -830,3 +830,32 @@ def test_a_replay_on_another_stream_raises(cuda):
     torch.cuda.synchronize()
     assert torch.equal(acc(x), acc.engine._stream(acc.engine.params, x,
                                                   acc.plan(x.shape[0]).n_micro))
+
+
+@pytest.mark.parametrize("n_stages", [1, 2, 4, 8])
+@pytest.mark.parametrize("mode", ["standard", "binary"])
+def test_pipeline_on_the_card_equals_the_engine(cuda, mode, n_stages):
+    """``as_pipeline`` of the full-width chain (eight 64 x 64 layers, 2-bit
+    activations, one stream a stage of one card) equals ``acc(x)`` and
+    launches the mode's kernel once a layer a microbatch, nothing else."""
+    from repro_torch.configs import mvu_chain
+
+    cfg = mvu_chain.FULL
+    rng = np.random.default_rng(0)
+    g = mvu_chain.build_graph(rng, cfg["d"], cfg["layers"], cfg["bits"])
+    acc = build(g, target="pipeline", mode=mode, weight_bits=2 if mode == "standard" else 1,
+                act_bits=cfg["bits"], folding=mvu_chain.foldings(), device="cuda")
+    x = torch.from_numpy(rng.integers(0, 4, (1024, cfg["d"])).astype(np.int32)).to(cuda)
+    want = acc(x)
+    plan = acc.plan(1024)
+    run = acc.as_pipeline([cuda] * n_stages)
+    ops.reset_launch_counts()
+    got = run(x.reshape(plan.n_micro, plan.microbatch, -1))
+    torch.cuda.synchronize()
+    kernel = ops.kernel_name(mode)
+    counts = ops.launch_counts()
+    assert counts == {k: plan.n_micro * cfg["layers"] if k == kernel else 0 for k in counts}
+    assert got.is_cuda and torch.equal(got.reshape(want.shape), want)
+    # the same ticks on the caller's stream, with no stage streams or events
+    one = run(x.reshape(plan.n_micro, plan.microbatch, -1), stage_streams=False)
+    assert torch.equal(one.reshape(want.shape), want)

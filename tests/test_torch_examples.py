@@ -20,6 +20,7 @@ EXAMPLES = {  # example -> (extra kwargs, the BuildReports it writes)
     "torch_cnv_dataflow": ({}, ["cnv_quick"]),
     "torch_residual_mlp": ({"fast": True}, ["residual_mlp"]),
     "torch_nid_intrusion_detection": ({"fast": True}, ["nid_mlp"]),
+    "torch_dataflow_pipeline": ({}, []),
 }
 
 
@@ -84,3 +85,8 @@ def test_example_defaults_to_the_card(name):
     kwargs = {"fast": True} if "fast" in EXAMPLES[name][0] else {}
     with pytest.raises((RuntimeError, AssertionError), match="CUDA"):
         _load(name).main(out_dir=os.devnull, **kwargs)
+
+
+def test_pipeline_example_returns_its_errors():
+    out = _load("torch_dataflow_pipeline").main(device="cpu")
+    assert out["stages"] == 4 and out["forward_err"] < 1e-5 and out["grad_err"] < 1e-4

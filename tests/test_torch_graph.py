@@ -304,27 +304,34 @@ def test_the_engine_params_are_read_once():
 
 def test_no_timed_rep_of_tune_engine_captures(monkeypatch, tmp_path):
     """Each tile candidate captures on its first call, before the paired
-    timer runs: no timer call, warm-up or timed rep, captures."""
+    timer runs: no timer call, warm-up or timed rep, captures.  The timer
+    runs the real paired timer, so its warm-ups and reps replay, but
+    returns a fixed speedup for each tile, so the winner does not depend
+    on the host's noise."""
     monkeypatch.setenv(autotune.CACHE_PATH_ENV, str(tmp_path / "cache.json"))
     cap = Capturer()
     monkeypatch.setattr(engine_mod, "capture_cuda_graph", cap)
     monkeypatch.setattr(_GraphCache, "applies", staticmethod(lambda device: True))
     acc = _nid()
-    timed = []
+    timed, raced = [], []
+    speedup = {256: 1.0, 512: 2.0, 1024: 1.5}  # 1024 within the 10% margin of 512
 
     def timer(fa, fb, *args, **kw):
         before = len(cap.calls)
-        r = autotune.paired_times(fa, fb, *args, **kw)
+        ta, tb, _ = autotune.paired_times(fa, fb, *args, **kw)
         timed.append(len(cap.calls) - before)
-        return r
+        raced.append(fb._tile)
+        return ta, tb, speedup[fb._tile]
 
     cache = autotune.ScheduleCache()
     built = len(cap.calls)  # the build's verification ran its engine too
+    replays = cap.replays
     entry = autotune.tune_engine(acc.graph, 512, cache=cache, timer=timer, reps=2)
     # the heuristic tile 128 against 256, 512 and 1024: one capture an
     # engine, each on the engine's first call, none inside the timer
-    assert timed == [0, 0, 0] and len(cap.calls) - built == 4 and cap.replays > 0
-    assert entry["microbatch"] in (128, 256, 512)
+    assert raced == [256, 512, 1024]
+    assert timed == [0, 0, 0] and len(cap.calls) - built == 4 and cap.replays > replays
+    assert (entry["microbatch"], entry["speedup"]) == (512, 2.0)
 
 
 # -------------------------------------------------- against the JAX engine

@@ -114,13 +114,25 @@ def _conv_graph():
 
 @pytest.mark.parametrize("what", ["target_pipeline", "engine_as_pipeline"])
 def test_later_slices_raise_not_implemented(what):
+    """What this test once refused as a later slice, the pipeline, now runs:
+    a ``target="pipeline"`` build on the CPU gives an engine whose
+    ``as_pipeline`` equals ``acc(x)``; the NID, whose layers differ in
+    shape, is refused with the JAX package's "homogeneous" error, and no
+    path raises ``NotImplementedError``."""
     g = nid_mlp.build_graph(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if what == "target_pipeline":
-            build(g, device="cpu", target="pipeline")
-        else:
-            acc = build(g, weight_bits=2, act_bits=2, device="cpu")
-            acc.as_pipeline()
+    if what == "target_pipeline":
+        from repro_torch.configs import mvu_chain
+
+        rng = np.random.default_rng(0)
+        acc = build(mvu_chain.build_graph(rng, 16, 4, 2), device="cpu", target="pipeline",
+                    weight_bits=2, act_bits=2)
+        x = torch.from_numpy(rng.integers(0, 4, (4, 3, 16)).astype(np.int32))
+        assert torch.equal(acc.as_pipeline(["cpu"] * 2)(x),
+                           acc(x.reshape(12, 16)).reshape(4, 3, -1))
+    else:
+        acc = build(g, weight_bits=2, act_bits=2, device="cpu")
+        with pytest.raises(ValueError, match="homogeneous"):
+            acc.as_pipeline(["cpu"])
 
 
 @pytest.mark.parametrize("what", ["mode_binary", "mode_xnor", "pack_always",
