@@ -294,10 +294,35 @@ Phases, each printing its own line(s); any failure exits non-zero:
            (streams, busy and overlap, no gate on its events); the float
            example (``examples/torch_dataflow_pipeline.py``), forward and
            gradients against ``sequential_reference``.
+   lm      the integer-deployed dense LM (``repro_torch.models``).  First
+           the reduced Yi-9B in float32 (``configs/lm_golden.py``: the
+           ``lm_numpy_params`` tree, a 2 x 12 prompt, prefill and three
+           greedy decode steps), dense and W8A8, held to the JAX package's
+           golden run (``configs/yi_9b_lm_golden.json``): logits within
+           1e-3 of the largest reference logit, greedy tokens equal, W8A8
+           launching ``mvu_int`` 7 x 2 layers x 4 calls and nothing else.
+           Then full-width Yi-9B (48 x 4096, 32 / 4 heads, d_ff 11008,
+           vocab 64,000, bfloat16) drawn on the card from a seeded
+           generator, each layer quantized to W8A8 as it is drawn
+           (``init(g, quantize=...)``), served by ``serve_loop``: 8 seeded requests
+           (prompts of 32-128 tokens) in groups of 4, 16 new tokens each,
+           ``max_len`` 256; with every launch counter set to 0 just
+           before it, ``mvu_int`` must launch 7 x 48 x (1 + 16) times a
+           group and nothing else, and every request must get its 16
+           tokens.  Group 0's prefill and decode step timed on the host
+           clock, synchronised (median of 3), and the peak memory.  The
+           same model at 4 layers under ``mvu_binary``: one prefill
+           launching ``mvu_binary`` 7 x 4 times, finite logits.  Layer 0's
+           seven projections (W8A8 and binary) through the wrappers at the
+           blocks ``quantized_linear`` passes, at M = 4 (decode, gemv) and
+           each group's prefill rows: equal to the plain versions, raw
+           int32 accumulators and the scale epilogue, each shape timed as
+           the kernel phase times a layer (its plan printed).
 5. the kernels JSON line (each kernel also with its tiles phase's times
    by tile; ``mvu_int``'s launches and times include the qat phase's three
    counted ``acc(x)``; ``mvu_int``'s and ``mvu_binary``'s the pipeline
-   phase's counted runs), the card's ``nvidia-smi`` line, and last the result line
+   and lm phases' counted runs, each launch at its shape), the card's
+   ``nvidia-smi`` line, and last the result line
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package (``src/repro``).
@@ -383,6 +408,17 @@ EXPLORE_RUNS = (("nid_mlp", 4096), ("cnv_quick", CNV_BATCH))
 EXPLORE_KERNELS = {"nid_mlp": ("mvu_int", "mvu_int2_packed"),
                    "cnv_quick": ("conv_mvu", "mvu_xnor")}
 EXPLORE_DIR = os.path.join(TRACE_DIR, "explore")
+# the lm phase: full-width Yi-9B served under W8A8 (seeded weights and
+# prompts), and a prefill of its first layers under the binary backend
+LM_ARCH = "yi-9b"
+LM_BACKEND = "mvu_w8a8"
+LM_SEED = 0
+LM_REQUESTS = 8
+LM_PROMPT_LENS = (32, 128)  # the seeded prompt lengths' range, both ends in
+LM_BATCH = 4
+LM_MAX_NEW = 16
+LM_MAX_LEN = 256
+LM_BINARY_LAYERS = 4
 TRACE_KERNELS = {
     "conv_mvu_kernel": "conv_mvu",
     "Coding<false,false,false>": "mvu_int",
@@ -2099,6 +2135,216 @@ def pipeline_phase(dev, smi: str) -> dict:
     return {"launches": launches, "rows": rows}
 
 
+def lm_phase(dev, smi: str) -> dict:
+    """The lm phase (see the module doc): the reduced Yi-9B against the JAX
+    package's golden run, full-width Yi-9B served by ``serve_loop`` on
+    ``mvu_int`` with its launches counted, layer 0's projections against
+    the plain versions, a 4-layer binary prefill on ``mvu_binary``, and the
+    serving times.  Returns, by kernel, the counted runs' launches and a
+    timing row for each launch."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, lm_golden as G
+    from repro_torch.convert import lm_numpy_params, lm_params_from_numpy
+    from repro_torch.core.mvu import LINEAR_BLOCKS as blocks
+    from repro_torch.kernels import ops, packing
+    from repro_torch.launch.serve import Request, prompt_batch, serve_loop
+    from repro_torch.models import layers as L, transformer as tf
+    from repro_torch.models.model import build
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+
+    def counted(fn, want: dict, what: str):
+        """``fn()`` with every launch counter set to 0 just before it: the
+        kernels of ``want`` that many times and nothing else."""
+        ops.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        check(counts == {k: want.get(k, 0) for k in counts},
+              f"lm: {what} launched {counts}, want {want} and nothing else")
+        return out
+
+    # (a) the reduced model, float32, against the JAX package's golden run
+    golden = G.load_golden()
+    for backend in G.VARIANTS:
+        cfg = G.golden_config(backend)
+        params = lm_params_from_numpy(lm_numpy_params(cfg, G.SEED), dev)
+        if backend != "dense":
+            params = L.quantize_model_params(params, backend)
+        want = {} if backend == "dense" else {
+            "mvu_int": len(L.PROJ_NAMES) * cfg.num_layers * (1 + G.DECODE_STEPS)}
+        model = build(cfg, device=dev)
+        got = counted(lambda: G.greedy_run(model, params), want, f"the golden run ({backend})")
+        bad = G.mismatch(golden["variants"][backend], got)
+        check(bad is None, f"lm: the reduced {backend} model on the card differs from the JAX "
+              f"package's golden run: {bad}")
+        ref = np.asarray(golden["variants"][backend]["logits"], np.float32)
+        print(f"lm: golden: reduced {cfg.name} {backend} float32 on the card, prefill of "
+              f"{G.BATCH} x {G.PROMPT_LEN} + {G.DECODE_STEPS} greedy steps: max |logit error| "
+              f"{float(np.abs(got['logits'] - ref).max()):.3e} (bound {G.LOGIT_ATOL} x "
+              f"{float(np.abs(ref).max()):.4f}), greedy tokens equal the JAX package's "
+              f"{got['tokens'].tolist()}; launches {want or 'none'}", flush=True)
+
+    # (b) full-width Yi-9B, integer-deployed, served by serve_loop
+    cfg = get_config(LM_ARCH).replace(linear_backend=LM_BACKEND)
+    g = torch.Generator(device=dev).manual_seed(LM_SEED)
+    t0 = time.perf_counter()
+    model = build(cfg, device=dev)
+    params = model.init(g, quantize=LM_BACKEND)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    proj = {name: blk[name] for blk in (params["layers"]["attn"], params["layers"]["ffn"])
+            for name in L.PROJ_NAMES if name in blk}
+    check(len(proj) == len(L.PROJ_NAMES) and all(
+        set(p) == {"values", "scale"} and p["values"].dtype == torch.int8
+        and p["values"].shape[0] == cfg.num_layers for p in proj.values()),
+        "lm: a full-width projection is not integer-deployed int8 on every layer")
+    proj_bytes = sum(p["values"].numel() for p in proj.values())
+    print(f"lm: full width: {cfg.name} ({cfg.num_layers} layers x {cfg.d_model}, "
+          f"{cfg.num_heads} / {cfg.num_kv_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab_size}, {cfg.dtype}) drawn on the card from seed {LM_SEED} and "
+          f"quantized to {LM_BACKEND} layer by layer in {init_s:.2f} s: "
+          f"{proj_bytes / 1e9:.3f} GB of int8 projections, peak "
+          f"{init_peak / 1e9:.2f} GB allocated", flush=True)
+    rng = np.random.default_rng(LM_SEED)
+    lens = rng.integers(LM_PROMPT_LENS[0], LM_PROMPT_LENS[1] + 1, LM_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in lens]
+
+    def requests():
+        return [Request(i, p, LM_MAX_NEW) for i, p in enumerate(prompts)]
+
+    groups = [requests()[i:i + LM_BATCH] for i in range(0, LM_REQUESTS, LM_BATCH)]
+    group_tokens = [prompt_batch(grp) for grp in groups]
+    per_group = len(L.PROJ_NAMES) * cfg.num_layers * (1 + LM_MAX_NEW)
+    t0 = time.perf_counter()
+    done = counted(lambda: serve_loop(model, params, requests(), batch=LM_BATCH,
+                                      max_len=LM_MAX_LEN),
+                   {"mvu_int": per_group * len(groups)}, "serve_loop at full width")
+    serve_s = time.perf_counter() - t0
+    check([r.rid for r in done] == list(range(LM_REQUESTS))
+          and all(len(r.out) == LM_MAX_NEW and all(0 <= t < cfg.vocab_size for t in r.out)
+                  for r in done),
+          "lm: serve_loop did not answer every request with its tokens in the vocabulary")
+    print(f"lm: serve_loop: {LM_REQUESTS} requests (prompts {lens.tolist()} tokens) in "
+          f"{len(groups)} groups of {LM_BATCH}, max_new {LM_MAX_NEW}, max_len {LM_MAX_LEN}: "
+          f"every request answered; mvu_int launched {per_group * len(groups)} times = "
+          f"{len(L.PROJ_NAMES)} projections x {cfg.num_layers} layers x (1 prefill + "
+          f"{LM_MAX_NEW} decode steps) x {len(groups)} groups, nothing else; "
+          f"{LM_REQUESTS * LM_MAX_NEW / serve_s:.2f} tokens/s over the loop's "
+          f"{serve_s:.3f} s (host clock, the first run: no warm-up); first tokens "
+          f"{[r.out[:4] for r in done[:2]]}", flush=True)
+
+    # (e) serving times on the host clock, synchronised: group 0's prefill,
+    # then its decode steps
+    toks0 = torch.from_numpy(group_tokens[0])
+    pre, dec = [], []
+    for _ in range(3):
+        state = model.init_decode_state(LM_BATCH, LM_MAX_LEN)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, state = model.prefill(params, {"tokens": toks0}, state)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(LM_MAX_NEW):
+            logits, state = model.decode_step(params, state, torch.argmax(logits, -1))
+        torch.cuda.synchronize()
+        pre.append(t1 - t0)
+        dec.append((time.perf_counter() - t1) / LM_MAX_NEW)
+    check(bool(torch.isfinite(logits).all()) and tuple(logits.shape) == (LM_BATCH,
+                                                                          cfg.vocab_size),
+          f"lm: full-width logits {tuple(logits.shape)} not finite")
+    pre_ms, dec_ms = statistics.median(pre) * 1e3, statistics.median(dec) * 1e3
+    print(f"lm: full width {LM_BACKEND}, group 0 ({LM_BATCH} x {toks0.shape[1]} tokens): "
+          f"prefill {pre_ms:.3f} ms, decode {dec_ms:.3f} ms a step ({LM_BATCH} tokens), "
+          f"{LM_BATCH / dec_ms * 1e3:.2f} decode tokens/s, "
+          f"{LM_BATCH * toks0.shape[1] / pre_ms * 1e3:.1f} prefill tokens/s (host clock, "
+          f"synchronised, median of 3 after the served run); peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated ({smi})", flush=True)
+
+    # (d) the full-width model under mvu_binary at reduced depth: one prefill
+    bcfg = cfg.replace(num_layers=LM_BINARY_LAYERS, linear_backend="mvu_binary")
+    bmodel = build(bcfg, device=dev)
+    bparams = bmodel.init(g, quantize="mvu_binary")
+    n_bin = len(L.PROJ_NAMES) * LM_BINARY_LAYERS
+    blogits, _ = counted(lambda: bmodel.prefill(bparams, {"tokens": toks0},
+                                                bmodel.init_decode_state(LM_BATCH, LM_MAX_LEN)),
+                         {"mvu_binary": n_bin}, "the binary prefill")
+    check(bool(torch.isfinite(blogits).all()) and tuple(blogits.shape) == (LM_BATCH,
+                                                                           cfg.vocab_size),
+          f"lm: the binary prefill's logits {tuple(blogits.shape)} are not finite")
+    print(f"lm: binary: full-width {cfg.name} at {LM_BINARY_LAYERS} layers under mvu_binary, "
+          f"prefill of {LM_BATCH} x {toks0.shape[1]}: finite logits; mvu_binary launched "
+          f"{n_bin} times, nothing else", flush=True)
+
+    # (c) layer 0's seven projections at full width against the plain
+    # versions (raw int32 accumulators, then the scale epilogue), at the
+    # decode rows and at group 0's prefill rows, and each launch shape timed
+    ga = torch.Generator(device=dev).manual_seed(LM_SEED + 1)
+    layer0 = {"mvu_int": tf.layer(params["layers"], 0),
+              "mvu_binary": tf.layer(bparams["layers"], 0)}
+    timed = {}  # (kernel, m, n, k) -> (kernel, plain, library, bound) ms, bound_by
+    m_pre = [LM_BATCH * t.shape[1] for t in group_tokens]
+    for kernel, mode in (("mvu_int", "standard"), ("mvu_binary", "binary")):
+        for name in L.PROJ_NAMES:
+            blk = "attn" if name in layer0[kernel]["attn"] else "ffn"
+            node = layer0[kernel][blk][name]
+            w = node["values"]
+            if mode == "binary":
+                w = packing.bipolar_to_bits(w).to(torch.int8)
+            n, k = w.shape
+            s = node["scale"].to(torch.float32)
+            ms = {LM_BATCH, *m_pre} if kernel == "mvu_int" else {m_pre[0]}
+            for m in sorted(ms):
+                a = torch.randint(-127, 128, (m, k), generator=ga, device=dev,
+                                  dtype=torch.int8)
+                for epi in (None, s):
+                    got = ops.mvu(a, w, mode, out_scale=epi, backend="cuda", **blocks)
+                    want = ops.mvu(a, w, mode, out_scale=epi, backend="torch")
+                    torch.cuda.synchronize()
+                    check(got.dtype == want.dtype and torch.equal(got, want),
+                          f"lm: {kernel} differs from its plain version on layer 0's {name} "
+                          f"at M={m} N={n} K={k} (scale={epi is not None})")
+                af = a.float()
+                wf = w.float() if mode == "standard" else 2 * w.float() - 1
+
+                def library(af=af, wf=wf, s=s):
+                    return torch.matmul(af, wf.T) * s
+
+                row = (device_ms(lambda: ops.mvu(a, w, mode, out_scale=s, backend="cuda",
+                                                 **blocks), reps=20),
+                       device_ms(lambda: ops.mvu(a, w, mode, out_scale=s, backend="torch"),
+                                 reps=1, trials=3),
+                       device_ms(library, reps=20), *bound(m, n, k, n * 4, a_bytes=1))
+                timed[(kernel, m, n, k)] = row
+                print(f"lm: {kernel} layer 0 {name} M={m} N={n} K={k}: equals the plain "
+                      f"version (raw and scaled); ms={row[0]:.5f} plain_ms={row[1]:.5f} "
+                      f"library_ms={row[2]:.5f} bound_ms={row[3]:.6f} ({row[4]}) "
+                      f"{dense_plan_text(kernel, m, n, k, **ops.tile_kwargs(kernel, **blocks))}",
+                      flush=True)
+    shapes = {name: tuple((layer0["mvu_int"]["attn"] | layer0["mvu_int"]["ffn"])[name]
+                          ["values"].shape) for name in L.PROJ_NAMES}
+    # a timing row per counted launch: each group's prefill and decode steps,
+    # then the binary prefill
+    rows = {"mvu_int": [], "mvu_binary": []}
+    for m in m_pre:
+        for mm, reps in ((m, 1), (LM_BATCH, LM_MAX_NEW)):
+            rows["mvu_int"] += [timed[("mvu_int", mm, n, k)] for n, k in shapes.values()] * (
+                cfg.num_layers * reps)
+    rows["mvu_binary"] = [timed[("mvu_binary", m_pre[0], n, k)]
+                          for n, k in shapes.values()] * LM_BINARY_LAYERS
+    launches = {"mvu_int": per_group * len(groups), "mvu_binary": n_bin}
+    check(all(len(rows[k]) == launches[k] for k in launches), "lm: a row for every launch")
+    print(f"lm: launches of the counted runs {launches}; kernel ms over them "
+          f"{ {k: round(sum(r[0] for r in v), 4) for k, v in rows.items()} }; phase "
+          f"{time.perf_counter() - t_phase:.2f} s, peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated ({smi})", flush=True)
+    return {"launches": launches, "rows": rows}
+
+
 def bound_of(nbytes: int, ops: int) -> tuple[float, str]:
     """Least ms the card needs: ``nbytes`` at the HBM rate or ``ops`` at the
     int8 tensor-core peak, whichever is larger."""
@@ -2106,10 +2352,12 @@ def bound_of(nbytes: int, ops: int) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def bound(m: int, n: int, k: int, epilogue_bytes: int) -> tuple[float, str]:
-    """Least ms for one ``mvu_int`` launch: read A (int32) and W (int8)
-    and the epilogue operand once, write the (M, N) 4-byte output once."""
-    return bound_of(m * k * 4 + n * k + epilogue_bytes + m * n * 4, 2 * m * n * k)
+def bound(m: int, n: int, k: int, epilogue_bytes: int, a_bytes: int = 4) -> tuple[float, str]:
+    """Least ms for one ``mvu_int`` launch: read A (``a_bytes`` an element:
+    int32 where the path hands the kernel int32, 1 where it hands int8,
+    as ``quantized_linear`` does) and W (int8) and the epilogue operand
+    once, write the (M, N) 4-byte output once."""
+    return bound_of(m * k * a_bytes + n * k + epilogue_bytes + m * n * 4, 2 * m * n * k)
 
 
 def new_kernel_case(name, m, n, k, g, dev):
@@ -2894,6 +3142,7 @@ def main() -> int:
     tiles = tiles_phase(dev, smi, ptxas, path_accs, tuned)
     explore_phase(dev, smi)
     piped = pipeline_phase(dev, smi)
+    lm = lm_phase(dev, smi)
 
     # -------------------------------------------------------- 5. results
     mb = plan.microbatch
@@ -2922,9 +3171,10 @@ def main() -> int:
                 if dense == name:
                     rows += [timing[(entry, CNV_DENSE_M, n, k)] for n, k in cnv_dense] * n_micro
                     n_launches += counts[name]
-            # the pipeline phase's counted runs, each launch at its stage's shape
-            rows += piped["rows"].get(name, [])
-            n_launches += piped["launches"].get(name, 0)
+            # the pipeline and lm phases' counted runs, each launch at its shape
+            for phase in (piped, lm):
+                rows += phase["rows"].get(name, [])
+                n_launches += phase["launches"].get(name, 0)
             if name == "mvu_xnor":  # the packed entry on the same launches, beside it
                 packed = [timing[(name, mb, n, k)] for k, n, _, _ in nid_mlp.LAYERS]
                 packed = packed * plan.n_micro + [

@@ -1,0 +1,138 @@
+"""The reduced Yi-9B golden run: the JAX package's logits and greedy tokens.
+
+Usage (from the repo root, JAX on the CPU):
+    PYTHONPATH=src python scripts/lm_golden.py            # check the file
+    PYTHONPATH=src python scripts/lm_golden.py --write    # (re)write it
+    PYTHONPATH=src python scripts/lm_golden.py --bf16-gap # bfloat16 gaps
+
+Runs ``repro.models.model.build(get_reduced("yi-9b"))`` in float32 on the
+tree of ``repro_torch.convert.lm_numpy_params(cfg, SEED)`` -- dense, and
+after ``quantize_model_params(params, "mvu_w8a8")`` -- through ``prefill``
+of a seeded prompt batch and three greedy ``decode_step``s
+(``repro_torch.configs.lm_golden``).  The result is
+``src/repro_torch/configs/yi_9b_lm_golden.json``; ``tests/test_torch_lm.py``
+and ``chip_smoke.py`` hold the port to it.
+
+``--bf16-gap`` prints, for the reduced model in bfloat16 at three seeds,
+the prefill logits' max |difference| over the largest logit and 1 -
+correlation between the JAX package compiled (its ``lax.scan`` layer
+loop), the JAX package op by op (``jax.disable_jit()``) and the port on
+the CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+import numpy as np
+
+
+def jax_run(backend: str) -> dict:
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_reduced
+    from repro.models.layers import quantize_model_params
+    from repro.models.model import build
+    from repro_torch.configs import lm_golden as G
+    from repro_torch.convert import lm_numpy_params
+
+    cfg = get_reduced(G.ARCH).replace(dtype="float32", remat=False, linear_backend=backend)
+    params = jax.tree.map(jnp.asarray, lm_numpy_params(cfg, G.SEED))
+    if backend != "dense":
+        params = quantize_model_params(params, backend)
+    model = build(cfg)
+    state = model.init_decode_state(G.BATCH, G.MAX_LEN)
+    logits, state = model.prefill(params, {"tokens": jnp.asarray(G.prompt_tokens())}, state)
+    outs, toks = [], []
+    for step in range(G.DECODE_STEPS + 1):
+        outs.append(np.asarray(logits, np.float32))
+        nxt = jnp.argmax(logits, -1)
+        toks.append(np.asarray(nxt))
+        if step < G.DECODE_STEPS:
+            logits, state = model.decode_step(params, state, nxt)
+    return {"logits": np.stack(outs).tolist(), "tokens": np.stack(toks, axis=1).tolist()}
+
+
+def golden() -> dict:
+    from repro_torch.configs import lm_golden as G
+
+    return {"arch": G.ARCH, "seed": G.SEED, "token_seed": G.TOKEN_SEED, "batch": G.BATCH,
+            "prompt_len": G.PROMPT_LEN, "max_len": G.MAX_LEN,
+            "decode_steps": G.DECODE_STEPS, "dtype": "float32",
+            "variants": {b: jax_run(b) for b in G.VARIANTS}}
+
+
+def bf16_gap() -> None:
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from repro.configs import get_reduced
+    from repro.models.layers import quantize_model_params
+    from repro.models.model import build
+    from repro_torch.configs import get_reduced as port_reduced
+    from repro_torch.convert import lm_numpy_params, lm_params_from_numpy
+    from repro_torch.models import layers as port_layers
+    from repro_torch.models.model import build as port_build
+
+    def gap(ref, out):
+        return (f"{float(np.abs(out - ref).max() / np.abs(ref).max()):.5f} / "
+                f"{1 - np.corrcoef(ref.ravel(), out.ravel())[0, 1]:.2e}")
+
+    for backend in ("dense", "mvu_w8a8", "mvu_binary"):
+        for seed in range(3):
+            kw = dict(dtype="bfloat16", remat=False, linear_backend=backend)
+            cfg = get_reduced("yi-9b").replace(**kw)
+            jp = jax.tree.map(lambda a: jnp.asarray(a).astype("bfloat16"),
+                              lm_numpy_params(cfg, seed))
+            tp = lm_params_from_numpy(jax.tree.map(np.asarray, jp))
+            if backend != "dense":
+                jp = quantize_model_params(jp, backend)
+                tp = port_layers.quantize_model_params(tp, backend)
+            toks = np.random.default_rng(seed + 1).integers(0, cfg.vocab_size, (2, 12))
+            model = build(cfg)
+            logits = []
+            for ctx in (jax.disable_jit(), jax.default_device(jax.devices("cpu")[0])):
+                with ctx:
+                    out, _ = model.prefill(jp, {"tokens": jnp.asarray(toks, jnp.int32)},
+                                           model.init_decode_state(2, 32))
+                logits.append(np.asarray(out.astype(jnp.float32)))
+            op_by_op, compiled = logits
+            pm = port_build(port_reduced("yi-9b").replace(**kw), device="cpu")
+            port, _ = pm.prefill(tp, {"tokens": toks.astype(np.int32)},
+                                 pm.init_decode_state(2, 32))
+            port = port.to(torch.float32).numpy()
+            print(f"bf16 {backend} seed {seed}: max|d|/max|ref| / 1-corr: JAX compiled vs op "
+                  f"by op {gap(compiled, op_by_op)}; port vs compiled {gap(compiled, port)}; "
+                  f"port vs op by op {gap(op_by_op, port)}")
+
+
+def main(argv=None) -> int:
+    from repro_torch.configs.lm_golden import GOLDEN, load_golden
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--write", action="store_true", help="rewrite the golden file")
+    ap.add_argument("--bf16-gap", action="store_true",
+                    help="print the bfloat16 gaps between compiled JAX, op-by-op JAX and the "
+                         "port instead")
+    args = ap.parse_args(argv)
+    if args.bf16_gap:
+        bf16_gap()
+        return 0
+    digest = golden()
+    if args.write:
+        with open(GOLDEN, "w") as f:
+            json.dump(digest, f, sort_keys=True)
+            f.write("\n")
+        print(f"wrote {GOLDEN}")
+        return 0
+    same = load_golden() == json.loads(json.dumps(digest))
+    print("golden run matches" if same else "golden run DIFFERS")
+    return 0 if same else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

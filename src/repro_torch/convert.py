@@ -19,6 +19,12 @@ port's: ``pallas`` -> ``cuda``, ``xla`` -> ``torch``.  Packed uint32 words
 arrive as the port's int32 bit patterns (see :func:`_tensor`).  Whoever
 holds the JAX graph makes the description (``np.asarray`` on each param);
 the port never imports JAX.
+
+An LM's parameter tree crosses the same way: ``lm_params_from_numpy(tree,
+device)`` takes the JAX package's tree as nested dicts of numpy arrays
+(``np.asarray`` on each leaf) and returns the port's, leaf for leaf;
+``lm_numpy_params(cfg, seed)`` draws a dense decoder's tree in that layout
+with numpy alone, so both packages can start from the same weights.
 """
 
 from __future__ import annotations
@@ -30,6 +36,8 @@ from repro_torch.core.folding import Folding
 from repro_torch.core.ir import Graph, Node
 from repro_torch.core.mvu import KernelBlocks, MVUConfig, MVUParams
 from repro_torch.kernels.ops import BACKEND_NAMES
+from repro_torch.models.layers import is_gated
+from repro_torch.models.transformer import require_dense
 
 
 def _tensor(a, device):
@@ -72,3 +80,58 @@ def graph_from_numpy(nodes, device="cpu") -> Graph:
         g.append(Node(nd["op"], nd["name"], attrs, params,
                       inputs=None if inputs is None else tuple(inputs)))
     return g
+
+
+def lm_params_from_numpy(tree, device="cpu"):
+    """The port's LM parameter tree for the JAX package's, given as nested
+    dicts of numpy arrays: each leaf a tensor on ``device`` of the same
+    values and dtype, except that ``int4`` (the reference's 4-bit and 1-bit
+    MVU values) becomes int8, the dtype the port carries them in, and
+    numpy's ``bfloat16`` becomes torch's."""
+    if isinstance(tree, dict):
+        return {k: lm_params_from_numpy(v, device) for k, v in tree.items()}
+    a = np.array(tree)
+    if a.dtype.name == "int4":
+        a = a.astype(np.int8)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(a).to(device)
+
+
+def lm_numpy_params(cfg, seed: int = 0) -> dict:
+    """A dense decoder's parameters in the JAX package's layout (the tree
+    its ``build(cfg).init`` returns, layers stacked on a leading axis) as
+    float32 numpy arrays from ``np.random.default_rng(seed)``: each
+    projection ``normal / sqrt(fan_in)``, the embedding ``normal * 0.02``,
+    the norms at their init (scale 1, bias 0).  The config's dtype is the
+    caller's cast."""
+    require_dense(cfg)
+    rng = np.random.default_rng(seed)
+    n_layers, d, hd, ff = cfg.num_layers, cfg.d_model, cfg.head_dim, cfg.d_ff
+
+    def dense(*shape):  # (..., fan_in, fan_out)
+        return rng.standard_normal(shape, dtype=np.float32) / np.float32(np.sqrt(shape[-2]))
+
+    def norm(*shape):
+        p = {"scale": np.ones(shape, np.float32)}
+        if cfg.norm == "layernorm":
+            p["bias"] = np.zeros(shape, np.float32)
+        return p
+
+    table = rng.standard_normal((cfg.vocab_size, d), dtype=np.float32) * np.float32(0.02)
+    attn = {"wq": {"w": dense(n_layers, d, cfg.num_heads * hd)},
+            "wk": {"w": dense(n_layers, d, cfg.num_kv_heads * hd)},
+            "wv": {"w": dense(n_layers, d, cfg.num_kv_heads * hd)},
+            "wo": {"w": dense(n_layers, cfg.num_heads * hd, d)}}
+    if cfg.qk_norm:
+        attn["qnorm"], attn["knorm"] = norm(n_layers, hd), norm(n_layers, hd)
+    ffn = {"w_up": {"w": dense(n_layers, d, ff)}, "w_down": {"w": dense(n_layers, ff, d)}}
+    if is_gated(cfg.activation):
+        ffn["w_gate"] = {"w": dense(n_layers, d, ff)}
+    params = {"embed": {"table": table},
+              "layers": {"ln1": norm(n_layers, d), "ln2": norm(n_layers, d), "attn": attn,
+                         "ffn": ffn},
+              "ln_f": norm(d)}
+    if not cfg.tie_embeddings:
+        params["unembed"] = {"w": dense(d, cfg.vocab_size)}
+    return params

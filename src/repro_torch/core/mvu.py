@@ -2,9 +2,13 @@
 
 :class:`MVULayer` is the faithful FINN unit: integer tensors in, integer
 activations out through the fused multi-threshold epilogue (or a float32
-dequant scale on the last layer).  ``quantized_linear``, the LM facing,
-waits for ROADMAP queue A item 7, step 2 (the Section 6.5 flow of step 1,
-``repro_torch.launch.nid_qat``, needs only this unit).
+dequant scale on the last layer).
+
+:func:`quantized_linear` is the LM facing: float activations are
+dynamically quantized, pushed through the integer MVU datapath (the hand
+``mvu_int`` / ``mvu_binary`` kernels), and dequantized.  It is the
+projection of ``models/layers.py::linear`` for the integer-deployed
+``mvu_*`` backends.
 """
 
 from __future__ import annotations
@@ -191,3 +195,45 @@ class MVULayer:
             mode=cfg.mode, weight_bits=cfg.weight_bits, n_pixels=n_pixels,
             packed=cfg.packed,
         )
+
+
+# quantized_linear's blocks: the reference's Pallas blocks, which pick the
+# kernel's compiled tile (ops.tile_kwargs): 32 x 64 x 128 of DENSE_TILES
+# where a launch is tiled (M > 8); a decode step's M <= 8 takes the gemv
+# arrangement, which has no tile
+LINEAR_BLOCKS = {"block_n": 128, "block_k": 512}
+
+
+def quantized_linear(x: torch.Tensor, w_q: QTensor, *, act_bits: int = 8,
+                     backend: str = "cuda") -> torch.Tensor:
+    """Float-facing MVU linear: y = x @ W_q^T with dynamic act quantization.
+
+    x: (..., K) float; w_q: symmetric-int QTensor (N, K) with per-channel
+    scale (1-bit: bipolar values, run on the binary datapath).  Activations
+    get one dynamic per-tensor scale (abs-max), the integer MVU kernel runs
+    the dot product with the scale epilogue, and the result is dequantized.
+    Every op runs in ``x``'s dtype, as the reference's ops do one by one
+    (under bf16 the scale and ``x / a_scale`` are bf16; compiled, XLA keeps
+    some of them in float32, ROADMAP queue C).
+
+    ``backend="cuda"`` (what ``models/layers.py::linear`` passes) launches
+    the hand kernel on a CUDA tensor and takes the kernel's plain version
+    on a CPU tensor.  The reference's ``linear`` passes ``backend="xla"``,
+    whose port name, ``"torch"``, is the plain version wherever the
+    tensor lies.  The kernel's tile comes from :data:`LINEAR_BLOCKS`.
+    """
+    lead = x.shape[:-1]
+    k = x.shape[-1]
+    xm = x.reshape(-1, k)
+    lo, hi = int_bounds(act_bits, signed=True)
+    # a tensor divisor: CUDA multiplies by the reciprocal of a Python scalar,
+    # which can differ from the reference's division in the last bit
+    a_scale = torch.clamp_min(xm.abs().amax(), 1e-6) / torch.full((), hi, dtype=x.dtype,
+                                                                  device=x.device)
+    a_int = torch.clamp(torch.round(xm / a_scale), lo, hi).to(torch.int8)
+    mode, w = (("binary", packing.bipolar_to_bits(w_q.values).to(torch.int8))
+               if w_q.bits == 1 else ("standard", w_q.values))
+    out = ops.mvu(a_int, w, mode, out_scale=w_q.scale.reshape(-1).to(torch.float32),
+                  backend=backend, **LINEAR_BLOCKS)
+    y = out * a_scale
+    return y.reshape(*lead, -1).to(x.dtype)

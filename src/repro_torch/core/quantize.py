@@ -1,4 +1,4 @@
-"""Post-training weight quantization onto the integer grid the MVU consumes.
+"""Post-training quantization onto the integer grid the MVU consumes.
 
 Conventions
 -----------
@@ -8,10 +8,14 @@ Conventions
 * 1-bit weights are bipolar {-1, +1} (paper Fig. 4a/4b).
 
 ``torch.round`` rounds half to even, as ``jnp.round`` does, so the integer
-weights equal the JAX reference's.  The Section 6.5 flow trains with the
-straight-through trick inline (``repro_torch.launch.nid_qat``, as the
-reference's ``benchmarks/nid_mlp.py`` does); the fake quantizers and
-``_ste`` of this module wait for ROADMAP queue A item 7, step 2.
+weights and activations equal the JAX reference's.  The Section 6.5 flow
+trains with the straight-through trick inline
+(``repro_torch.launch.nid_qat``, as the reference's
+``benchmarks/nid_mlp.py`` does).  The training side of the reference's
+module -- ``fake_quant_weights``, ``fake_quant_activations``, ``_ste`` and
+``binarize_bipolar`` -- waits for the LM training step (ROADMAP queue A
+item 7, step 3), with the N-D mean in XLA's order that ``fake_quant_weights``
+takes down a weight's columns at one bit.
 """
 
 from __future__ import annotations
@@ -98,3 +102,9 @@ def quantize_weights(w: torch.Tensor, bits: int, axis: int | None = 0) -> QTenso
     scale = torch.clamp_min(amax, 1e-8) / hi
     q = torch.clamp(torch.round(w / scale), lo, hi).to(torch.int8)
     return QTensor(q, scale, bits, True)
+
+
+def quantize_activations(x: torch.Tensor, bits: int, scale) -> torch.Tensor:
+    """Real -> unsigned integer activation grid (what thresholds produce)."""
+    lo, hi = int_bounds(bits, signed=False)
+    return torch.clamp(torch.round(x / scale), lo, hi).to(torch.int32)

@@ -2,15 +2,18 @@
 
 Ported so far:
 
-* :mod:`repro_torch.launch.serve` -- ``EngineServer``, the deprecated
-  request-coalescing shim over :class:`repro_torch.serving.ContinuousBatcher`,
-  and its ``EngineRequest``;
+* :mod:`repro_torch.launch.serve` -- ``serve_loop`` and its ``Request``,
+  the LM's batched prefill-and-decode loop over
+  :mod:`repro_torch.models` (integer-deployed projections on the hand
+  MVU kernels); ``EngineServer``, the deprecated request-coalescing shim
+  over :class:`repro_torch.serving.ContinuousBatcher`, and its
+  ``EngineRequest``;
 * :mod:`repro_torch.launch.nid_qat` -- the paper's Section 6.5 flow (the
   float MLP trained with a straight-through estimator, streamlined by the
   build into the integer MVU chain and run on the hand-written kernels),
   the counterpart of the JAX package's ``benchmarks/nid_mlp.py``.
 
-Not ported yet: ``shard_serve_fns`` and ``serve_loop`` (``serve.py``),
-``mesh.py``, ``dryrun.py``, ``train.py`` and the LM serving loop wait for
-the LM stack and its sharding (ROADMAP queue A item 7, step 3).
+Not ported yet (ROADMAP queue A item 7): ``train.py`` waits for the LM
+training step (step 3); ``shard_serve_fns`` (``serve.py``), ``mesh.py``
+and ``dryrun.py`` for step 5.
 """

@@ -1,23 +1,29 @@
-"""``EngineServer``: the dataflow graph's request-coalescing front end.
+"""Serving entry points; the port of the JAX package's ``repro/launch/serve.py``.
 
-The port of ``EngineServer`` from the JAX package's ``repro/launch/serve.py``:
-a shape-bucketed, manually flushed server over
+``serve_loop`` is the LM's host-scale batched serving loop (requests are
+grouped, their prompts prefilled, and the group decoded in lockstep) over
+a :class:`repro_torch.models.model.Model`.
+
+``EngineServer`` is the dataflow graph's request-coalescing front end: a
+shape-bucketed, manually flushed server over
 :class:`repro_torch.core.engine.FusedEngine`, kept as a thin deprecated shim
 over :mod:`repro_torch.serving` (bounded admission queue + continuous
 batcher + replica pool).  New code should build through
 ``repro_torch.build.build(graph, target="serving")`` and use
 ``Accelerator.serve()`` / :class:`repro_torch.serving.ContinuousBatcher`.
 
-``shard_serve_fns`` and ``serve_loop`` of the same module belong to the
-multi-device and LM slices (ROADMAP queue A items 6 and 7, step 3).
+``shard_serve_fns`` (the sharded prefill and decode) waits for ROADMAP
+queue A item 7, step 5.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 import warnings
 
 import numpy as np
+import torch
 
 # the shim warns once per process, not once per construction: a serving
 # loop that builds servers in a loop should not flood the log
@@ -117,3 +123,61 @@ class EngineServer:
                 done.append(EngineRequest(rid, None, r.t_submit, r.t_done, r.out))
         done.sort(key=lambda r: r.rid)
         return done
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray  # (S,) int32
+    max_new: int
+    out: list = dataclasses.field(default_factory=list)
+    t_submit: float = 0.0
+    t_done: float = 0.0
+
+
+def prompt_batch(group: list[Request]) -> np.ndarray:
+    """A group's prompts as one (len(group), S) int32 batch: left-aligned,
+    zero-padded to the longest prompt."""
+    toks = np.zeros((len(group), max(len(r.prompt) for r in group)), np.int32)
+    for j, r in enumerate(group):
+        toks[j, : len(r.prompt)] = r.prompt
+    return toks
+
+
+def serve_loop(model, params, requests: list[Request], *,
+               batch: int = 4, max_len: int = 256):
+    """Static-batched serving: groups requests into batches, prefills the
+    (right-padded) prompts, then decodes all sequences in lockstep, greedily.
+
+    The reference's loop, quirks kept: a short group is padded with
+    copies of its first request (rid -1, dropped from the result); every
+    row's first token comes from the logits at the longest prompt's last
+    position, and decoding continues from there for every row; each group
+    takes ``max(max_new)`` decode steps, the last one's tokens unused.  (The
+    reference's ``greedy`` flag takes the argmax either way; the port has
+    none.)
+    """
+    done: list[Request] = []
+    for i in range(0, len(requests), batch):
+        group = requests[i : i + batch]
+        while len(group) < batch:
+            group.append(Request(rid=-1, prompt=group[0].prompt, max_new=group[0].max_new))
+        toks = prompt_batch(group)
+        state = model.init_decode_state(batch, max_len)
+        t0 = time.perf_counter()
+        logits, state = model.prefill(params, {"tokens": torch.from_numpy(toks)}, state)
+        nxt = torch.argmax(logits, -1)
+        max_new = max(r.max_new for r in group)
+        for _ in range(max_new):
+            host = nxt.tolist()
+            for j, r in enumerate(group):
+                if r.rid >= 0 and len(r.out) < r.max_new:
+                    r.out.append(host[j])
+            logits, state = model.decode_step(params, state, nxt)
+            nxt = torch.argmax(logits, -1)
+        t1 = time.perf_counter()
+        for r in group:
+            if r.rid >= 0:
+                r.t_done = t1 - t0
+                done.append(r)
+    return done

@@ -1,0 +1,202 @@
+"""Shared model layers: norms, linears (dense | MVU-quantized), rotary
+embeddings, activations; the port of the JAX package's
+``repro/models/layers.py``.
+
+Everything is functional: params are plain dicts of tensors, layers are
+pure functions.  ``linear`` is the integration point for the paper's
+technique: with integer-deployed params (``quantize_model_params``) the
+projection runs the integer MVU datapath on the hand kernels.
+
+Not ported here (ROADMAP queue A item 7): the fake-quant arm of
+``linear`` (it raises) and ``seq_shard`` (a no-op without a mesh) wait
+for the training step and its sharding (step 3), ``apply_mrope`` for the
+VLM family (step 4).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.mvu import quantized_linear
+from repro_torch.core.quantize import QTensor, quantize_weights
+
+Params = dict[str, Any]
+
+
+# ---------------------------------------------------------------- init utils
+def _normal(generator: torch.Generator, shape, scale: float, dtype, device) -> torch.Tensor:
+    """``normal(shape) * scale`` in float32, drawn on ``generator``'s device,
+    then cast to ``dtype`` and placed on ``device``."""
+    x = torch.randn(shape, generator=generator, device=generator.device) * scale
+    return x.to(device=device, dtype=dtype)
+
+
+def linear_init(generator, d_in: int, d_out: int, dtype=torch.bfloat16, device="cpu") -> Params:
+    return {"w": _normal(generator, (d_in, d_out), 1.0 / math.sqrt(d_in), dtype, device)}
+
+
+# ---------------------------------------------------------------- linear
+MVU_BACKENDS = {
+    "mvu_w8a8": (8, 8),
+    "mvu_w4a8": (4, 8),
+    "mvu_w4a4": (4, 4),
+    "mvu_binary": (1, 8),
+}
+
+
+def linear(p: Params, x: torch.Tensor, *, backend: str = "dense") -> torch.Tensor:
+    """y = x @ w  (+ the integer MVU datapath).
+
+    dense:  w stored (d_in, d_out), plain matmul.
+    mvu_* integer (serving): p holds {"values" (out, in) int8, "scale"}
+    and the MVU kernel runs the dot (``quantized_linear`` with
+    ``backend="cuda"``: the hand kernel on the card, its plain version on a
+    CPU tensor).  As in the reference, integer params under a backend that
+    is not ``mvu_*`` run at 8 bits.
+    mvu_* on float params (the reference's fake-quant training arm) raises.
+    """
+    if "values" in p:  # integer-deployed MVU weights
+        w_bits, a_bits = MVU_BACKENDS[backend] if backend in MVU_BACKENDS else (8, 8)
+        qt = QTensor(p["values"], p["scale"], w_bits, True)
+        return quantized_linear(x, qt, act_bits=a_bits, backend="cuda")
+    if backend in MVU_BACKENDS:
+        raise NotImplementedError(
+            f"linear: backend {backend!r} on float weights is the fake-quant training "
+            "arm, which waits for the LM training step (ROADMAP queue A item 7, step 3); "
+            "serve integer weights from quantize_model_params")
+    return x @ p["w"]
+
+
+def quantize_linear_params(p: Params, backend: str) -> Params:
+    """dense params -> integer MVU deployment params (out, in int8 + scale).
+
+    The reference stores 4-bit and 1-bit values as ``int4``, which its
+    ``linear`` widens to int8 before the kernel.  Torch has no int4, so the
+    port carries every width in int8: the same values, in the dtype the
+    kernels take."""
+    w_bits, _ = MVU_BACKENDS[backend]
+    qt = quantize_weights(p["w"].T.to(torch.float32), w_bits, axis=0)
+    return {"values": qt.values.contiguous(), "scale": qt.scale.reshape(-1)}
+
+
+PROJ_NAMES = ("wq", "wk", "wv", "wo", "w_up", "w_gate", "w_down")
+
+
+def quantize_model_params(params: Params, backend: str) -> Params:
+    """Post-training quantization of every projection in a model tree onto
+    the MVU integer grid (handles layer-stacked (L, in, out) weights)."""
+
+    def one(node):
+        w = node["w"]
+        if w.ndim == 2:
+            return quantize_linear_params(node, backend)
+        flat = w.reshape(-1, *w.shape[-2:])
+        outs = [quantize_linear_params({"w": flat[i]}, backend) for i in range(flat.shape[0])]
+        vals = torch.stack([o["values"] for o in outs]).reshape(
+            *w.shape[:-2], w.shape[-1], w.shape[-2])
+        scales = torch.stack([o["scale"] for o in outs]).reshape(*w.shape[:-2], w.shape[-1])
+        return {"values": vals, "scale": scales}
+
+    def walk(node, name):
+        if isinstance(node, dict):
+            if name in PROJ_NAMES and set(node) == {"w"} and node["w"].ndim >= 2:
+                return one(node)
+            return {k: walk(v, k) for k, v in node.items()}
+        return node
+
+    return walk(params, "")
+
+
+# ---------------------------------------------------------------- norms
+def rmsnorm_init(d: int, dtype=torch.bfloat16, device="cpu") -> Params:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    x = x.to(torch.float32)
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * p["scale"].to(torch.float32)).to(dt)
+
+
+def layernorm_init(d: int, dtype=torch.bfloat16, device="cpu") -> Params:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    x = x.to(torch.float32)
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"].to(torch.float32) + p["bias"].to(torch.float32)).to(dt)
+
+
+# ---------------------------------------------------------------- activations
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``: x * 1 / (1 + exp(-x)), each op rounded to x's dtype
+    as XLA expands the logistic (``F.silu`` rounds once, and differs in
+    bfloat16)."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+# jax.nn.gelu is the tanh approximation by default
+def activation(name: str, gate: torch.Tensor, up: torch.Tensor | None = None) -> torch.Tensor:
+    if name == "swiglu":
+        assert up is not None
+        return silu(gate) * up
+    if name == "geglu":
+        assert up is not None
+        return F.gelu(gate, approximate="tanh") * up
+    if name == "squared_relu":  # Nemotron-4 (Primer)
+        return torch.square(F.relu(gate))
+    if name == "gelu":
+        return F.gelu(gate, approximate="tanh")
+    raise ValueError(f"unknown activation {name!r}")
+
+
+def is_gated(name: str) -> bool:
+    return name in ("swiglu", "geglu")
+
+
+# ---------------------------------------------------------------- rotary
+def rope_freqs(head_dim: int, theta: float, rot_dim: int | None = None,
+               device="cpu") -> torch.Tensor:
+    rd = rot_dim or head_dim
+    return 1.0 / (theta ** (torch.arange(0, rd, 2, dtype=torch.float32, device=device) / rd))
+
+
+def apply_rope(
+    x: torch.Tensor,  # (B, S, H, hd)
+    positions: torch.Tensor,  # (B, S)
+    theta: float = 1e4,
+    rot_dim: int | None = None,
+) -> torch.Tensor:
+    hd = x.shape[-1]
+    rd = rot_dim or hd
+    freqs = rope_freqs(hd, theta, rd, device=x.device)  # (rd/2,)
+    ang = positions[..., None].to(torch.float32) * freqs  # (B, S, rd/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    xr, xp = x[..., :rd], x[..., rd:]
+    x1, x2 = xr[..., : rd // 2], xr[..., rd // 2:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return torch.cat([out.to(x.dtype), xp], dim=-1)
+
+
+# ---------------------------------------------------------------- embeddings
+def embed_init(generator, vocab: int, d: int, dtype=torch.bfloat16, device="cpu") -> Params:
+    return {"table": _normal(generator, (vocab, d), 0.02, dtype, device)}
+
+
+def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
+    return p["table"][tokens]
+
+
+def unembed(p: Params, x: torch.Tensor) -> torch.Tensor:
+    return x @ p["table"].T

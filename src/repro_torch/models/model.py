@@ -1,0 +1,120 @@
+"""Model facade: build(config) -> init / prefill / decode_step; the port of
+the JAX package's ``repro/models/model.py`` for the dense decoder.
+
+    batch (serving prefill): {"tokens": (B, S) int}
+    decode state: {"caches": ..., "pos": (B, 1) int32}
+
+``build(cfg, device=None)`` places the model on ``device``: None means the
+card, and raises when CUDA is absent (pass ``device="cpu"`` to run the
+kernels' plain versions).  ``loss`` is the training step's and raises
+(ROADMAP queue A item 7, step 3).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer as tf
+from repro_torch.models.layers import (
+    embed,
+    embed_init,
+    layernorm,
+    layernorm_init,
+    linear,
+    linear_init,
+    rmsnorm,
+    rmsnorm_init,
+    unembed,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+    device: torch.device
+    init: Callable[..., Any]
+    loss: Callable[..., Any]
+    prefill: Callable[..., Any]
+    decode_step: Callable[..., Any]
+    init_decode_state: Callable[..., Any]
+
+
+def _positions(batch: int, seq: int, device) -> torch.Tensor:
+    """(B, S) token positions 0..S-1 (M-RoPE's 3-D ids are not ported)."""
+    return torch.arange(seq, dtype=torch.int32, device=device)[None].expand(batch, seq)
+
+
+def _device(device) -> torch.device:
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available and no device was given: pass "
+                               "device='cpu' to run the model on the CPU (the kernels' "
+                               "plain versions)")
+        device = "cuda"
+    return torch.device(device)
+
+
+def build(cfg: ModelConfig, device=None) -> Model:
+    tf.require_dense(cfg)
+    device = _device(device)
+    dt = getattr(torch, cfg.dtype)
+
+    # ----------------------------------------------------------------- init
+    def init(generator: torch.Generator, *, quantize: str | None = None):
+        """Random params on the model's device, drawn on ``generator``'s.
+
+        ``quantize`` (an ``mvu_*`` backend) gives the serving params
+        ``quantize_model_params(init(generator), quantize)`` from the same
+        draws, each layer quantized as soon as it is drawn, so the float
+        model never lies whole on the device."""
+        params = {"embed": embed_init(generator, cfg.vocab_size, cfg.d_model, dt, device),
+                  "layers": tf.stack_init(generator, cfg, dt, device, quantize=quantize)}
+        params["ln_f"] = (layernorm_init(cfg.d_model, dt, device) if cfg.norm == "layernorm"
+                          else rmsnorm_init(cfg.d_model, dt, device))
+        if not cfg.tie_embeddings:
+            params["unembed"] = linear_init(generator, cfg.d_model, cfg.vocab_size, dt, device)
+        return params
+
+    def _norm_f(params, x):
+        fn = layernorm if cfg.norm == "layernorm" else rmsnorm
+        return fn(params["ln_f"], x, cfg.norm_eps)
+
+    def _logits(params, x):
+        if cfg.tie_embeddings:
+            return unembed(params["embed"], x)
+        return linear(params["unembed"], x)
+
+    def loss(params, batch):
+        raise NotImplementedError("Model.loss is the LM training step's (ROADMAP queue A "
+                                  "item 7, step 3); the port serves only")
+
+    # ------------------------------------------------------------- serving
+    def init_decode_state(batch: int, max_len: int):
+        return {"pos": torch.zeros((batch, 1), dtype=torch.int32, device=device),
+                "caches": tf.init_stack_caches(cfg, batch, max_len, dt, device)}
+
+    def prefill(params, batch, state):
+        """Process the full prompt; returns (last-token logits, state)."""
+        tokens = torch.as_tensor(batch["tokens"], device=device)
+        b, s = tokens.shape
+        x = embed(params["embed"], tokens)
+        pos = _positions(b, s, device)
+        x, caches = tf.stack_prefill(params["layers"], cfg, x, pos, state["caches"])
+        state = {**state, "caches": caches,
+                 "pos": torch.full((b, 1), s, dtype=torch.int32, device=device)}
+        logits = _logits(params, _norm_f(params, x[:, -1:]))
+        return logits[:, 0], state
+
+    def decode_step(params, state, tokens):
+        """tokens (B,) -> (logits (B, V), new state); one step, KV cache."""
+        x = embed(params["embed"], tokens[:, None])
+        pos = state["pos"]
+        x, caches = tf.stack_decode(params["layers"], cfg, x, pos, state["caches"])
+        logits = _logits(params, _norm_f(params, x))
+        return logits[:, 0], {**state, "caches": caches, "pos": pos + 1}
+
+    return Model(cfg, device, init, loss, prefill, decode_step, init_decode_state)

@@ -1,0 +1,171 @@
+"""Transformer assembly, dense family: the uniform decoder stack, its
+serving prefill and its KV-cache decode; the port of the JAX package's
+``repro/models/transformer.py``.
+
+Per-layer params are stacked on a leading layer axis, as the reference's
+scanned stacks are; the port walks that axis in a Python loop (no
+``remat``: serving only).  The KV caches are stacked the same way, once,
+and each layer writes its slice in place.  The other families -- MoE, SSM, the hybrid interleave (Jamba), the
+VLM backbone (M-RoPE) and encoder-decoder (Whisper) -- raise
+``NotImplementedError`` (ROADMAP queue A item 7, step 4).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.attention import (
+    attention,
+    attention_decode,
+    attention_prefill,
+    attn_init,
+    init_kv_cache,
+)
+from repro_torch.models.layers import (
+    Params,
+    activation,
+    is_gated,
+    layernorm,
+    layernorm_init,
+    linear,
+    linear_init,
+    quantize_model_params,
+    rmsnorm,
+    rmsnorm_init,
+)
+
+
+def require_dense(cfg) -> None:
+    """Raise for a config of a family the port does not run yet."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family!r} family is not ported; the port runs the "
+            "dense decoder (MoE, SSM, hybrid, VLM and encoder-decoder wait for "
+            "ROADMAP queue A item 7, step 4)")
+
+
+def _norm_init(cfg, dtype, device):
+    return (layernorm_init(cfg.d_model, dtype, device) if cfg.norm == "layernorm"
+            else rmsnorm_init(cfg.d_model, dtype, device))
+
+
+def _norm(cfg, p, x):
+    return layernorm(p, x, cfg.norm_eps) if cfg.norm == "layernorm" else rmsnorm(p, x, cfg.norm_eps)
+
+
+def layer(params: Params, i: int) -> Params:
+    """Layer ``i`` of a stacked tree (views, no copies)."""
+    return {k: layer(v, i) if isinstance(v, dict) else v[i] for k, v in params.items()}
+
+
+def stack_layers(trees: list[Params]) -> Params:
+    """Per-layer trees -> one tree with a leading layer axis."""
+    return {k: stack_layers([t[k] for t in trees]) if isinstance(v, dict)
+            else torch.stack([t[k] for t in trees]) for k, v in trees[0].items()}
+
+
+# ------------------------------------------------------------------- FFN
+def ffn_init(generator, cfg, dtype, device) -> Params:
+    ff = cfg.d_ff
+    p = {
+        "w_up": linear_init(generator, cfg.d_model, ff, dtype, device),
+        "w_down": linear_init(generator, ff, cfg.d_model, dtype, device),
+    }
+    if is_gated(cfg.activation):
+        p["w_gate"] = linear_init(generator, cfg.d_model, ff, dtype, device)
+    return p
+
+
+def ffn(p: Params, cfg, x: torch.Tensor, *, backend: str = "dense") -> torch.Tensor:
+    up = linear(p["w_up"], x, backend=backend)
+    if is_gated(cfg.activation):
+        gate = linear(p["w_gate"], x, backend=backend)
+        h = activation(cfg.activation, gate, up)
+    else:
+        h = activation(cfg.activation, up)
+    return linear(p["w_down"], h, backend=backend)
+
+
+# ------------------------------------------------------------ uniform block
+def block_init(generator, cfg, dtype, device) -> Params:
+    require_dense(cfg)
+    return {"ln1": _norm_init(cfg, dtype, device), "ln2": _norm_init(cfg, dtype, device),
+            "attn": attn_init(generator, cfg, dtype, device),
+            "ffn": ffn_init(generator, cfg, dtype, device)}
+
+
+def block_forward(p, cfg, x, positions, *, causal=True):
+    require_dense(cfg)
+    be = cfg.linear_backend
+    x = x + attention(p["attn"], cfg, _norm(cfg, p["ln1"], x), positions,
+                      causal=causal, backend=be)
+    x = x + ffn(p["ffn"], cfg, _norm(cfg, p["ln2"], x), backend=be)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+# --------------------------------------------------------------- stacks
+def stack_init(generator, cfg, dtype, device, *, quantize: str | None = None) -> Params:
+    """Stacked per-layer params: leading axis = the layer axis.  With
+    ``quantize`` (an ``mvu_*`` backend) each layer's projections are
+    quantized as soon as that layer is drawn, so the float stack never
+    lies whole on ``device``."""
+    def one():
+        p = block_init(generator, cfg, dtype, device)
+        return p if quantize is None else quantize_model_params(p, quantize)
+    return stack_layers([one() for _ in range(cfg.num_layers)])
+
+
+def stack_forward(params, cfg, x, positions, *, causal=True):
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(cfg.num_layers):
+        x, a = block_forward(layer(params, i), cfg, x, positions, causal=causal)
+        aux = aux + a
+    return x, aux
+
+
+# --------------------------------------------------------------- decode path
+def init_block_cache(cfg, batch: int, max_len: int, dtype, device):
+    require_dense(cfg)
+    return init_kv_cache(cfg, batch, max_len, dtype, device)
+
+
+def init_stack_caches(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device="cpu"):
+    return stack_layers([init_block_cache(cfg, batch, max_len, dtype, device)
+                         for _ in range(cfg.num_layers)])
+
+
+def _block_decode(p, cfg, x, pos, cache):
+    require_dense(cfg)
+    be = cfg.linear_backend
+    y, cache = attention_decode(p["attn"], cfg, _norm(cfg, p["ln1"], x), pos, cache,
+                                backend=be)
+    x = x + y
+    x = x + ffn(p["ffn"], cfg, _norm(cfg, p["ln2"], x), backend=be)
+    return x, cache
+
+
+def stack_decode(params, cfg, x, pos, caches):
+    """One decode step through every layer; ``caches`` is written in place
+    and returned."""
+    for i in range(cfg.num_layers):
+        x, _ = _block_decode(layer(params, i), cfg, x, pos, layer(caches, i))
+    return x, caches
+
+
+def _block_prefill(p, cfg, x, positions, cache):
+    """Full-seq pass that fills caches (serving prefill)."""
+    require_dense(cfg)
+    be = cfg.linear_backend
+    y, cache = attention_prefill(p["attn"], cfg, _norm(cfg, p["ln1"], x), positions, cache,
+                                 backend=be)
+    x = x + y
+    x = x + ffn(p["ffn"], cfg, _norm(cfg, p["ln2"], x), backend=be)
+    return x, cache
+
+
+def stack_prefill(params, cfg, x, positions, caches):
+    """The prompt through every layer; ``caches`` is filled in place and
+    returned."""
+    for i in range(cfg.num_layers):
+        x, _ = _block_prefill(layer(params, i), cfg, x, positions, layer(caches, i))
+    return x, caches

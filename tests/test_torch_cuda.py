@@ -859,3 +859,68 @@ def test_pipeline_on_the_card_equals_the_engine(cuda, mode, n_stages):
     # the same ticks on the caller's stream, with no stage streams or events
     one = run(x.reshape(plan.n_micro, plan.microbatch, -1), stage_streams=False)
     assert torch.equal(one.reshape(want.shape), want)
+
+
+def _lm_projection(backend, d_in, d_out, m, dtype, seed):
+    """(x, QTensor, act_bits) of one LM projection on the CPU: random
+    weights quantized by ``quantize_linear_params``, random activations."""
+    from repro_torch.core.quantize import QTensor
+    from repro_torch.models.layers import MVU_BACKENDS, quantize_linear_params
+
+    w_bits, a_bits = MVU_BACKENDS[backend]
+    g = torch.Generator().manual_seed(seed)
+    w = (torch.randn(d_in, d_out, generator=g) / d_in ** 0.5).to(dtype)
+    x = (torch.randn(m, d_in, generator=g) * 3).to(dtype)
+    q = quantize_linear_params({"w": w}, backend)
+    return x, QTensor(q["values"], q["scale"], w_bits, True), a_bits
+
+
+def _on(qt, device):
+    return qt._replace(values=qt.values.to(device), scale=qt.scale.to(device))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [4, 100])
+@pytest.mark.parametrize("backend", ["mvu_w8a8", "mvu_w4a4", "mvu_binary"])
+def test_quantized_linear_on_the_card(cuda, backend, m, dtype):
+    """The LM projection at Yi-9B's widths (K = 4096 into N = 11008, and
+    back) launches the hand kernel once and equals its plain version
+    (``backend="torch"``) on the card bit for bit, both arms; at a narrower
+    width the card equals the CPU bit for bit."""
+    from repro_torch.core.mvu import quantized_linear
+
+    kernel = "mvu_binary" if backend == "mvu_binary" else "mvu_int"
+    for d_in, d_out in ((4096, 11008), (11008, 4096)):
+        x, qt, a_bits = _lm_projection(backend, d_in, d_out, m, dtype, m)
+        x, qt = x.to(cuda), _on(qt, cuda)
+        ops.reset_launch_counts()
+        got = quantized_linear(x, qt, act_bits=a_bits)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()[kernel] == 1
+        want = quantized_linear(x, qt, act_bits=a_bits, backend="torch")
+        assert got.dtype == dtype and torch.equal(got, want)
+    x, qt, a_bits = _lm_projection(backend, 512, 1024, m, dtype, m + 1)
+    assert torch.equal(quantized_linear(x.to(cuda), _on(qt, cuda), act_bits=a_bits).cpu(),
+                       quantized_linear(x, qt, act_bits=a_bits))
+
+
+@pytest.mark.parametrize("backend", ["dense", "mvu_w8a8"])
+def test_lm_golden_run_on_the_card(cuda, backend):
+    """The reduced Yi-9B in float32 on the card against the JAX package's
+    golden run (``configs/yi_9b_lm_golden.json``); W8A8 launches ``mvu_int``
+    for every projection of every call."""
+    from repro_torch.configs import lm_golden as G
+    from repro_torch.convert import lm_numpy_params, lm_params_from_numpy
+    from repro_torch.models.layers import PROJ_NAMES, quantize_model_params
+    from repro_torch.models.model import build as build_lm
+
+    cfg = G.golden_config(backend)
+    params = lm_params_from_numpy(lm_numpy_params(cfg, G.SEED), cuda)
+    if backend != "dense":
+        params = quantize_model_params(params, backend)
+    ops.reset_launch_counts()
+    got = G.greedy_run(build_lm(cfg, device=cuda), params)
+    torch.cuda.synchronize()
+    n = 0 if backend == "dense" else len(PROJ_NAMES) * cfg.num_layers * (1 + G.DECODE_STEPS)
+    assert ops.launch_counts() == {k: n if k == "mvu_int" else 0 for k in ops.launch_counts()}
+    assert G.mismatch(G.load_golden()["variants"][backend], got) is None
