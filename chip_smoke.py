@@ -318,10 +318,34 @@ Phases, each printing its own line(s); any failure exits non-zero:
            each group's prefill rows: equal to the plain versions, raw
            int32 accumulators and the scale epilogue, each shape timed as
            the kernel phase times a layer (its plan printed).
+   lm_qat  the QAT forward and backward of the dense LM (``Model.loss``,
+           ``linear``'s fake-quant arm, remat).  First the reduced Yi-9B in
+           float32, remat on, under dense, W8A8 and binary: loss and every
+           gradient (``torch.autograd.grad``) held to the JAX package's
+           ``jax.value_and_grad`` golden (``configs/yi_9b_qat_golden.json``:
+           loss within 1e-5 of |loss|; each leaf's largest magnitude, sum
+           and norm, and a layer at a time its first values and product with
+           a fixed seeded unit vector, within 1e-4 of its largest magnitude,
+           the sum, norm and product scaled by size, sqrt(size) and
+           sqrt(row size)); TF32 off; no kernel launched.  Then
+           full-width Yi-9B (48 layers, bfloat16, remat on) as float
+           params drawn on the card from a seeded generator, under
+           ``mvu_w8a8`` and then ``mvu_binary``: loss and every gradient on
+           2 x 129 numpy-seeded tokens, finite, each gradient of its
+           parameter's shape and dtype, no kernel launched; forward +
+           backward on the host clock (synchronised, 3 calls after the
+           checked one) and the peak memory.  Then the same weights
+           deployed (``quantize_model_params``) and the same 2 x 128 tokens
+           prefilled on ``mvu_int`` / ``mvu_binary``, launching it 7 x 48
+           times and nothing else; printed as findings: the last-token logit
+           correlation against the fake-quant prefill and the share of
+           layer 0's fake-quant grid equal to the deployed values.  Layer
+           0's deployed projections against the plain versions at M = 256,
+           each shape timed.
 5. the kernels JSON line (each kernel also with its tiles phase's times
    by tile; ``mvu_int``'s launches and times include the qat phase's three
-   counted ``acc(x)``; ``mvu_int``'s and ``mvu_binary``'s the pipeline
-   and lm phases' counted runs, each launch at its shape), the card's
+   counted ``acc(x)``; ``mvu_int``'s and ``mvu_binary``'s the pipeline,
+   lm and lm_qat phases' counted runs, each launch at its shape), the card's
    ``nvidia-smi`` line, and last the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -419,6 +443,13 @@ LM_BATCH = 4
 LM_MAX_NEW = 16
 LM_MAX_LEN = 256
 LM_BINARY_LAYERS = 4
+# the lm_qat phase: the QAT forward and backward of full-width Yi-9B (seeded
+# float weights, remat on) under each backend, then those weights deployed
+# and prefilled on the backend's kernel
+LM_QAT_KERNELS = {"mvu_w8a8": "mvu_int", "mvu_binary": "mvu_binary"}
+LM_QAT_BATCH = 2
+LM_QAT_SEQ = 128  # tokens predicted a row; the deployed prefill takes these
+LM_QAT_CALLS = 3
 TRACE_KERNELS = {
     "conv_mvu_kernel": "conv_mvu",
     "Coding<false,false,false>": "mvu_int",
@@ -2135,6 +2166,74 @@ def pipeline_phase(dev, smi: str) -> dict:
     return {"launches": launches, "rows": rows}
 
 
+def counted(fn, want: dict, what: str):
+    """``fn()`` with every launch counter set to 0 just before it: the
+    kernels of ``want`` that many times and nothing else."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    check(counts == {k: want.get(k, 0) for k in counts},
+          f"{what} launched {counts}, want {want or 'no kernel'} and nothing else")
+    return out
+
+
+def projection_rows(layer0: dict, kernel: str, ms, g, tag: str) -> dict:
+    """A deployed layer's seven projections through ``kernel``'s wrapper
+    (``mvu_int`` or ``mvu_binary``) at the blocks ``quantized_linear``
+    passes, at each M of ``ms``: equal to the plain version (raw int32
+    accumulators, then the scale epilogue), each launch shape timed as the
+    kernel phase times a layer (its plan printed).  Returns (kernel, m, n,
+    k) -> (ms, plain_ms, library_ms, bound_ms, bound_by)."""
+    import torch
+
+    from repro_torch.core.mvu import LINEAR_BLOCKS as blocks
+    from repro_torch.kernels import ops, packing
+    from repro_torch.models.layers import PROJ_NAMES
+
+    mode = {"mvu_int": "standard", "mvu_binary": "binary"}[kernel]
+    dev = layer0["ffn"]["w_up"]["values"].device
+    timed = {}
+    for name in PROJ_NAMES:
+        node = (layer0["attn"] | layer0["ffn"])[name]
+        w = node["values"]
+        if mode == "binary":
+            w = packing.bipolar_to_bits(w).to(torch.int8)
+        n, k = w.shape
+        s = node["scale"].to(torch.float32)
+        for m in sorted(ms):
+            a = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+            for epi in (None, s):
+                got = ops.mvu(a, w, mode, out_scale=epi, backend="cuda", **blocks)
+                want = ops.mvu(a, w, mode, out_scale=epi, backend="torch")
+                torch.cuda.synchronize()
+                check(got.dtype == want.dtype and torch.equal(got, want),
+                      f"{tag}: {kernel} differs from its plain version on layer 0's {name} at "
+                      f"M={m} N={n} K={k} (scale={epi is not None})")
+            af = a.float()
+            wf = w.float() if mode == "standard" else 2 * w.float() - 1
+
+            def library(af=af, wf=wf, s=s):
+                return torch.matmul(af, wf.T) * s
+
+            row = (device_ms(lambda: ops.mvu(a, w, mode, out_scale=s, backend="cuda",
+                                             **blocks), reps=20),
+                   device_ms(lambda: ops.mvu(a, w, mode, out_scale=s, backend="torch"),
+                             reps=1, trials=3),
+                   device_ms(library, reps=20), *bound(m, n, k, n * 4, a_bytes=1))
+            timed[(kernel, m, n, k)] = row
+            print(f"{tag}: {kernel} layer 0 {name} M={m} N={n} K={k}: equals the plain "
+                  f"version (raw and scaled); ms={row[0]:.5f} plain_ms={row[1]:.5f} "
+                  f"library_ms={row[2]:.5f} bound_ms={row[3]:.6f} ({row[4]}) "
+                  f"{dense_plan_text(kernel, m, n, k, **ops.tile_kwargs(kernel, **blocks))}",
+                  flush=True)
+    return timed
+
+
 def lm_phase(dev, smi: str) -> dict:
     """The lm phase (see the module doc): the reduced Yi-9B against the JAX
     package's golden run, full-width Yi-9B served by ``serve_loop`` on
@@ -2147,25 +2246,12 @@ def lm_phase(dev, smi: str) -> dict:
 
     from repro_torch.configs import get_config, lm_golden as G
     from repro_torch.convert import lm_numpy_params, lm_params_from_numpy
-    from repro_torch.core.mvu import LINEAR_BLOCKS as blocks
-    from repro_torch.kernels import ops, packing
     from repro_torch.launch.serve import Request, prompt_batch, serve_loop
     from repro_torch.models import layers as L, transformer as tf
     from repro_torch.models.model import build
 
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-
-    def counted(fn, want: dict, what: str):
-        """``fn()`` with every launch counter set to 0 just before it: the
-        kernels of ``want`` that many times and nothing else."""
-        ops.reset_launch_counts()
-        out = fn()
-        torch.cuda.synchronize()
-        counts = ops.launch_counts()
-        check(counts == {k: want.get(k, 0) for k in counts},
-              f"lm: {what} launched {counts}, want {want} and nothing else")
-        return out
 
     # (a) the reduced model, float32, against the JAX package's golden run
     golden = G.load_golden()
@@ -2177,7 +2263,8 @@ def lm_phase(dev, smi: str) -> dict:
         want = {} if backend == "dense" else {
             "mvu_int": len(L.PROJ_NAMES) * cfg.num_layers * (1 + G.DECODE_STEPS)}
         model = build(cfg, device=dev)
-        got = counted(lambda: G.greedy_run(model, params), want, f"the golden run ({backend})")
+        got = counted(lambda: G.greedy_run(model, params), want,
+                      f"lm: the golden run ({backend})")
         bad = G.mismatch(golden["variants"][backend], got)
         check(bad is None, f"lm: the reduced {backend} model on the card differs from the JAX "
               f"package's golden run: {bad}")
@@ -2223,7 +2310,7 @@ def lm_phase(dev, smi: str) -> dict:
     t0 = time.perf_counter()
     done = counted(lambda: serve_loop(model, params, requests(), batch=LM_BATCH,
                                       max_len=LM_MAX_LEN),
-                   {"mvu_int": per_group * len(groups)}, "serve_loop at full width")
+                   {"mvu_int": per_group * len(groups)}, "lm: serve_loop at full width")
     serve_s = time.perf_counter() - t0
     check([r.rid for r in done] == list(range(LM_REQUESTS))
           and all(len(r.out) == LM_MAX_NEW and all(0 <= t < cfg.vocab_size for t in r.out)
@@ -2272,7 +2359,7 @@ def lm_phase(dev, smi: str) -> dict:
     n_bin = len(L.PROJ_NAMES) * LM_BINARY_LAYERS
     blogits, _ = counted(lambda: bmodel.prefill(bparams, {"tokens": toks0},
                                                 bmodel.init_decode_state(LM_BATCH, LM_MAX_LEN)),
-                         {"mvu_binary": n_bin}, "the binary prefill")
+                         {"mvu_binary": n_bin}, "lm: the binary prefill")
     check(bool(torch.isfinite(blogits).all()) and tuple(blogits.shape) == (LM_BATCH,
                                                                            cfg.vocab_size),
           f"lm: the binary prefill's logits {tuple(blogits.shape)} are not finite")
@@ -2281,52 +2368,16 @@ def lm_phase(dev, smi: str) -> dict:
           f"{n_bin} times, nothing else", flush=True)
 
     # (c) layer 0's seven projections at full width against the plain
-    # versions (raw int32 accumulators, then the scale epilogue), at the
-    # decode rows and at group 0's prefill rows, and each launch shape timed
+    # versions at the decode rows and at group 0's prefill rows, each
+    # launch shape timed
     ga = torch.Generator(device=dev).manual_seed(LM_SEED + 1)
-    layer0 = {"mvu_int": tf.layer(params["layers"], 0),
-              "mvu_binary": tf.layer(bparams["layers"], 0)}
-    timed = {}  # (kernel, m, n, k) -> (kernel, plain, library, bound) ms, bound_by
     m_pre = [LM_BATCH * t.shape[1] for t in group_tokens]
-    for kernel, mode in (("mvu_int", "standard"), ("mvu_binary", "binary")):
-        for name in L.PROJ_NAMES:
-            blk = "attn" if name in layer0[kernel]["attn"] else "ffn"
-            node = layer0[kernel][blk][name]
-            w = node["values"]
-            if mode == "binary":
-                w = packing.bipolar_to_bits(w).to(torch.int8)
-            n, k = w.shape
-            s = node["scale"].to(torch.float32)
-            ms = {LM_BATCH, *m_pre} if kernel == "mvu_int" else {m_pre[0]}
-            for m in sorted(ms):
-                a = torch.randint(-127, 128, (m, k), generator=ga, device=dev,
-                                  dtype=torch.int8)
-                for epi in (None, s):
-                    got = ops.mvu(a, w, mode, out_scale=epi, backend="cuda", **blocks)
-                    want = ops.mvu(a, w, mode, out_scale=epi, backend="torch")
-                    torch.cuda.synchronize()
-                    check(got.dtype == want.dtype and torch.equal(got, want),
-                          f"lm: {kernel} differs from its plain version on layer 0's {name} "
-                          f"at M={m} N={n} K={k} (scale={epi is not None})")
-                af = a.float()
-                wf = w.float() if mode == "standard" else 2 * w.float() - 1
-
-                def library(af=af, wf=wf, s=s):
-                    return torch.matmul(af, wf.T) * s
-
-                row = (device_ms(lambda: ops.mvu(a, w, mode, out_scale=s, backend="cuda",
-                                                 **blocks), reps=20),
-                       device_ms(lambda: ops.mvu(a, w, mode, out_scale=s, backend="torch"),
-                                 reps=1, trials=3),
-                       device_ms(library, reps=20), *bound(m, n, k, n * 4, a_bytes=1))
-                timed[(kernel, m, n, k)] = row
-                print(f"lm: {kernel} layer 0 {name} M={m} N={n} K={k}: equals the plain "
-                      f"version (raw and scaled); ms={row[0]:.5f} plain_ms={row[1]:.5f} "
-                      f"library_ms={row[2]:.5f} bound_ms={row[3]:.6f} ({row[4]}) "
-                      f"{dense_plan_text(kernel, m, n, k, **ops.tile_kwargs(kernel, **blocks))}",
-                      flush=True)
-    shapes = {name: tuple((layer0["mvu_int"]["attn"] | layer0["mvu_int"]["ffn"])[name]
-                          ["values"].shape) for name in L.PROJ_NAMES}
+    timed = projection_rows(tf.layer(params["layers"], 0), "mvu_int", {LM_BATCH, *m_pre}, ga,
+                            "lm")
+    timed |= projection_rows(tf.layer(bparams["layers"], 0), "mvu_binary", {m_pre[0]}, ga, "lm")
+    layer0 = tf.layer(params["layers"], 0)
+    shapes = {name: tuple((layer0["attn"] | layer0["ffn"])[name]["values"].shape)
+              for name in L.PROJ_NAMES}
     # a timing row per counted launch: each group's prefill and decode steps,
     # then the binary prefill
     rows = {"mvu_int": [], "mvu_binary": []}
@@ -2342,6 +2393,161 @@ def lm_phase(dev, smi: str) -> dict:
           f"{ {k: round(sum(r[0] for r in v), 4) for k, v in rows.items()} }; phase "
           f"{time.perf_counter() - t_phase:.2f} s, peak "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated ({smi})", flush=True)
+    return {"launches": launches, "rows": rows}
+
+
+def lm_qat_phase(dev, smi: str) -> dict:
+    """The lm_qat phase (see the module doc): the reduced Yi-9B's QAT loss
+    and gradients against the JAX package's golden, full-width Yi-9B's
+    forward and backward under each ``mvu_*`` backend, and its weights
+    deployed and prefilled on ``mvu_int`` / ``mvu_binary``.  Returns, by
+    kernel, the counted prefills' launches and a timing row for each."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, lm_golden as G
+    from repro_torch.convert import lm_numpy_params, lm_params_from_numpy
+    from repro_torch.core.quantize import weight_grid
+    from repro_torch.models import layers as L, transformer as tf
+    from repro_torch.models.model import build
+
+    t_phase = time.perf_counter()
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "lm_qat: float32 matmuls must not run in TF32 (PyTorch's default is off)")
+
+    # (a) the reduced model, float32, against the JAX package's QAT golden
+    golden = G.load_qat_golden()
+    for backend in G.QAT_VARIANTS:
+        cfg = G.qat_config(backend)
+        params = lm_params_from_numpy(lm_numpy_params(cfg, G.SEED), dev)
+        model = build(cfg, device=dev)
+        got = counted(lambda: G.qat_run(model, params), {},
+                      f"lm_qat: the QAT golden's loss and backward ({backend})")
+        want = golden["variants"][backend]
+        bad = G.qat_mismatch(want, got)
+        check(bad is None, f"lm_qat: the reduced {backend} model's loss and gradients on the "
+              f"card differ from the JAX package's: {bad}")
+        wg = want["grads"]
+        worst = max(float(np.abs(np.subtract(g["head"], wg[p]["head"])).max())
+                    / wg[p]["max_abs"] for p, g in got["grads"].items())
+        worst_dot = max(float(np.abs(np.subtract(g["dot"], wg[p]["dot"])).max())
+                        / np.sqrt(wg[p]["size"] / len(wg[p]["dot"])) / wg[p]["max_abs"]
+                        for p, g in got["grads"].items())
+        print(f"lm_qat: golden: reduced {cfg.name} {backend} float32, remat on, on the card: "
+              f"loss {got['loss']:.7f} (JAX {want['loss']:.7f}, |error| "
+              f"{abs(got['loss'] - want['loss']):.3e}, bound {G.LOSS_RTOL} x |loss|); "
+              f"{len(got['grads'])} gradient leaves within the bounds, a layer at a time; "
+              f"worst head error {worst:.3e} and worst probe-product error {worst_dot:.3e} "
+              f"(over sqrt(row size)) of the leaf's largest (bound {G.GRAD_ATOL}); no kernel "
+              f"launched", flush=True)
+
+    # (b) full-width Yi-9B, float bf16, remat on: loss and every gradient
+    cfg = get_config(LM_ARCH)
+    g = torch.Generator(device=dev).manual_seed(LM_SEED)
+    t0 = time.perf_counter()
+    params = build(cfg, device=dev).init(g)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = tf.flat_leaves(params)
+    for t in leaves.values():
+        t.requires_grad_(True)
+    n_params = sum(t.numel() for t in leaves.values())
+    tokens = np.random.default_rng(LM_SEED).integers(
+        0, cfg.vocab_size, (LM_QAT_BATCH, LM_QAT_SEQ + 1)).astype(np.int32)
+    batch = {"tokens": torch.from_numpy(tokens).to(dev)}
+    print(f"lm_qat: full width: {cfg.name} ({cfg.num_layers} layers x {cfg.d_model}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}, remat {cfg.remat}) float params "
+          f"drawn on the card from seed {LM_SEED} in {init_s:.2f} s: {n_params:,} parameters, "
+          f"{sum(t.numel() * t.element_size() for t in leaves.values()) / 1e9:.3f} GB; batch "
+          f"{LM_QAT_BATCH} x {LM_QAT_SEQ + 1} tokens", flush=True)
+    rows = {"mvu_int": [], "mvu_binary": []}
+    launches = {"mvu_int": 0, "mvu_binary": 0}
+    ga = torch.Generator(device=dev).manual_seed(LM_SEED + 2)
+    for backend, kernel in LM_QAT_KERNELS.items():
+        model = build(cfg.replace(linear_backend=backend), device=dev)
+
+        def step(after_forward=None):
+            loss, _ = model.loss(params, batch)
+            if after_forward is not None:  # (allocated, peak) once the forward is done
+                after_forward += [torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated()]
+            return loss, torch.autograd.grad(loss, list(leaves.values()))
+
+        torch.cuda.reset_peak_memory_stats()
+        fwd_mem = []
+        loss, grads = counted(lambda: step(fwd_mem), {},
+                              f"lm_qat: the full-width {backend} forward and backward")
+        finite = torch.stack([torch.isfinite(gr).all() for gr in grads]).all()
+        check(bool(torch.isfinite(loss)) and bool(finite)
+              and all(gr.shape == t.shape and gr.dtype == t.dtype
+                      for gr, t in zip(grads, leaves.values())),
+              f"lm_qat: full-width {backend}: the loss or a gradient is not finite, or a "
+              f"gradient has not its parameter's shape and dtype")
+        loss0 = loss.item()
+        del loss, grads
+        times = []
+        for _ in range(LM_QAT_CALLS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, grads = step()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            del loss, grads
+        peak = torch.cuda.max_memory_allocated()
+        print(f"lm_qat: full width {backend} (fake-quant STE on every projection, remat on), "
+              f"{LM_QAT_BATCH} x {LM_QAT_SEQ} predicted tokens: loss {loss0:.6f}, finite; "
+              f"{len(leaves)} gradient leaves finite, each of its parameter's shape and dtype; "
+              f"no kernel launched; forward + backward "
+              f"{', '.join(f'{t:.3f}' for t in times)} ms, median {statistics.median(times):.3f} "
+              f"ms (host clock, synchronised, {LM_QAT_CALLS} calls after the checked one); "
+              f"{LM_QAT_BATCH * LM_QAT_SEQ / statistics.median(times) * 1e3:.1f} tokens/s; "
+              f"after the forward {fwd_mem[0] / 1e9:.2f} GB allocated (peak so far "
+              f"{fwd_mem[1] / 1e9:.2f}), peak {peak / 1e9:.2f} GB allocated ({smi})",
+              flush=True)
+
+        # (c) the same weights deployed, the same 128 tokens prefilled on the kernel
+        bits = L.MVU_BACKENDS[backend][0]
+        prompt = {"tokens": batch["tokens"][:, :LM_QAT_SEQ]}
+        with torch.no_grad():
+            fake, _ = model.prefill(params, prompt,
+                                    model.init_decode_state(LM_QAT_BATCH, LM_QAT_SEQ))
+            t0 = time.perf_counter()
+            deployed = L.quantize_model_params(params, backend)
+            torch.cuda.synchronize()
+            deploy_s = time.perf_counter() - t0
+            n_pre = len(L.PROJ_NAMES) * cfg.num_layers
+            logits, _ = counted(
+                lambda: model.prefill(deployed, prompt,
+                                      model.init_decode_state(LM_QAT_BATCH, LM_QAT_SEQ)),
+                {kernel: n_pre}, f"lm_qat: the deployed {backend} prefill")
+            check(bool(torch.isfinite(logits).all())
+                  and tuple(logits.shape) == (LM_QAT_BATCH, cfg.vocab_size),
+                  f"lm_qat: the deployed {backend} prefill's logits are not finite")
+            corr = float(np.corrcoef(fake.float().cpu().numpy().ravel(),
+                                     logits.float().cpu().numpy().ravel())[0, 1])
+            float0, int0 = tf.layer(params["layers"], 0), tf.layer(deployed["layers"], 0)
+            same = total = 0
+            for name in L.PROJ_NAMES:
+                blk = "attn" if name in float0["attn"] else "ffn"
+                grid, _ = weight_grid(float0[blk][name]["w"], bits, axis=1)
+                same += int((grid.T.to(torch.int8) == int0[blk][name]["values"]).sum())
+                total += grid.numel()
+        print(f"lm_qat: deployed {backend}: quantize_model_params of the same weights in "
+              f"{deploy_s:.2f} s, prefill of {LM_QAT_BATCH} x {LM_QAT_SEQ} on {kernel}: finite "
+              f"logits; {kernel} launched {n_pre} times = {len(L.PROJ_NAMES)} projections x "
+              f"{cfg.num_layers} layers, nothing else; finding: last-token logit correlation "
+              f"against the fake-quant prefill {corr:.6f}; layer 0's fake-quant grid (bf16) "
+              f"equals the deployed values (quantized from float32) at {same / total:.6f} of "
+              f"its {total:,} weights", flush=True)
+        m = LM_QAT_BATCH * LM_QAT_SEQ
+        timed = projection_rows(int0, kernel, {m}, ga, "lm_qat")
+        rows[kernel] += [timed[(kernel, m, *(int0["attn"] | int0["ffn"])[name]["values"].shape)]
+                         for name in L.PROJ_NAMES] * cfg.num_layers
+        launches[kernel] += n_pre
+        del deployed, int0, fake, logits
+    check(all(len(rows[k]) == launches[k] for k in launches), "lm_qat: a row for every launch")
+    print(f"lm_qat: launches of the counted prefills {launches}; kernel ms over them "
+          f"{ {k: round(sum(r[0] for r in v), 4) for k, v in rows.items()} }; phase "
+          f"{time.perf_counter() - t_phase:.2f} s ({smi})", flush=True)
     return {"launches": launches, "rows": rows}
 
 
@@ -3143,6 +3349,7 @@ def main() -> int:
     explore_phase(dev, smi)
     piped = pipeline_phase(dev, smi)
     lm = lm_phase(dev, smi)
+    lm_qat = lm_qat_phase(dev, smi)
 
     # -------------------------------------------------------- 5. results
     mb = plan.microbatch
@@ -3171,8 +3378,9 @@ def main() -> int:
                 if dense == name:
                     rows += [timing[(entry, CNV_DENSE_M, n, k)] for n, k in cnv_dense] * n_micro
                     n_launches += counts[name]
-            # the pipeline and lm phases' counted runs, each launch at its shape
-            for phase in (piped, lm):
+            # the pipeline, lm and lm_qat phases' counted runs, each launch at its
+            # shape
+            for phase in (piped, lm, lm_qat):
                 rows += phase["rows"].get(name, [])
                 n_launches += phase["launches"].get(name, 0)
             if name == "mvu_xnor":  # the packed entry on the same launches, beside it

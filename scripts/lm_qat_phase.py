@@ -1,0 +1,28 @@
+"""Run ``chip_smoke.py``'s lm_qat phase alone, on one card.
+
+Usage, from the root of a checkout (this repo or an unpacked
+``git archive`` of another commit, so that two trees can be timed in one
+call):
+    python3 <path to>/scripts/lm_qat_phase.py
+
+It imports the ``chip_smoke.py`` of the working directory, so the phase
+and the package it drives are that checkout's; the kernels are built at
+first use.  Prints the phase's lines, then its rows and launches by
+kernel and the peak memory allocated.
+"""
+
+import os
+import subprocess
+import sys
+
+sys.path.insert(0, os.getcwd())
+
+import chip_smoke as C  # noqa: E402
+import torch  # noqa: E402
+
+smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                     capture_output=True, text=True, check=True).stdout.strip()
+print(smi, torch.__version__, torch.version.cuda, flush=True)
+out = C.lm_qat_phase(torch.device("cuda"), smi)
+print({k: len(v) for k, v in out["rows"].items()}, out["launches"])
+print("peak", torch.cuda.max_memory_allocated() / 1e9)

@@ -14,6 +14,7 @@ Ported so far:
   the counterpart of the JAX package's ``benchmarks/nid_mlp.py``.
 
 Not ported yet (ROADMAP queue A item 7): ``train.py`` waits for the LM
-training step (step 3); ``shard_serve_fns`` (``serve.py``), ``mesh.py``
-and ``dryrun.py`` for step 5.
+training loop (step 3c; the loss and its gradients are
+``repro_torch.models.model``'s, step 3a); ``shard_serve_fns``
+(``serve.py``), ``mesh.py`` and ``dryrun.py`` for step 5.
 """

@@ -4,13 +4,14 @@ embeddings, activations; the port of the JAX package's
 
 Everything is functional: params are plain dicts of tensors, layers are
 pure functions.  ``linear`` is the integration point for the paper's
-technique: with integer-deployed params (``quantize_model_params``) the
-projection runs the integer MVU datapath on the hand kernels.
+technique: with ``backend="mvu_*"`` the projection runs through the
+quantized MVU datapath -- fake-quant STE during training, the integer
+MVU datapath on the hand kernels with integer-deployed params
+(``quantize_model_params``) at serving.
 
-Not ported here (ROADMAP queue A item 7): the fake-quant arm of
-``linear`` (it raises) and ``seq_shard`` (a no-op without a mesh) wait
-for the training step and its sharding (step 3), ``apply_mrope`` for the
-VLM family (step 4).
+Not ported here (ROADMAP queue A item 7): ``seq_shard`` (a no-op without
+a mesh) waits for the training loop's sharding (step 3c), ``apply_mrope``
+for the VLM family (step 4).
 """
 
 from __future__ import annotations
@@ -22,7 +23,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.mvu import quantized_linear
-from repro_torch.core.quantize import QTensor, quantize_weights
+from repro_torch.core.quantize import (
+    QTensor,
+    column_scale,
+    fake_quant_weights,
+    quantize_weights,
+)
 
 Params = dict[str, Any]
 
@@ -49,26 +55,49 @@ MVU_BACKENDS = {
 
 
 def linear(p: Params, x: torch.Tensor, *, backend: str = "dense") -> torch.Tensor:
-    """y = x @ w  (+ the integer MVU datapath).
+    """y = x @ w  (+ quantized datapaths).
 
     dense:  w stored (d_in, d_out), plain matmul.
+    mvu_* fake-quant (training): float params; the weights STE-quantized
+    per output column (``fake_quant_weights(w, w_bits, axis=1)``, in ``w``'s
+    dtype: in float32 the grid ``quantize_linear_params`` deploys), then a
+    float ``x @ w`` (outside any kernel, as in the reference; activations
+    stay float).  A 1-bit weight's scale is taken from p["bipolar_scale"]
+    where :func:`with_column_scales` put it, else computed here.
     mvu_* integer (serving): p holds {"values" (out, in) int8, "scale"}
     and the MVU kernel runs the dot (``quantized_linear`` with
     ``backend="cuda"``: the hand kernel on the card, its plain version on a
     CPU tensor).  As in the reference, integer params under a backend that
     is not ``mvu_*`` run at 8 bits.
-    mvu_* on float params (the reference's fake-quant training arm) raises.
     """
     if "values" in p:  # integer-deployed MVU weights
         w_bits, a_bits = MVU_BACKENDS[backend] if backend in MVU_BACKENDS else (8, 8)
         qt = QTensor(p["values"], p["scale"], w_bits, True)
         return quantized_linear(x, qt, act_bits=a_bits, backend="cuda")
+    w = p["w"]
     if backend in MVU_BACKENDS:
-        raise NotImplementedError(
-            f"linear: backend {backend!r} on float weights is the fake-quant training "
-            "arm, which waits for the LM training step (ROADMAP queue A item 7, step 3); "
-            "serve integer weights from quantize_model_params")
-    return x @ p["w"]
+        w = fake_quant_weights(w, MVU_BACKENDS[backend][0], axis=1,
+                               scale=p.get("bipolar_scale"))
+    return x @ w
+
+
+def with_column_scales(params: Params, backend: str) -> Params:
+    """Under a 1-bit ``backend``, ``params`` with each float projection's
+    1-bit scale (:func:`column_scale`, one batch for a whole layer stack)
+    beside its ``w`` as ``"bipolar_scale"``, which :func:`linear` takes:
+    the scale does not depend on the block's input, so the forward and a
+    remat'd block's recompute reuse it.  Other backends: ``params``."""
+    if MVU_BACKENDS.get(backend, (None,))[0] != 1:
+        return params
+
+    def walk(node, name):
+        if isinstance(node, dict):
+            if name in PROJ_NAMES and set(node) == {"w"} and node["w"].is_floating_point():
+                return {**node, "bipolar_scale": column_scale(node["w"])}
+            return {k: walk(v, k) for k, v in node.items()}
+        return node
+
+    return walk(params, "")
 
 
 def quantize_linear_params(p: Params, backend: str) -> Params:

@@ -1,13 +1,16 @@
-"""Model facade: build(config) -> init / prefill / decode_step; the port of
-the JAX package's ``repro/models/model.py`` for the dense decoder.
+"""Model facade: build(config) -> init / loss / prefill / decode_step; the
+port of the JAX package's ``repro/models/model.py`` for the dense decoder.
 
+    batch (train): {"tokens": (B, S+1) int}
     batch (serving prefill): {"tokens": (B, S) int}
     decode state: {"caches": ..., "pos": (B, 1) int32}
 
 ``build(cfg, device=None)`` places the model on ``device``: None means the
 card, and raises when CUDA is absent (pass ``device="cpu"`` to run the
-kernels' plain versions).  ``loss`` is the training step's and raises
-(ROADMAP queue A item 7, step 3).
+kernels' plain versions).  ``loss`` is the QAT forward: under an ``mvu_*``
+backend on float params every projection runs ``linear``'s fake-quant arm,
+and ``torch.autograd`` gives the STE gradients; the optimizer, the data
+pipeline and the train loop wait for ROADMAP queue A item 7, steps 3b-3c.
 """
 
 from __future__ import annotations
@@ -46,6 +49,12 @@ class Model:
 def _positions(batch: int, seq: int, device) -> torch.Tensor:
     """(B, S) token positions 0..S-1 (M-RoPE's 3-D ids are not ported)."""
     return torch.arange(seq, dtype=torch.int32, device=device)[None].expand(batch, seq)
+
+
+def _ce_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross-entropy, the logits cast to float32 first."""
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    return -torch.gather(logp, -1, targets[..., None].long())[..., 0].mean()
 
 
 def _device(device) -> torch.device:
@@ -88,9 +97,20 @@ def build(cfg: ModelConfig, device=None) -> Model:
             return unembed(params["embed"], x)
         return linear(params["unembed"], x)
 
+    # ----------------------------------------------------------------- loss
     def loss(params, batch):
-        raise NotImplementedError("Model.loss is the LM training step's (ROADMAP queue A "
-                                  "item 7, step 3); the port serves only")
+        """(total, {"ce", "aux"}) of next-token prediction on ``batch["tokens"]``
+        (B, S+1): ``total = ce + cfg.aux_loss_weight * aux``.  Only the dense
+        family builds (``build`` raises for the encoder-decoder and VLM
+        configs, naming ROADMAP item 7, step 4), so the reference's
+        encoder-decoder and VLM-prefix branches have no counterpart here."""
+        tokens = torch.as_tensor(batch["tokens"], device=device)
+        inputs, targets = tokens[:, :-1], tokens[:, 1:]
+        b, s = inputs.shape
+        x = embed(params["embed"], inputs)
+        x, aux = tf.stack_forward(params["layers"], cfg, x, _positions(b, s, device))
+        ce = _ce_loss(_logits(params, _norm_f(params, x)), targets)
+        return ce + cfg.aux_loss_weight * aux, {"ce": ce, "aux": aux}
 
     # ------------------------------------------------------------- serving
     def init_decode_state(batch: int, max_len: int):

@@ -1,11 +1,14 @@
-"""Transformer assembly, dense family: the uniform decoder stack, its
-serving prefill and its KV-cache decode; the port of the JAX package's
-``repro/models/transformer.py``.
+"""Transformer assembly, dense family: the uniform decoder stack (its
+training forward, with ``remat``), its serving prefill and its KV-cache
+decode; the port of the JAX package's ``repro/models/transformer.py``.
 
 Per-layer params are stacked on a leading layer axis, as the reference's
-scanned stacks are; the port walks that axis in a Python loop (no
-``remat``: serving only).  The KV caches are stacked the same way, once,
-and each layer writes its slice in place.  The other families -- MoE, SSM, the hybrid interleave (Jamba), the
+scanned stacks are; the port walks that axis in a Python loop.  With
+``cfg.remat`` the training forward runs each block under
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` with
+``nothing_saveable``): the same values, only a block's input kept for the
+backward.  The KV caches are stacked the same way, once, and each layer
+writes its slice in place.  The other families -- MoE, SSM, the hybrid interleave (Jamba), the
 VLM backbone (M-RoPE) and encoder-decoder (Whisper) -- raise
 ``NotImplementedError`` (ROADMAP queue A item 7, step 4).
 """
@@ -13,6 +16,7 @@ VLM backbone (M-RoPE) and encoder-decoder (Whisper) -- raise
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.models.attention import (
     attention,
@@ -32,6 +36,7 @@ from repro_torch.models.layers import (
     quantize_model_params,
     rmsnorm,
     rmsnorm_init,
+    with_column_scales,
 )
 
 
@@ -56,6 +61,26 @@ def _norm(cfg, p, x):
 def layer(params: Params, i: int) -> Params:
     """Layer ``i`` of a stacked tree (views, no copies)."""
     return {k: layer(v, i) if isinstance(v, dict) else v[i] for k, v in params.items()}
+
+
+def unbind_layers(params: Params) -> list[Params]:
+    """Every layer's tree of a stacked tree, as ``torch.unbind`` views: the
+    backward stacks a leaf's layer gradients once, where a
+    ``layer(params, i)`` view would add each into a zero tensor of the
+    whole stack."""
+    leaves = {k: unbind_layers(v) if isinstance(v, dict) else v.unbind(0)
+              for k, v in params.items()}
+    return [{k: v[i] for k, v in leaves.items()} for i in range(len(next(iter(leaves.values()))))]
+
+
+def flat_leaves(tree: Params, prefix: str = "") -> dict:
+    """A nested tree's leaves by path ("layers/attn/wq/w"), e.g. to set
+    ``requires_grad`` on every parameter before ``Model.loss``."""
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}{k}"
+        out.update(flat_leaves(v, path + "/") if isinstance(v, dict) else {path: v})
+    return out
 
 
 def stack_layers(trees: list[Params]) -> Params:
@@ -116,9 +141,19 @@ def stack_init(generator, cfg, dtype, device, *, quantize: str | None = None) ->
 
 
 def stack_forward(params, cfg, x, positions, *, causal=True):
+    """The uncached forward through every layer (the training forward);
+    returns (x, the summed aux loss).  With ``cfg.remat`` each block is
+    recomputed from its input in the backward (non-reentrant
+    ``torch.utils.checkpoint``).  Under a 1-bit backend every layer's
+    projection scales are computed once, before the blocks
+    (:func:`with_column_scales`)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.num_layers):
-        x, a = block_forward(layer(params, i), cfg, x, positions, causal=causal)
+    for p in unbind_layers(with_column_scales(params, cfg.linear_backend)):
+        if cfg.remat:
+            x, a = torch.utils.checkpoint.checkpoint(block_forward, p, cfg, x, positions,
+                                                     causal=causal, use_reentrant=False)
+        else:
+            x, a = block_forward(p, cfg, x, positions, causal=causal)
         aux = aux + a
     return x, aux
 

@@ -924,3 +924,53 @@ def test_lm_golden_run_on_the_card(cuda, backend):
     n = 0 if backend == "dense" else len(PROJ_NAMES) * cfg.num_layers * (1 + G.DECODE_STEPS)
     assert ops.launch_counts() == {k: n if k == "mvu_int" else 0 for k in ops.launch_counts()}
     assert G.mismatch(G.load_golden()["variants"][backend], got) is None
+
+
+@pytest.mark.parametrize("backend", ["dense", "mvu_w8a8", "mvu_binary"])
+def test_lm_qat_golden_on_the_card(cuda, backend):
+    """The reduced Yi-9B's QAT loss and gradients in float32 (remat on) on
+    the card against the JAX package's golden (``configs/yi_9b_qat_golden.json``);
+    the fake-quant arm launches no kernel."""
+    from repro_torch.configs import lm_golden as G
+    from repro_torch.convert import lm_numpy_params, lm_params_from_numpy
+    from repro_torch.models.model import build as build_lm
+
+    cfg = G.qat_config(backend)
+    params = lm_params_from_numpy(lm_numpy_params(cfg, G.SEED), cuda)
+    ops.reset_launch_counts()
+    got = G.qat_run(build_lm(cfg, device=cuda), params)
+    assert not any(ops.launch_counts().values())
+    assert G.qat_mismatch(G.load_qat_golden()["variants"][backend], got) is None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [1, 4, 8])
+def test_fake_quant_weights_on_the_card_equal_the_cpu(cuda, bits, dtype):
+    """``fake_quant_weights(w, bits, axis=1)`` at Yi-9B's d_in (4096, 11008):
+    values and STE gradient on the card equal the CPU's bit for bit (the
+    1-bit column mean in XLA:CPU's order, constants as device tensors)."""
+    from repro_torch.core.quantize import fake_quant_weights
+
+    for d_in in (4096, 11008):
+        g = torch.Generator().manual_seed(d_in + bits)
+        w = (torch.randn(d_in, 256, generator=g) / d_in**0.5).to(dtype)
+        c = torch.randn(d_in, 256, generator=g).to(dtype)
+        out = []
+        for dev in ("cpu", cuda):
+            wd = w.to(dev).requires_grad_(True)
+            y = fake_quant_weights(wd, bits, axis=1)
+            (gw,) = torch.autograd.grad((y * c.to(dev)).sum(), wd)
+            out.append((y.detach().cpu(), gw.cpu()))
+        assert torch.equal(out[0][0], out[1][0]) and torch.equal(out[0][1], out[1][1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_column_scale_of_a_stack_on_the_card_equals_the_cpu(cuda, dtype):
+    """``column_scale`` of a (3, d_in, 256) stack at Yi-9B's d_in, one batch
+    on the card, equals the CPU's bit for bit."""
+    from repro_torch.core.quantize import column_scale
+
+    for d_in in (4096, 11008):
+        g = torch.Generator().manual_seed(d_in)
+        w = (torch.randn(3, d_in, 256, generator=g) / d_in**0.5).to(dtype)
+        assert torch.equal(column_scale(w.to(cuda)).cpu(), column_scale(w))

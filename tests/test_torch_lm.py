@@ -222,8 +222,11 @@ def test_linear_dense_and_the_training_arm():
     jq, tq = JL.quantize_linear_params({"w": jw}, "mvu_w8a8"), TL.quantize_linear_params(
         {"w": tw}, "mvu_w8a8")
     np.testing.assert_array_equal(TL.linear(tq, tx).numpy(), np.asarray(JL.linear(jq, jx)))
-    with pytest.raises(NotImplementedError, match="item 7, step 3"):
-        TL.linear({"w": tw}, tx, backend="mvu_w8a8")
+    # float params under an mvu_* backend: the fake-quant training arm, as in JAX
+    for backend in MVU:
+        np.testing.assert_allclose(TL.linear({"w": tw}, tx, backend=backend).numpy(),
+                                   np.asarray(JL.linear({"w": jw}, jx, backend=backend)),
+                                   rtol=ATOL, atol=ATOL)
 
 
 # ------------------------------------------------------------ layers
@@ -523,8 +526,14 @@ def test_non_dense_families_raise(arch):
 def test_loss_and_the_device_default():
     m = build(get_reduced("yi-9b"), device="cpu")
     assert m.device == torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="item 7, step 3"):
-        m.loss({}, {})
+    # the training loss of the float32 reduced model, as JAX's
+    jcfg, tcfg = _cfg()
+    jp, tp = _trees(tcfg)
+    toks = np.random.default_rng(3).integers(0, tcfg.vocab_size, (2, 9)).astype(np.int32)
+    (jl, jaux), (tl, taux) = (jax_build(jcfg).loss(jp, {"tokens": jnp.asarray(toks)}),
+                              build(tcfg, device="cpu").loss(tp, {"tokens": toks}))
+    assert abs(float(tl) - float(jl)) <= 1e-5 * abs(float(jl))
+    assert float(taux["ce"]) == float(tl) and float(taux["aux"]) == float(jaux["aux"]) == 0.0
     if torch.cuda.is_available():
         assert build(get_reduced("yi-9b")).device == torch.device("cuda")
     else:
