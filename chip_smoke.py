@@ -342,10 +342,38 @@ Phases, each printing its own line(s); any failure exits non-zero:
            layer 0's fake-quant grid equal to the deployed values.  Layer
            0's deployed projections against the plain versions at M = 256,
            each shape timed.
+   train   AdamW training of the dense LM (``make_train_step``:
+           ``Model.loss``, ``torch.autograd.grad``, ``adamw.update``) and its
+           checkpoint.  First the reduced Yi-9B in float32 under dense and
+           W8A8: 4 steps (AdamW lr 1e-3, warmup 2, 8 steps in all, on
+           batches of ``SyntheticLM(256, 32, 4)``) held to the JAX package's
+           jitted ``make_train_step`` golden
+           (``configs/yi_9b_train_golden.json``: each step's loss within
+           1e-4 x |loss| + 1e-5, grad_norm within rtol 1e-4, lr within 1e-6;
+           the final params and moments, a layer at a time, within 1e-4 of
+           each leaf's largest magnitude); no kernel launched.  Then
+           full-width Yi-9B cut to 4 layers (2 where the temporary disk or
+           the host memory cannot hold one checkpoint; the cut and its
+           reasons printed), bf16, remat on, W8A8 QAT, seeded weights: 8
+           steps on 8 batches of ``SyntheticLM(64000, 128, 2)``, each timed
+           by a ``StepWatchdog`` and ending in the loss's host sync, finite;
+           a ``CheckpointManager(every=4, keep=1, async)`` in a temporary
+           directory saves step 4; the run dies after step 8, before its
+           save; ``resume_latest`` onto the card must equal step 4's state
+           bit for bit, and steps 5-8 again the first run's losses within
+           rtol 1e-4, atol 1e-5; the directory is removed.  Step ms,
+           tokens/s, the watchdog's median and stragglers, peak memory, the
+           checkpoint's bytes and its save and restore seconds printed, and
+           a step split into the loss with its gradients and the update.
+           Then the trained weights deployed (``quantize_model_params``) and
+           2 x 128 tokens prefilled on ``mvu_int``, launching it 7 x 4 times
+           and nothing else, finite; the logit correlation against the
+           fake-quant prefill printed; layer 0's projections against the
+           plain versions at M = 256, each shape timed.
 5. the kernels JSON line (each kernel also with its tiles phase's times
    by tile; ``mvu_int``'s launches and times include the qat phase's three
    counted ``acc(x)``; ``mvu_int``'s and ``mvu_binary``'s the pipeline,
-   lm and lm_qat phases' counted runs, each launch at its shape), the card's
+   lm, lm_qat and train phases' counted runs, each launch at its shape), the card's
    ``nvidia-smi`` line, and last the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -450,6 +478,16 @@ LM_QAT_KERNELS = {"mvu_w8a8": "mvu_int", "mvu_binary": "mvu_binary"}
 LM_QAT_BATCH = 2
 LM_QAT_SEQ = 128  # tokens predicted a row; the deployed prefill takes these
 LM_QAT_CALLS = 3
+# the train phase: AdamW steps of full-width Yi-9B (seeded float weights,
+# W8A8 QAT, remat on) at a cut depth, checkpointed at step 4, crashed after
+# step 8 and resumed, then the trained weights deployed on mvu_int
+TRAIN_BACKEND = "mvu_w8a8"
+TRAIN_LAYERS = (4, 2)  # the depth, and the cut if one checkpoint does not fit
+TRAIN_STEPS = 8
+TRAIN_CKPT_EVERY = 4
+TRAIN_BATCH = 2
+TRAIN_SEQ = 128  # tokens predicted a row; the deployed prefill takes these
+TRAIN_CKPT_BYTES_PER_PARAM = 10  # bf16 param + float32 mu and nu
 TRACE_KERNELS = {
     "conv_mvu_kernel": "conv_mvu",
     "Coding<false,false,false>": "mvu_int",
@@ -2410,6 +2448,7 @@ def lm_qat_phase(dev, smi: str) -> dict:
     from repro_torch.core.quantize import weight_grid
     from repro_torch.models import layers as L, transformer as tf
     from repro_torch.models.model import build
+    from repro_torch.tree import flat_leaves
 
     t_phase = time.perf_counter()
     check(not torch.backends.cuda.matmul.allow_tf32,
@@ -2448,7 +2487,7 @@ def lm_qat_phase(dev, smi: str) -> dict:
     params = build(cfg, device=dev).init(g)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    leaves = tf.flat_leaves(params)
+    leaves = flat_leaves(params)
     for t in leaves.values():
         t.requires_grad_(True)
     n_params = sum(t.numel() for t in leaves.values())
@@ -2549,6 +2588,275 @@ def lm_qat_phase(dev, smi: str) -> dict:
           f"{ {k: round(sum(r[0] for r in v), 4) for k, v in rows.items()} }; phase "
           f"{time.perf_counter() - t_phase:.2f} s ({smi})", flush=True)
     return {"launches": launches, "rows": rows}
+
+
+def dense_param_count(cfg) -> int:
+    """Parameters of a dense decoder of ``cfg`` (untied, RMSNorm, gated
+    FFN: the Yi-9B layout), from its widths alone."""
+    d, hd = cfg.d_model, cfg.head_dim
+    layer = (2 * d + d * cfg.num_heads * hd * 2 + d * cfg.num_kv_heads * hd * 2
+             + 3 * d * cfg.d_ff)
+    return 2 * cfg.vocab_size * d + d + cfg.num_layers * layer
+
+
+def host_bytes_available() -> int:
+    """MemAvailable of the host (``/proc/meminfo``), in bytes."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def bits_equal(a, b) -> bool:
+    """Two tensors equal bit for bit (NaN, -0 included)."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    view = {2: torch.int16, 4: torch.int32, 8: torch.int64}.get(a.element_size())
+    if a.is_floating_point() and view is not None:
+        a, b = a.view(view), b.view(view)
+    return torch.equal(a, b)
+
+
+def train_phase(dev, smi: str) -> dict:
+    """The train phase (see the module doc): the reduced Yi-9B's AdamW
+    steps against the JAX package's golden, full-width Yi-9B at a cut depth
+    trained by ``make_train_step`` with a ``StepWatchdog`` and a
+    ``CheckpointManager``, crashed and resumed from its checkpoint, then
+    its trained weights deployed and prefilled on ``mvu_int``.  Returns,
+    by kernel, the counted prefill's launches and a timing row for each."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, lm_golden as G
+    from repro_torch.convert import lm_numpy_params, lm_params_from_numpy
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.distributed.fault_tolerance import CheckpointManager, StepWatchdog
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models import layers as L, transformer as tf
+    from repro_torch.models.model import build
+    from repro_torch.optim import adamw
+    from repro_torch.tree import flat_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "train: float32 matmuls must not run in TF32 (PyTorch's default is off)")
+
+    # (a) the reduced model, float32, against the JAX package's train golden
+    golden = G.load_train_golden()
+    for backend in G.TRAIN_VARIANTS:
+        cfg = G.golden_config(backend)
+        params = lm_params_from_numpy(lm_numpy_params(cfg, G.SEED), dev)
+        model = build(cfg, device=dev)
+        got = counted(lambda: G.train_run(model, params), {},
+                      f"train: the train golden's steps ({backend})")
+        want = golden["variants"][backend]
+        bad = G.train_mismatch(want, got)
+        check(bad is None, f"train: the reduced {backend} model's AdamW steps on the card "
+              f"differ from the JAX package's: {bad}")
+        rel = {k: max(abs(g - w) / abs(w) for g, w in zip(got[k], want[k]))
+               for k in G.TRAIN_METRICS}
+        worst = {t: max(float(np.abs(np.subtract(g["head"], want[t][p]["head"])).max())
+                        / want[t][p]["max_abs"] for p, g in got[t].items())
+                 for t in ("params", "mu", "nu")}
+        print(f"train: golden: reduced {cfg.name} {backend} float32, {G.TRAIN_STEPS} steps of "
+              f"make_train_step (AdamW {G.TRAIN_OPT}) on SyntheticLM{G.TRAIN_DATA} batches, on "
+              f"the card: losses {[round(x, 7) for x in got['loss']]} (JAX "
+              f"{[round(x, 7) for x in want['loss']]}); largest relative error "
+              f"{ {k: float(f'{v:.3e}') for k, v in rel.items()} } (bounds loss "
+              f"{G.TRAIN_LOSS_RTOL} + {G.TRAIN_LOSS_ATOL}, grad_norm {G.TRAIN_GNORM_RTOL}, lr "
+              f"{G.TRAIN_LR_RTOL}); worst head error over the leaf's largest "
+              f"{ {k: float(f'{v:.3e}') for k, v in worst.items()} } (bound {G.TRAIN_ATOL}); "
+              f"no kernel launched", flush=True)
+
+    # (b) full-width Yi-9B at a cut depth, W8A8 QAT, trained, checkpointed,
+    # crashed after step 8 (before its save) and resumed from step 4
+    full = get_config(LM_ARCH)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        free_disk, free_host = shutil.disk_usage(tmp).free, host_bytes_available()
+        for layers in TRAIN_LAYERS:
+            cfg = full.replace(num_layers=layers, linear_backend=TRAIN_BACKEND)
+            ckpt_need = TRAIN_CKPT_BYTES_PER_PARAM * dense_param_count(cfg)
+            if free_disk >= 1.25 * ckpt_need and free_host >= 1.5 * ckpt_need:
+                break
+        check(free_disk >= 1.25 * ckpt_need and free_host >= 1.5 * ckpt_need,
+              f"train: {tmp} has {free_disk / 1e9:.1f} GB free and the host "
+              f"{free_host / 1e9:.1f} GB available, too little for one checkpoint of "
+              f"{ckpt_need / 1e9:.1f} GB even at {cfg.num_layers} layers")
+        print(f"train: reduced: depth {full.num_layers} -> {cfg.num_layers} layers, widths as "
+              f"published; at {full.num_layers} layers ({dense_param_count(full) / 1e9:.2f} B "
+              f"parameters) bf16 params and gradients and float32 mu / nu take 12 B a "
+              f"parameter, {12 * dense_param_count(full) / 1e9:.0f} GB, more than the 80 GB "
+              f"card; a checkpoint is held in host memory and written at "
+              f"{TRAIN_CKPT_BYTES_PER_PARAM} B a parameter, {ckpt_need / 1e9:.2f} GB at "
+              f"{cfg.num_layers} layers (temp disk {free_disk / 1e9:.1f} GB free, host "
+              f"{free_host / 1e9:.1f} GB available"
+              + ("" if cfg.num_layers == TRAIN_LAYERS[0] else
+                 f"; too little for {TRAIN_LAYERS[0]} layers, so cut to {cfg.num_layers}")
+              + ")", flush=True)
+
+        model = build(cfg, device=dev)
+        g = torch.Generator(device=dev).manual_seed(LM_SEED)
+        params = model.init(g)
+        n_params = sum(t.numel() for t in flat_leaves(params).values())
+        check(n_params == dense_param_count(cfg),
+              f"train: {n_params} parameters, want {dense_param_count(cfg)}")
+        data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+        batches = [{"tokens": torch.from_numpy(next(data)["tokens"]).to(dev)}
+                   for _ in range(TRAIN_STEPS)]
+        data.close()
+        step_fn = make_train_step(model, G.train_opt_config())
+        opt = adamw.init(params)
+        wd = StepWatchdog()
+        mgr = CheckpointManager(tmp, every=TRAIN_CKPT_EVERY, keep=1, use_async=True)
+        hist = {"loss": [], "grad_norm": [], "lr": [], "ms": []}
+        saved, save_call_s, peak_steps = None, 0.0, 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for i, batch in enumerate(batches, 1):
+            t0 = time.perf_counter()
+            with wd:
+                params, opt, metrics = step_fn(params, opt, batch)
+                loss = metrics["loss"].item()  # the host sync that ends the step
+            hist["ms"].append((time.perf_counter() - t0) * 1e3)
+            hist["loss"].append(loss)
+            hist["grad_norm"].append(metrics["grad_norm"].item())
+            hist["lr"].append(metrics["lr"].item())
+            if i == TRAIN_CKPT_EVERY:
+                peak_steps = torch.cuda.max_memory_allocated()
+                # the step is functional: these tensors stay as step 4 left them
+                saved = {"params": params, "opt": opt}
+            if i < TRAIN_STEPS:  # the run dies after step 8, before its save
+                t0, wall0 = time.perf_counter(), time.time()
+                if mgr.maybe_save(i, {"params": params, "opt": opt}):
+                    save_call_s, save_wall0 = time.perf_counter() - t0, wall0
+        mgr.wait()
+        finite = all(np.isfinite(v) for k in ("loss", "grad_norm", "lr") for v in hist[k])
+        check(finite and saved is not None,
+              f"train: full width: a loss, grad_norm or lr is not finite: {hist}")
+        step_dir = os.path.join(tmp, f"step_{TRAIN_CKPT_EVERY:08d}")
+        with open(os.path.join(step_dir, "manifest.json")) as f:
+            written_s = json.load(f)["time"] - save_wall0
+        ckpt_bytes = os.path.getsize(os.path.join(step_dir, "arrays.npz"))
+        med = statistics.median(hist["ms"])
+        print(f"train: full width: {cfg.name} at {cfg.num_layers} layers x {cfg.d_model} "
+              f"({cfg.num_heads} / {cfg.num_kv_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, "
+              f"vocab {cfg.vocab_size}, {cfg.dtype}, remat {cfg.remat}, {TRAIN_BACKEND} QAT), "
+              f"{n_params:,} parameters drawn on the card from seed {LM_SEED}; "
+              f"{TRAIN_STEPS} make_train_step steps (AdamW {G.TRAIN_OPT}) on "
+              f"{TRAIN_STEPS} batches of SyntheticLM({cfg.vocab_size}, {TRAIN_SEQ}, "
+              f"{TRAIN_BATCH}, seed=0): losses {[round(x, 5) for x in hist['loss']]}, "
+              f"grad_norm {[round(x, 4) for x in hist['grad_norm']]}, lr "
+              f"{[float(f'{x:.4e}') for x in hist['lr']]}, all finite; no kernel on the "
+              f"training path", flush=True)
+        print(f"train: full width: step ms {', '.join(f'{t:.3f}' for t in hist['ms'])}; "
+              f"median {med:.3f} ms (host clock, each step ending in the loss's host sync), "
+              f"{TRAIN_BATCH * TRAIN_SEQ / med * 1e3:.1f} tokens/s; StepWatchdog median "
+              f"{wd.median * 1e3:.3f} ms, {wd.stragglers} stragglers (factor {wd.factor}; it "
+              f"judges a step only after 8 samples, so none of these {TRAIN_STEPS}); "
+              f"peak {peak_steps / 1e9:.2f} GB allocated over steps 1-{TRAIN_CKPT_EVERY}, "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB over the run (step "
+              f"{TRAIN_CKPT_EVERY}'s state kept for the resume check) ({smi})", flush=True)
+
+        # the crash: the live state is dropped; resume from the newest checkpoint
+        losses = hist["loss"]
+        del params, opt, metrics
+        torch.cuda.empty_cache()
+        like = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"),
+                              saved)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start, restored = CheckpointManager(tmp, every=TRAIN_CKPT_EVERY, keep=1).resume_latest(
+            like, device=dev)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        check(start == TRAIN_CKPT_EVERY, f"train: resumed from step {start}, want "
+              f"{TRAIN_CKPT_EVERY} (the run died before step {TRAIN_STEPS}'s save)")
+        have, want = flat_leaves(restored), flat_leaves(saved)
+        check(have.keys() == want.keys() and all(bits_equal(have[k], want[k]) for k in want),
+              f"train: the restored state differs from step {start}'s: "
+              f"{[k for k in want if k not in have or not bits_equal(have[k], want[k])]}")
+        n_state = sum(t.numel() * t.element_size() for t in want.values())
+        del saved, have, want
+        params, opt = restored["params"], restored["opt"]
+        resumed = []
+        for batch in batches[start:]:
+            params, opt, metrics = step_fn(params, opt, batch)
+            resumed.append(metrics["loss"].item())
+        again = np.allclose(resumed, losses[start:], rtol=1e-4, atol=1e-5)
+        check(again, f"train: resumed losses {resumed} differ from the first run's "
+              f"{losses[start:]} beyond rtol 1e-4, atol 1e-5")
+        print(f"train: checkpoint: CheckpointManager(every={TRAIN_CKPT_EVERY}, keep=1, async) "
+              f"saved step {TRAIN_CKPT_EVERY}: {ckpt_bytes:,} bytes on disk for {n_state:,} "
+              f"bytes of state; the host snapshot (device -> host copy) {save_call_s:.3f} s in "
+              f"the caller, written {written_s:.3f} s after the call (background thread, "
+              f"during steps {TRAIN_CKPT_EVERY + 1}-{TRAIN_STEPS}); crash after step "
+              f"{TRAIN_STEPS}, resume_latest onto the card {restore_s:.3f} s (the file warm in "
+              f"the page cache): step {start}, every leaf equal bit for bit to step {start}'s "
+              f"state; steps {start + 1}-{TRAIN_STEPS} again: losses "
+              f"{[round(x, 7) for x in resumed]} against {[round(x, 7) for x in losses[start:]]}"
+              f", max |difference| {float(np.abs(np.subtract(resumed, losses[start:])).max()):.3e}"
+              f" (bound rtol 1e-4, atol 1e-5)", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # where a step's time goes: the loss and its gradients, then the update
+    split = {"forward + backward": [], "update": []}
+    for _ in range(3):
+        live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = model.loss(live, batches[0])
+        grads = iter(torch.autograd.grad(loss, list(flat_leaves(live).values())))
+        grads = tree_map(lambda _: next(grads), live)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with torch.no_grad():
+            adamw.update(G.train_opt_config(), live, grads, opt)
+        torch.cuda.synchronize()
+        split["forward + backward"].append((t1 - t0) * 1e3)
+        split["update"].append((time.perf_counter() - t1) * 1e3)
+        del live, loss, grads
+    print(f"train: full width, one step split (host clock, synchronised, median of 3 after "
+          f"the run): "
+          + ", ".join(f"{k} {statistics.median(v):.3f} ms" for k, v in split.items()), flush=True)
+
+    # (c) the trained weights deployed and prefilled on mvu_int
+    prompt = {"tokens": batches[0]["tokens"][:, :TRAIN_SEQ]}
+    n_pre = len(L.PROJ_NAMES) * cfg.num_layers
+    with torch.no_grad():
+        fake, _ = model.prefill(params, prompt, model.init_decode_state(TRAIN_BATCH, TRAIN_SEQ))
+        deployed = L.quantize_model_params(params, TRAIN_BACKEND)
+        logits, _ = counted(
+            lambda: model.prefill(deployed, prompt,
+                                  model.init_decode_state(TRAIN_BATCH, TRAIN_SEQ)),
+            {"mvu_int": n_pre}, "train: the deployed prefill of the trained weights")
+    check(bool(torch.isfinite(logits).all())
+          and tuple(logits.shape) == (TRAIN_BATCH, cfg.vocab_size),
+          "train: the deployed prefill's logits are not finite")
+    corr = float(np.corrcoef(fake.float().cpu().numpy().ravel(),
+                             logits.float().cpu().numpy().ravel())[0, 1])
+    print(f"train: deployed: quantize_model_params(trained params, {TRAIN_BACKEND!r}), prefill "
+          f"of {TRAIN_BATCH} x {TRAIN_SEQ} on mvu_int: finite logits; mvu_int launched "
+          f"{n_pre} times = {len(L.PROJ_NAMES)} projections x {cfg.num_layers} layers, nothing "
+          f"else; last-token logit correlation against the fake-quant prefill of the same "
+          f"trained weights {corr:.6f}", flush=True)
+    int0 = tf.layer(deployed["layers"], 0)
+    m = TRAIN_BATCH * TRAIN_SEQ
+    ga = torch.Generator(device=dev).manual_seed(LM_SEED + 3)
+    timed = projection_rows(int0, "mvu_int", {m}, ga, "train")
+    rows = [timed[("mvu_int", m, *(int0["attn"] | int0["ffn"])[name]["values"].shape)]
+            for name in L.PROJ_NAMES] * cfg.num_layers
+    print(f"train: launches of the counted prefill {{'mvu_int': {n_pre}}}; kernel ms over them "
+          f"{round(sum(r[0] for r in rows), 4)}; phase {time.perf_counter() - t_phase:.2f} s "
+          f"({smi})", flush=True)
+    return {"launches": {"mvu_int": n_pre}, "rows": {"mvu_int": rows}}
 
 
 def bound_of(nbytes: int, ops: int) -> tuple[float, str]:
@@ -3350,6 +3658,7 @@ def main() -> int:
     piped = pipeline_phase(dev, smi)
     lm = lm_phase(dev, smi)
     lm_qat = lm_qat_phase(dev, smi)
+    trained = train_phase(dev, smi)
 
     # -------------------------------------------------------- 5. results
     mb = plan.microbatch
@@ -3378,9 +3687,9 @@ def main() -> int:
                 if dense == name:
                     rows += [timing[(entry, CNV_DENSE_M, n, k)] for n, k in cnv_dense] * n_micro
                     n_launches += counts[name]
-            # the pipeline, lm and lm_qat phases' counted runs, each launch at its
-            # shape
-            for phase in (piped, lm, lm_qat):
+            # the pipeline, lm, lm_qat and train phases' counted runs, each launch
+            # at its shape
+            for phase in (piped, lm, lm_qat, trained):
                 rows += phase["rows"].get(name, [])
                 n_launches += phase["launches"].get(name, 0)
             if name == "mvu_xnor":  # the packed entry on the same launches, beside it

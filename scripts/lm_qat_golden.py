@@ -33,7 +33,7 @@ def jax_run(backend: str) -> dict:
     from repro.models.model import build
     from repro_torch.configs import lm_golden as G
     from repro_torch.convert import lm_numpy_params
-    from repro_torch.models.transformer import flat_leaves
+    from repro_torch.tree import flat_leaves
 
     cfg = get_reduced(G.ARCH).replace(dtype="float32", remat=True, linear_backend=backend)
     params = jax.tree.map(jnp.asarray, lm_numpy_params(cfg, G.SEED))

@@ -1,9 +1,10 @@
-"""Run ``chip_smoke.py``'s lm_qat phase alone, on one card.
+"""Run one of ``chip_smoke.py``'s LM phases alone, on one card: the
+lm_qat phase, or the one named (``lm``, ``lm_qat`` or ``train``).
 
 Usage, from the root of a checkout (this repo or an unpacked
 ``git archive`` of another commit, so that two trees can be timed in one
 call):
-    python3 <path to>/scripts/lm_qat_phase.py
+    python3 <path to>/scripts/lm_qat_phase.py [lm | lm_qat | train]
 
 It imports the ``chip_smoke.py`` of the working directory, so the phase
 and the package it drives are that checkout's; the kernels are built at
@@ -20,9 +21,13 @@ sys.path.insert(0, os.getcwd())
 import chip_smoke as C  # noqa: E402
 import torch  # noqa: E402
 
+PHASES = {"lm": C.lm_phase, "lm_qat": C.lm_qat_phase, "train": C.train_phase}
+name = sys.argv[1] if len(sys.argv) > 1 else "lm_qat"
+if name not in PHASES:
+    sys.exit(f"unknown phase {name!r}: one of {sorted(PHASES)}")
 smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                      capture_output=True, text=True, check=True).stdout.strip()
 print(smi, torch.__version__, torch.version.cuda, flush=True)
-out = C.lm_qat_phase(torch.device("cuda"), smi)
+out = PHASES[name](torch.device("cuda"), smi)
 print({k: len(v) for k, v in out["rows"].items()}, out["launches"])
 print("peak", torch.cuda.max_memory_allocated() / 1e9)

@@ -20,6 +20,16 @@ in ``QAT_VARIANTS`` (the fake-quant arm under ``mvu_*``): the loss and each
 gradient leaf's :func:`grad_digest`, a layer at a time for a stacked leaf.
 The port's side is :func:`qat_run`, held to the file with
 :func:`qat_mismatch`.
+
+``scripts/lm_train_golden.py`` writes ``TRAIN_GOLDEN``
+(``yi_9b_train_golden.json``): the golden run's float32 tree and config
+(:func:`golden_config`: remat off, as the reference's ``_tiny_model``), trained
+``TRAIN_STEPS`` steps by the JAX package's jitted ``make_train_step`` with
+``AdamWConfig(**TRAIN_OPT)`` on batches of ``SyntheticLM(*TRAIN_DATA)``,
+for each backend in ``TRAIN_VARIANTS``: each step's loss, ``grad_norm``
+and ``lr``, and the :func:`leaf_digest` of the final params and both
+moments.  The port's side is :func:`train_run`, held to the file with
+:func:`train_mismatch`.
 """
 
 from __future__ import annotations
@@ -31,7 +41,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_reduced
-from repro_torch.models.transformer import flat_leaves
+from repro_torch.data.pipeline import SyntheticLM
+from repro_torch.launch.train import make_train_step
+from repro_torch.optim import adamw
+from repro_torch.tree import flat_leaves
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "yi_9b_lm_golden.json")
 ARCH = "yi-9b"
@@ -53,10 +66,28 @@ PROBE_SEED = 2  # the fixed vector each gradient row is projected on
 # leaf's values within GRAD_ATOL * its largest reference magnitude
 LOSS_RTOL = 1e-5
 GRAD_ATOL = 1e-4
+TRAIN_GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "yi_9b_train_golden.json")
+TRAIN_VARIANTS = ("dense", "mvu_w8a8")
+TRAIN_STEPS = 4
+TRAIN_OPT = {"lr": 1e-3, "warmup_steps": 2, "total_steps": 8}
+TRAIN_DATA = (256, 32, 4)  # SyntheticLM(vocab, seq, batch): the reduced model's vocab
+TRAIN_DATA_SEED = 0
+TRAIN_METRICS = ("loss", "grad_norm", "lr")
+# float32 training, each step against the reference's jitted make_train_step:
+# the loss as the reference's crash-resume test holds it, grad_norm and lr
+TRAIN_LOSS_RTOL, TRAIN_LOSS_ATOL = 1e-4, 1e-5
+TRAIN_GNORM_RTOL = 1e-4
+TRAIN_LR_RTOL = 1e-6
+# the final params and moments: each leaf's values within TRAIN_ATOL times
+# its largest reference magnitude (the port on the CPU reaches 2.2e-5 for
+# params, 3.6e-6 for the moments; scripts/lm_train_golden.py --errors)
+TRAIN_ATOL = 1e-4
 
 
 def golden_config(backend: str = "dense"):
-    """The golden run's config: the reduced Yi-9B in float32 under ``backend``."""
+    """The golden run's config, and the train golden's: the reduced Yi-9B in
+    float32 under ``backend``, remat off."""
     return get_reduced(ARCH).replace(dtype="float32", remat=False, linear_backend=backend)
 
 
@@ -121,14 +152,13 @@ def probe(n: int) -> np.ndarray:
     return v / np.linalg.norm(v)
 
 
-def grad_digest(loss: float, grads: dict) -> dict:
-    """The loss and, for each gradient leaf (float32 numpy by path), its
-    size, sum, L2 norm and largest magnitude, and for each of its rows the
-    first ``QAT_HEAD`` values and the dot product with :func:`probe`: a
-    leaf stacked on the layer axis (under "layers/") has a row a layer,
-    any other leaf one row."""
+def leaf_digest(leaves: dict) -> dict:
+    """For each leaf (float32 numpy by path) its size, sum, L2 norm and
+    largest magnitude, and for each of its rows the first ``QAT_HEAD``
+    values and the dot product with :func:`probe`: a leaf stacked on the
+    layer axis (under "layers/") has a row a layer, any other leaf one row."""
     out = {}
-    for path, g in grads.items():
+    for path, g in leaves.items():
         g = np.asarray(g, np.float32)
         rows = g.reshape(g.shape[0] if path.startswith("layers/") else 1, -1)
         g = g.ravel()
@@ -137,7 +167,12 @@ def grad_digest(loss: float, grads: dict) -> dict:
                      "max_abs": float(np.abs(g).max()),
                      "head": rows[:, :QAT_HEAD].tolist(),
                      "dot": (rows.astype(np.float64) @ probe(rows.shape[1])).tolist()}
-    return {"loss": float(loss), "grads": out}
+    return out
+
+
+def grad_digest(loss: float, grads: dict) -> dict:
+    """The loss and the :func:`leaf_digest` of the gradients."""
+    return {"loss": float(loss), "grads": leaf_digest(grads)}
 
 
 def qat_run(model, params) -> dict:
@@ -158,21 +193,18 @@ def load_qat_golden() -> dict:
         return json.load(f)
 
 
-def qat_mismatch(want: dict, got: dict) -> str | None:
-    """None if ``got`` meets the float32 QAT contract against ``want`` (both
-    :func:`grad_digest`-shaped): the loss within ``LOSS_RTOL``; in each
-    leaf every row's head values and the largest magnitude within eps =
-    ``GRAD_ATOL`` times the reference's largest, the sum within size x eps,
-    the norm within sqrt(size) x eps and each row's probe product within
-    sqrt(row size) x eps (what every value within eps implies); else what
-    differs."""
-    if not abs(got["loss"] - want["loss"]) <= LOSS_RTOL * abs(want["loss"]):
-        return f"loss {got['loss']!r}, want {want['loss']!r}"
-    if got["grads"].keys() != want["grads"].keys():
-        return f"gradient leaves {sorted(got['grads'])}, want {sorted(want['grads'])}"
-    for path, w in want["grads"].items():
-        g = got["grads"][path]
-        eps = GRAD_ATOL * w["max_abs"]
+def leaves_mismatch(want: dict, got: dict, atol: float) -> str | None:
+    """None if every leaf of ``got`` meets ``want`` (both
+    :func:`leaf_digest`-shaped) at eps = ``atol`` times the reference
+    leaf's largest magnitude: each row's head values and the largest
+    magnitude within eps, the sum within size x eps, the norm within
+    sqrt(size) x eps and each row's probe product within sqrt(row size) x
+    eps (what every value within eps implies); else what differs."""
+    if got.keys() != want.keys():
+        return f"leaves {sorted(got)}, want {sorted(want)}"
+    for path, w in want.items():
+        g = got[path]
+        eps = atol * w["max_abs"]
         if g["size"] != w["size"] or len(g["dot"]) != len(w["dot"]):
             return f"{path}: size {g['size']} in {len(g['dot'])} rows, want {w['size']} in " \
                    f"{len(w['dot'])}"
@@ -185,4 +217,82 @@ def qat_mismatch(want: dict, got: dict) -> str | None:
         bad = {k: e for k, e in errs.items() if not e <= eps}
         if bad:
             return f"{path}: {bad} (scaled errors) > {eps:.3e}"
+    return None
+
+
+def qat_mismatch(want: dict, got: dict) -> str | None:
+    """None if ``got`` meets the float32 QAT contract against ``want`` (both
+    :func:`grad_digest`-shaped): the loss within ``LOSS_RTOL`` and every
+    gradient leaf within :func:`leaves_mismatch` at ``GRAD_ATOL``; else
+    what differs."""
+    if not abs(got["loss"] - want["loss"]) <= LOSS_RTOL * abs(want["loss"]):
+        return f"loss {got['loss']!r}, want {want['loss']!r}"
+    bad = leaves_mismatch(want["grads"], got["grads"], GRAD_ATOL)
+    return None if bad is None else f"gradient {bad}"
+
+
+# ------------------------------------------------------------------ training
+def train_opt_config() -> adamw.AdamWConfig:
+    """The train golden's optimizer: the reference's crash-resume test's,
+    so that the clip and both legs of the schedule run."""
+    return adamw.AdamWConfig(**TRAIN_OPT)
+
+
+def train_batches() -> list[dict]:
+    """The train golden's ``TRAIN_STEPS`` batches, drawn in order from
+    ``SyntheticLM(*TRAIN_DATA, seed=TRAIN_DATA_SEED)``."""
+    data = SyntheticLM(*TRAIN_DATA, seed=TRAIN_DATA_SEED)
+    try:
+        return [next(data) for _ in range(TRAIN_STEPS)]
+    finally:
+        data.close()
+
+
+def train_digest(history: dict, params: dict, mu: dict, nu: dict) -> dict:
+    """The train golden's record: each step's ``loss``, ``grad_norm`` and
+    ``lr`` (``history``, lists of floats) and the :func:`leaf_digest` of the
+    final params and both moments (float32 numpy trees by path)."""
+    return {**{k: [float(v) for v in history[k]] for k in TRAIN_METRICS},
+            "params": leaf_digest(params), "mu": leaf_digest(mu), "nu": leaf_digest(nu)}
+
+
+def train_run(model, params, batches=None) -> dict:
+    """The train golden on the port: ``adamw.init(params)``, then
+    ``make_train_step`` over :func:`train_batches`, digested."""
+    step = make_train_step(model, train_opt_config())
+    opt = adamw.init(params)
+    history = {k: [] for k in TRAIN_METRICS}
+    for batch in train_batches() if batches is None else batches:
+        params, opt, metrics = step(params, opt, batch)
+        for k in TRAIN_METRICS:
+            history[k].append(metrics[k].item())
+    host = lambda tree: {p: t.to(torch.float32).cpu().numpy()
+                         for p, t in flat_leaves(tree).items()}
+    return train_digest(history, host(params), host(opt["mu"]), host(opt["nu"]))
+
+
+def load_train_golden() -> dict:
+    with open(TRAIN_GOLDEN) as f:
+        return json.load(f)
+
+
+def train_mismatch(want: dict, got: dict) -> str | None:
+    """None if ``got`` meets the float32 training contract against
+    ``want`` (both :func:`train_digest`-shaped): each step's loss within
+    ``TRAIN_LOSS_RTOL`` x |loss| + ``TRAIN_LOSS_ATOL``, ``grad_norm``
+    within ``TRAIN_GNORM_RTOL`` and ``lr`` within ``TRAIN_LR_RTOL`` of the
+    reference, and the final params and moments within
+    :func:`leaves_mismatch` at ``TRAIN_ATOL``; else what differs."""
+    rtol = {"loss": TRAIN_LOSS_RTOL, "grad_norm": TRAIN_GNORM_RTOL, "lr": TRAIN_LR_RTOL}
+    atol = {"loss": TRAIN_LOSS_ATOL, "grad_norm": 0.0, "lr": 0.0}
+    for k in TRAIN_METRICS:
+        if len(got[k]) != len(want[k]):
+            return f"{k}: {len(got[k])} steps, want {len(want[k])}"
+        for i, (g, w) in enumerate(zip(got[k], want[k])):
+            if not abs(g - w) <= rtol[k] * abs(w) + atol[k]:
+                return f"step {i + 1} {k} {g!r}, want {w!r}"
+    for tree in ("params", "mu", "nu"):
+        bad = leaves_mismatch(want[tree], got[tree], TRAIN_ATOL)
+        if bad is not None:
+            return f"{tree} {bad}"
     return None

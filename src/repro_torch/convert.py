@@ -24,7 +24,11 @@ An LM's parameter tree crosses the same way: ``lm_params_from_numpy(tree,
 device)`` takes the JAX package's tree as nested dicts of numpy arrays
 (``np.asarray`` on each leaf) and returns the port's, leaf for leaf;
 ``lm_numpy_params(cfg, seed)`` draws a dense decoder's tree in that layout
-with numpy alone, so both packages can start from the same weights.
+with numpy alone, so both packages can start from the same weights.  An
+AdamW state (``adamw.init`` / ``update``'s ``{"mu", "nu", "step"}``)
+crosses by ``opt_state_from_numpy(state, device)``, and any port tree
+goes back by ``numpy_tree(tree)``, so both packages can also carry on
+from the same optimizer state.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from repro_torch.core.mvu import KernelBlocks, MVUConfig, MVUParams
 from repro_torch.kernels.ops import BACKEND_NAMES
 from repro_torch.models.layers import is_gated
 from repro_torch.models.transformer import require_dense
+from repro_torch.tree import tree_map
 
 
 def _tensor(a, device):
@@ -88,14 +93,36 @@ def lm_params_from_numpy(tree, device="cpu"):
     values and dtype, except that ``int4`` (the reference's 4-bit and 1-bit
     MVU values) becomes int8, the dtype the port carries them in, and
     numpy's ``bfloat16`` becomes torch's."""
-    if isinstance(tree, dict):
-        return {k: lm_params_from_numpy(v, device) for k, v in tree.items()}
-    a = np.array(tree)
-    if a.dtype.name == "int4":
-        a = a.astype(np.int8)
-    if a.dtype.name == "bfloat16":
-        return torch.from_numpy(a.astype(np.float32)).to(device=device, dtype=torch.bfloat16)
-    return torch.from_numpy(a).to(device)
+    def leaf(a):
+        a = np.array(a)
+        if a.dtype.name == "int4":
+            a = a.astype(np.int8)
+        if a.dtype.name == "bfloat16":
+            return torch.from_numpy(a.astype(np.float32)).to(device=device, dtype=torch.bfloat16)
+        return torch.from_numpy(a).to(device)
+
+    return tree_map(leaf, tree)
+
+
+def opt_state_from_numpy(state, device="cpu") -> dict:
+    """The port's AdamW state for the JAX package's, given as nested dicts
+    of numpy arrays: the float32 moments leaf for leaf (as
+    :func:`lm_params_from_numpy` carries params) and the step as a 0-d
+    int32 tensor, all on ``device``."""
+    return {"mu": lm_params_from_numpy(state["mu"], device),
+            "nu": lm_params_from_numpy(state["nu"], device),
+            "step": torch.from_numpy(np.array(state["step"], np.int32)).to(device)}
+
+
+def numpy_tree(tree):
+    """A port tree (params or an AdamW state) as nested dicts of numpy
+    arrays, copied to the host: a bfloat16 leaf as float32, which holds it
+    exactly (the other side casts it back)."""
+    def leaf(t):
+        t = t.detach().cpu()
+        return (t.to(torch.float32) if t.dtype == torch.bfloat16 else t).numpy()
+
+    return tree_map(leaf, tree)
 
 
 def lm_numpy_params(cfg, seed: int = 0) -> dict:

@@ -1,1 +1,2 @@
-"""Offline synthetic datasets (numpy only)."""
+"""Offline synthetic datasets (numpy only): the NID flows (``nid``) and the
+synthetic LM token stream (``pipeline.SyntheticLM``)."""

@@ -4,9 +4,9 @@ A copy of the JAX package's ``repro.distributed.stragglers`` (pure
 Python, so the port keeps its own rather than importing it).  Its
 consumer here is the serving-side replica health machine
 (:mod:`repro_torch.serving.health`), which flags replica dispatches whose
-resolve latency straggles relative to the replica's own recent history;
-the training-side step watchdog that also uses it in the JAX package
-comes with the LM training distribution (ROADMAP queue A item 7, step 3).
+resolve latency straggles relative to the replica's own recent history,
+and the training-side step watchdog
+(:class:`repro_torch.distributed.fault_tolerance.StepWatchdog`).
 
 The trailing *median* (not mean) is the robust center: a single straggler
 landing in the window must not drag the threshold up and mask the next

@@ -11,10 +11,12 @@ Ported so far:
 * :mod:`repro_torch.launch.nid_qat` -- the paper's Section 6.5 flow (the
   float MLP trained with a straight-through estimator, streamlined by the
   build into the integer MVU chain and run on the hand-written kernels),
-  the counterpart of the JAX package's ``benchmarks/nid_mlp.py``.
+  the counterpart of the JAX package's ``benchmarks/nid_mlp.py``;
+* :mod:`repro_torch.launch.train` -- ``make_train_step``, one AdamW
+  training step of the LM (``Model.loss``, its gradients, ``adamw.update``).
 
-Not ported yet (ROADMAP queue A item 7): ``train.py`` waits for the LM
-training loop (step 3c; the loss and its gradients are
-``repro_torch.models.model``'s, step 3a); ``shard_serve_fns``
-(``serve.py``), ``mesh.py`` and ``dryrun.py`` for step 5.
+Not ported yet (ROADMAP queue A item 7): the rest of ``train.py``
+(``shard_train_step``, ``init_sharded``, ``train_loop``, ``main``) and
+``mesh.py`` wait for the training loop with its mesh (step 3c);
+``shard_serve_fns`` (``serve.py``) and ``dryrun.py`` for step 5.
 """

@@ -9,8 +9,9 @@ port of the JAX package's ``repro/models/model.py`` for the dense decoder.
 card, and raises when CUDA is absent (pass ``device="cpu"`` to run the
 kernels' plain versions).  ``loss`` is the QAT forward: under an ``mvu_*``
 backend on float params every projection runs ``linear``'s fake-quant arm,
-and ``torch.autograd`` gives the STE gradients; the optimizer, the data
-pipeline and the train loop wait for ROADMAP queue A item 7, steps 3b-3c.
+and ``torch.autograd`` gives the STE gradients; ``launch/train.py``'s
+``make_train_step`` adds the AdamW step (``optim/adamw.py``), and the train
+loop waits for ROADMAP queue A item 7, step 3c.
 """
 
 from __future__ import annotations

@@ -73,16 +73,6 @@ def unbind_layers(params: Params) -> list[Params]:
     return [{k: v[i] for k, v in leaves.items()} for i in range(len(next(iter(leaves.values()))))]
 
 
-def flat_leaves(tree: Params, prefix: str = "") -> dict:
-    """A nested tree's leaves by path ("layers/attn/wq/w"), e.g. to set
-    ``requires_grad`` on every parameter before ``Model.loss``."""
-    out = {}
-    for k, v in tree.items():
-        path = f"{prefix}{k}"
-        out.update(flat_leaves(v, path + "/") if isinstance(v, dict) else {path: v})
-    return out
-
-
 def stack_layers(trees: list[Params]) -> Params:
     """Per-layer trees -> one tree with a leading layer axis."""
     return {k: stack_layers([t[k] for t in trees]) if isinstance(v, dict)

@@ -974,3 +974,117 @@ def test_column_scale_of_a_stack_on_the_card_equals_the_cpu(cuda, dtype):
         g = torch.Generator().manual_seed(d_in)
         w = (torch.randn(3, d_in, 256, generator=g) / d_in**0.5).to(dtype)
         assert torch.equal(column_scale(w.to(cuda)).cpu(), column_scale(w))
+
+
+@pytest.mark.parametrize("step", [0, 3])
+@pytest.mark.parametrize("clip_active", [True, False], ids=["clip", "no_clip"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_adamw_leaf_update_on_the_card_equals_the_cpu(cuda, dtype, clip_active, step):
+    """The per-leaf AdamW step at a Yi-9B projection's shape (4096 x 512)
+    on the card against its CPU run, given the CPU's clip, lr and bias
+    corrections: bit for bit (IEEE float32 mul, add and divide on both;
+    sqrt correctly rounded, through float64)."""
+    from repro_torch.optim import adamw
+
+    cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=8)
+    g = torch.Generator().manual_seed(step + 10 * clip_active)
+    p = torch.randn(4096, 512, generator=g).to(dtype)
+    grad = (torch.randn(4096, 512, generator=g) * (1.0 if clip_active else 1e-4)).to(dtype)
+    mu = torch.randn(4096, 512, generator=g) * 0.01
+    nu = torch.rand(4096, 512, generator=g) * 1e-4
+    state = {"mu": {"w": mu}, "nu": {"w": nu}, "step": torch.tensor(step, dtype=torch.int32)}
+    _, _, m = adamw.update(cfg, {"w": p}, {"w": grad}, state)
+    gnorm = m["grad_norm"]
+    clip = torch.minimum(torch.tensor(1.0), torch.tensor(cfg.grad_clip) / (gnorm + torch.tensor(1e-9)))
+    assert (clip.item() < 1.0) == clip_active
+    s = torch.tensor(float(step + 1))
+    consts = [clip, m["lr"], 1 - torch.pow(torch.tensor(cfg.beta1), s),
+              1 - torch.pow(torch.tensor(cfg.beta2), s)]
+    want = adamw.leaf_update(cfg, p, grad, mu, nu, *consts)
+    got = adamw.leaf_update(cfg, p.to(cuda), grad.to(cuda), mu.to(cuda), nu.to(cuda),
+                            *[c.to(cuda) for c in consts])
+    view = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    for w, o in zip(want, got):
+        assert o.device.type == cuda.type and o.dtype == w.dtype
+        assert torch.equal(o.cpu().view(view[o.dtype]), w.view(view[w.dtype]))
+
+
+def test_adamw_schedule_and_update_on_the_card_within_the_cpus_bounds(cuda):
+    """``schedule`` over steps 0-12 and one ``update`` of the reduced Yi-9B
+    tree on the card against the CPU: lr within rtol 1e-6 (the device's cos
+    and pow may round another way), grad_norm within rtol 1e-6 (another
+    summation order), params and moments within 1e-5 of each leaf's largest
+    magnitude, the step on the card and never read by the host."""
+    from repro_torch.configs import lm_golden as G
+    from repro_torch.convert import lm_numpy_params, lm_params_from_numpy
+    from repro_torch.optim import adamw
+    from repro_torch.tree import flat_leaves
+
+    cfg = adamw.AdamWConfig(**G.TRAIN_OPT)
+    for step in range(13):
+        want = adamw.schedule(cfg, torch.tensor(step, dtype=torch.int32))
+        got = adamw.schedule(cfg, torch.tensor(step, dtype=torch.int32, device=cuda))
+        assert got.device.type == cuda.type and got.item() == pytest.approx(want.item(), rel=1e-6, abs=0)
+    tree = lm_numpy_params(G.golden_config(), 3)
+    grads = lm_numpy_params(G.golden_config(), 4)
+    outs = []
+    for dev in ("cpu", cuda):
+        params = lm_params_from_numpy(tree, dev)
+        outs.append(adamw.update(cfg, params, lm_params_from_numpy(grads, dev),
+                                 adamw.init(params)))
+    (wp, ws, wm), (gp, gs, gm) = outs
+    assert gs["step"].device.type == cuda.type and gs["step"].item() == 1
+    for k in ("lr", "grad_norm"):
+        assert gm[k].item() == pytest.approx(wm[k].item(), rel=1e-6, abs=0)
+    for want, got in ((wp, gp), (ws["mu"], gs["mu"]), (ws["nu"], gs["nu"])):
+        for path, w in flat_leaves(want).items():
+            o = flat_leaves(got)[path]
+            assert o.device.type == cuda.type and float((o.cpu() - w).abs().max()) <= 1e-5 * float(w.abs().max())
+
+
+@pytest.mark.parametrize("backend", ["dense", "mvu_w8a8"])
+def test_train_golden_on_the_card(cuda, backend):
+    """The reduced Yi-9B's 4 AdamW steps in float32 on the card against the
+    JAX package's jitted ``make_train_step`` golden
+    (``configs/yi_9b_train_golden.json``); training launches no kernel."""
+    from repro_torch.configs import lm_golden as G
+    from repro_torch.convert import lm_numpy_params, lm_params_from_numpy
+    from repro_torch.models.model import build as build_lm
+
+    cfg = G.golden_config(backend)
+    params = lm_params_from_numpy(lm_numpy_params(cfg, G.SEED), cuda)
+    ops.reset_launch_counts()
+    got = G.train_run(build_lm(cfg, device=cuda), params)
+    assert not any(ops.launch_counts().values())
+    assert G.train_mismatch(G.load_train_golden()["variants"][backend], got) is None
+
+
+@pytest.mark.parametrize("use_async", [False, True])
+def test_checkpoint_round_trip_card_disk_card(cuda, tmp_path, use_async):
+    """A tree on the card (bf16 with NaN, inf and -0 among its values,
+    float32, an int32 step) saved to disk and restored onto the card equals
+    itself bit for bit."""
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.tree import flat_leaves
+
+    g = torch.Generator().manual_seed(0)
+    edge = torch.tensor([0.0, -0.0, float("inf"), float("-inf"), float("nan"), 1.0, -3.5,
+                         1e-40, 3e38])
+    w = torch.randn(64, 96, generator=g)
+    w.view(-1)[:9] = edge
+    tree = {"params": {"w": w.to(torch.bfloat16), "b": torch.randn(96, generator=g)},
+            "opt": {"mu": {"w": torch.randn(64, 96, generator=g)},
+                    "step": torch.tensor(4, dtype=torch.int32)}}
+    tree = {k: {p: (v.to(cuda) if not isinstance(v, dict) else {q: x.to(cuda) for q, x in
+                                                               v.items()})
+                for p, v in t.items()} for k, t in tree.items()}
+    if use_async:
+        ckpt.save_async(str(tmp_path), 4, tree).join(60)
+    else:
+        ckpt.save(str(tmp_path), 4, tree)
+    got = ckpt.restore(str(tmp_path), ckpt.latest_step(str(tmp_path)), tree, device=cuda)
+    view = {torch.float32: torch.int32, torch.bfloat16: torch.int16, torch.int32: torch.int32}
+    for path, want in flat_leaves(tree).items():
+        have = flat_leaves(got)[path]
+        assert have.device.type == cuda.type and have.dtype == want.dtype and have.shape == want.shape
+        assert torch.equal(have.view(view[have.dtype]), want.view(view[want.dtype])), path

@@ -49,7 +49,7 @@ from repro_torch.convert import lm_numpy_params, lm_params_from_numpy
 from repro_torch.core import quantize as TQ
 from repro_torch.models import layers as TL
 from repro_torch.models.model import build
-from repro_torch.models.transformer import flat_leaves
+from repro_torch.tree import flat_leaves
 
 QAT = ("dense", "mvu_w8a8", "mvu_w4a4", "mvu_binary")
 DTYPES = ("float32", "bfloat16")
