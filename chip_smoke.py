@@ -370,10 +370,39 @@ Phases, each printing its own line(s); any failure exits non-zero:
            and nothing else, finite; the logit correlation against the
            fake-quant prefill printed; layer 0's projections against the
            plain versions at M = 256, each shape timed.
+   lm_moe  the MoE family (``models/moe.py``: top-k routing, capacity
+           dispatch and combine, the experts as ``torch.einsum``; only the
+           attention projections integer-deployed, as in the reference).
+           First the reduced Granite-MoE and Qwen3-MoE in float32, dense
+           and W8A8, held to the JAX package's golden runs
+           (``configs/{granite_moe_3b_a800m,qwen3_moe_235b_a22b}_lm_golden.json``:
+           logits within 1e-3 of the largest, greedy tokens and each call's
+           dropped assignments equal), W8A8 launching ``mvu_int`` 4 x 2
+           layers x 4 calls and nothing else.  Then full-width, full-depth
+           Granite-MoE 3B-A800M (32 x 1536, 24 / 8 heads of 64, 40 experts
+           top-8 of d_ff 512, vocab 49,155, bf16; experts 6.04 GB) drawn
+           on the card from a seed, the attention quantized to W8A8 layer
+           by layer, served by ``serve_loop`` on the lm phase's 8 requests
+           (groups of 4, 16 new tokens, ``max_len`` 256): ``mvu_int``
+           exactly 4 x 32 x 17 x 2 times and nothing else, every request
+           answered, the prefill assignments dropped by capacity counted
+           (none may drop at decode); group 0's prefill and decode ms on the
+           host clock (median of 3), tokens/s, peak memory; layer 0's
+           ``moe_ffn`` alone at the decode and the prefill rows by CUDA
+           events, with its share of a step.  Layer 0's four attention
+           projections against the plain version at the decode and each
+           group's prefill rows, each shape timed.  Then full-width
+           Qwen3-MoE 235B-A22B (4096, 64 / 4 heads of 128, qk-norm, 128
+           experts top-8 of d_ff 1536, vocab 151,936) cut to 4 layers
+           (experts 19.3 GB): group 0 prefilled and 4 greedy steps,
+           ``mvu_int`` 4 x 4 x 5 times and nothing else, finite logits;
+           its layer 0's projections as Granite's.  The phase's seconds and
+           peak memory.
 5. the kernels JSON line (each kernel also with its tiles phase's times
    by tile; ``mvu_int``'s launches and times include the qat phase's three
    counted ``acc(x)``; ``mvu_int``'s and ``mvu_binary``'s the pipeline,
-   lm, lm_qat and train phases' counted runs, each launch at its shape), the card's
+   lm, lm_qat, train and lm_moe phases' counted runs, each launch at its
+   shape), the card's
    ``nvidia-smi`` line, and last the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -444,6 +473,12 @@ SERVE_BUCKETS = (1, 8, 32, 128)
 SERVE_SLO_S = 0.05
 SERVE_SEED = 0  # the burst sizes
 CHAOS_REPLICAS = 3
+# the host pause at each side of a traced call: the profiler keeps only the
+# device events inside its active window on the host clock, and the card's
+# timestamps, carried to that clock, can fall milliseconds early, so a short
+# call right at the window's start lost every kernel event in a few traces
+# of a hundred (scripts/trace_window_probe.py)
+TRACE_PAUSE_S = 0.05
 TRACES: list[str] = []  # every report_trace call of this run, by name
 TRACE_RETAKES: list[str] = []  # traces taken again (no device event, or part of them)
 # the hand kernel a device function of the trace belongs to: a substring of
@@ -488,6 +523,14 @@ TRAIN_CKPT_EVERY = 4
 TRAIN_BATCH = 2
 TRAIN_SEQ = 128  # tokens predicted a row; the deployed prefill takes these
 TRAIN_CKPT_BYTES_PER_PARAM = 10  # bf16 param + float32 mu and nu
+# the lm_moe phase: full-width, full-depth Granite-MoE 3B-A800M served under
+# W8A8 on the lm phase's requests, and full-width Qwen3-MoE 235B-A22B cut to
+# a few layers (its 94 layers of bf16 experts are ~454 GB)
+MOE_SERVE_ARCH = "granite-moe-3b-a800m"
+MOE_CUT_ARCH = "qwen3-moe-235b-a22b"
+MOE_CUT_LAYERS = 4
+MOE_CUT_STEPS = 4  # greedy decode steps after the prefill
+MOE_DECODE_CAPACITY = 2.0  # the reference's decode capacity factor
 TRACE_KERNELS = {
     "conv_mvu_kernel": "conv_mvu",
     "Coding<false,false,false>": "mvu_int",
@@ -2220,25 +2263,35 @@ def counted(fn, want: dict, what: str):
     return out
 
 
+def deployed_projections(layer0: dict) -> dict:
+    """A layer's integer-deployed projections by name: the seven of a dense
+    block, the four attention projections of a MoE block (its experts and
+    router stay float)."""
+    from repro_torch.models.layers import PROJ_NAMES
+
+    nodes = layer0["attn"] | layer0.get("ffn", {})
+    return {name: nodes[name] for name in PROJ_NAMES if "values" in nodes.get(name, {})}
+
+
 def projection_rows(layer0: dict, kernel: str, ms, g, tag: str) -> dict:
-    """A deployed layer's seven projections through ``kernel``'s wrapper
-    (``mvu_int`` or ``mvu_binary``) at the blocks ``quantized_linear``
-    passes, at each M of ``ms``: equal to the plain version (raw int32
-    accumulators, then the scale epilogue), each launch shape timed as the
-    kernel phase times a layer (its plan printed).  Returns (kernel, m, n,
-    k) -> (ms, plain_ms, library_ms, bound_ms, bound_by)."""
+    """A deployed layer's projections (:func:`deployed_projections`) through
+    ``kernel``'s wrapper (``mvu_int`` or ``mvu_binary``) at the blocks
+    ``quantized_linear`` passes, at each M of ``ms``: equal to the plain
+    version (raw int32 accumulators, then the scale epilogue), each launch
+    shape timed as the kernel phase times a layer (its plan printed).
+    Returns (kernel, m, n, k) -> (ms, plain_ms, library_ms, bound_ms,
+    bound_by)."""
     import torch
 
     from repro_torch.core.mvu import LINEAR_BLOCKS as blocks
     from repro_torch.kernels import ops, packing
-    from repro_torch.models.layers import PROJ_NAMES
 
     mode = {"mvu_int": "standard", "mvu_binary": "binary"}[kernel]
-    dev = layer0["ffn"]["w_up"]["values"].device
+    nodes = deployed_projections(layer0)
     timed = {}
-    for name in PROJ_NAMES:
-        node = (layer0["attn"] | layer0["ffn"])[name]
+    for name, node in nodes.items():
         w = node["values"]
+        dev = w.device
         if mode == "binary":
             w = packing.bipolar_to_bits(w).to(torch.int8)
         n, k = w.shape
@@ -2859,6 +2912,235 @@ def train_phase(dev, smi: str) -> dict:
     return {"launches": {"mvu_int": n_pre}, "rows": {"mvu_int": rows}}
 
 
+def lm_moe_phase(dev, smi: str) -> dict:
+    """The lm_moe phase (see the module doc): the reduced MoE goldens, the
+    full-width Granite-MoE served by ``serve_loop`` on ``mvu_int`` with
+    its launches and dropped assignments counted, layer 0's ``moe_ffn``
+    timed, full-width Qwen3-MoE at ``MOE_CUT_LAYERS`` layers, and layer 0's
+    attention projections of both against the plain version.  Returns, by
+    kernel, the counted runs' launches and a timing row for each launch."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, lm_golden as G
+    from repro_torch.convert import lm_numpy_params, lm_params_from_numpy
+    from repro_torch.launch.serve import Request, prompt_batch, serve_loop
+    from repro_torch.models import layers as L, moe, transformer as tf
+    from repro_torch.models.model import build
+    from repro_torch.tree import flat_leaves
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    attn_names = ("wq", "wk", "wv", "wo")  # a MoE block's integer-deployed projections
+
+    # (a) the reduced MoE models, float32, against the JAX package's golden runs
+    for arch in G.MOE_ARCHS:
+        golden = G.load_golden(arch)
+        for backend in G.VARIANTS:
+            cfg = G.golden_config(backend, arch)
+            params = lm_params_from_numpy(lm_numpy_params(cfg, G.SEED), dev)
+            if backend != "dense":
+                params = L.quantize_model_params(params, backend)
+            want = {} if backend == "dense" else {
+                "mvu_int": len(attn_names) * cfg.num_layers * (1 + G.DECODE_STEPS)}
+            model = build(cfg, device=dev)
+            got = counted(lambda: G.greedy_run(model, params), want,
+                          f"lm_moe: the {arch} golden run ({backend})")
+            bad = G.mismatch(golden["variants"][backend], got)
+            check(bad is None, f"lm_moe: the reduced {arch} {backend} model on the card differs "
+                  f"from the JAX package's golden run: {bad}")
+            ref = np.asarray(golden["variants"][backend]["logits"], np.float32)
+            print(f"lm_moe: golden: reduced {cfg.name} {backend} float32 on the card, prefill "
+                  f"of {G.BATCH} x {G.PROMPT_LEN} + {G.DECODE_STEPS} greedy steps: max |logit "
+                  f"error| {float(np.abs(got['logits'] - ref).max()):.3e} (bound "
+                  f"{G.LOGIT_ATOL} x {float(np.abs(ref).max()):.4f}), greedy tokens and dropped "
+                  f"assignments by call {got['dropped']} equal the JAX package's; launches "
+                  f"{want or 'none'}", flush=True)
+
+    # (b) full-width, full-depth Granite-MoE, attention integer-deployed,
+    # experts bf16, served by serve_loop
+    cfg = get_config(MOE_SERVE_ARCH).replace(linear_backend=LM_BACKEND)
+    check(LM_BATCH * LM_PROMPT_LENS[1] <= cfg.moe_group_size,
+          "lm_moe: a prefill group must hold at most one routing group of tokens")
+    g = torch.Generator(device=dev).manual_seed(LM_SEED)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build(cfg, device=dev)
+    params = model.init(g, quantize=LM_BACKEND)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    proj = deployed_projections(params["layers"])
+    experts = params["layers"]["moe"]
+    check(tuple(proj) == attn_names and all(
+        p["values"].dtype == torch.int8 and p["values"].shape[0] == cfg.num_layers
+        for p in proj.values()),
+        "lm_moe: the attention projections are not integer-deployed int8 on every layer")
+    check(experts["router"]["w"].dtype == torch.float32
+          and all(experts[k].dtype == torch.bfloat16 for k in ("w_up", "w_gate", "w_down")),
+          "lm_moe: the router must stay float32 and the experts bf16")
+    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+    expert_bytes = nbytes(experts[k] for k in ("w_up", "w_gate", "w_down"))
+    model_bytes = nbytes(flat_leaves(params).values())
+    print(f"lm_moe: full width: {cfg.name} ({cfg.num_layers} layers x {cfg.d_model}, "
+          f"{cfg.num_heads} / {cfg.num_kv_heads} heads of {cfg.head_dim}, {cfg.num_experts} "
+          f"experts top-{cfg.num_experts_per_tok} of d_ff {cfg.moe_d_ff}, vocab "
+          f"{cfg.vocab_size}, {cfg.dtype}) drawn on the card from seed {LM_SEED}, attention "
+          f"quantized to {LM_BACKEND} layer by layer in {init_s:.2f} s: experts "
+          f"{expert_bytes / 1e9:.3f} GB bf16, router float32, the model "
+          f"{model_bytes / 1e9:.3f} GB", flush=True)
+    rng = np.random.default_rng(LM_SEED)
+    lens = rng.integers(LM_PROMPT_LENS[0], LM_PROMPT_LENS[1] + 1, LM_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in lens]
+
+    def requests():
+        return [Request(i, p, LM_MAX_NEW) for i, p in enumerate(prompts)]
+
+    groups = [requests()[i:i + LM_BATCH] for i in range(0, LM_REQUESTS, LM_BATCH)]
+    group_tokens = [prompt_batch(grp) for grp in groups]
+    per_group = len(attn_names) * cfg.num_layers * (1 + LM_MAX_NEW)
+    with G.counting_drops() as drops:
+        t0 = time.perf_counter()
+        done = counted(lambda: serve_loop(model, params, requests(), batch=LM_BATCH,
+                                          max_len=LM_MAX_LEN),
+                       {"mvu_int": per_group * len(groups)},
+                       "lm_moe: serve_loop of Granite-MoE at full width")
+        serve_s = time.perf_counter() - t0
+    check([r.rid for r in done] == list(range(LM_REQUESTS))
+          and all(len(r.out) == LM_MAX_NEW and all(0 <= t < cfg.vocab_size for t in r.out)
+                  for r in done),
+          "lm_moe: serve_loop did not answer every request with its tokens in the vocabulary")
+    # one count a layer a call: each group's prefill, then its decode steps
+    by_call = torch.stack(drops).reshape(len(groups), 1 + LM_MAX_NEW, cfg.num_layers).sum(-1)
+    pre_drops = by_call[:, 0].tolist()
+    pre_assign = [LM_BATCH * t.shape[1] * cfg.num_experts_per_tok * cfg.num_layers
+                  for t in group_tokens]
+    check(int(by_call[:, 1:].sum()) == 0, "lm_moe: a decode step dropped an assignment (its "
+          f"capacity of max(4, ...) slots holds the {LM_BATCH} tokens an expert can get)")
+    print(f"lm_moe: serve_loop: {LM_REQUESTS} requests (prompts {lens.tolist()} tokens) in "
+          f"{len(groups)} groups of {LM_BATCH}, max_new {LM_MAX_NEW}, max_len {LM_MAX_LEN}: "
+          f"every request answered; mvu_int launched {per_group * len(groups)} times = "
+          f"{len(attn_names)} attention projections x {cfg.num_layers} layers x (1 prefill + "
+          f"{LM_MAX_NEW} decode steps) x {len(groups)} groups, nothing else; prefill "
+          f"assignments dropped by capacity {pre_drops} of {pre_assign} by group (capacity "
+          f"factor {cfg.capacity_factor}), none at decode; "
+          f"{LM_REQUESTS * LM_MAX_NEW / serve_s:.2f} tokens/s over the loop's {serve_s:.3f} s "
+          f"(host clock, the first run: no warm-up, a drop count a layer); first tokens "
+          f"{[r.out[:4] for r in done[:2]]}", flush=True)
+
+    # (e) serving times on the host clock, synchronised: group 0's prefill,
+    # then its decode steps
+    toks0 = torch.from_numpy(group_tokens[0])
+    pre, dec = [], []
+    for _ in range(3):
+        state = model.init_decode_state(LM_BATCH, LM_MAX_LEN)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, state = model.prefill(params, {"tokens": toks0}, state)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(LM_MAX_NEW):
+            logits, state = model.decode_step(params, state, torch.argmax(logits, -1))
+        torch.cuda.synchronize()
+        pre.append(t1 - t0)
+        dec.append((time.perf_counter() - t1) / LM_MAX_NEW)
+    check(bool(torch.isfinite(logits).all()) and tuple(logits.shape) == (LM_BATCH,
+                                                                          cfg.vocab_size),
+          f"lm_moe: full-width logits {tuple(logits.shape)} not finite")
+    pre_ms, dec_ms = statistics.median(pre) * 1e3, statistics.median(dec) * 1e3
+    print(f"lm_moe: full width {LM_BACKEND}, group 0 ({LM_BATCH} x {toks0.shape[1]} tokens): "
+          f"prefill {pre_ms:.3f} ms, decode {dec_ms:.3f} ms a step ({LM_BATCH} tokens), "
+          f"{LM_BATCH / dec_ms * 1e3:.2f} decode tokens/s, "
+          f"{LM_BATCH * toks0.shape[1] / pre_ms * 1e3:.1f} prefill tokens/s (host clock, "
+          f"synchronised, median of 3 after the served run); peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated ({smi})", flush=True)
+
+    # (f) layer 0's moe_ffn alone at the decode and the prefill rows, by CUDA
+    # events: the experts' share of a step
+    p0 = tf.layer(params["layers"], 0)["moe"]
+    for what, shape, factor, step_ms in (
+            ("decode", (LM_BATCH, 1), MOE_DECODE_CAPACITY, dec_ms),
+            ("prefill", tuple(toks0.shape), cfg.capacity_factor, pre_ms)):
+        x = torch.randn((*shape, cfg.d_model), generator=g, device=dev).to(torch.bfloat16)
+        ffn_ms = device_ms(lambda: moe.moe_ffn(p0, cfg, x, group_size=cfg.moe_group_size,
+                                               capacity_factor=factor), reps=5)
+        t = shape[0] * shape[1]
+        print(f"lm_moe: layer 0 moe_ffn at the {what} rows ({t} tokens, capacity "
+              f"{moe._capacity(t, cfg.num_experts, cfg.num_experts_per_tok, factor)} slots an "
+              f"expert): {ffn_ms:.4f} ms (CUDA events, median of 5 x 5 calls); x "
+              f"{cfg.num_layers} layers = {ffn_ms * cfg.num_layers / step_ms:.1%} of the "
+              f"{what} step's {step_ms:.3f} ms ({smi})", flush=True)
+
+    # (d) layer 0's attention projections at full width against the plain
+    # version at the decode rows and each group's prefill rows
+    ga = torch.Generator(device=dev).manual_seed(LM_SEED + 4)
+    m_pre = [LM_BATCH * t.shape[1] for t in group_tokens]
+    layer0 = tf.layer(params["layers"], 0)
+    timed = projection_rows(layer0, "mvu_int", {LM_BATCH, *m_pre}, ga, "lm_moe")
+    shapes = [tuple(p["values"].shape) for p in deployed_projections(layer0).values()]
+    rows = []
+    for m in m_pre:
+        for mm, reps in ((m, 1), (LM_BATCH, LM_MAX_NEW)):
+            rows += [timed[("mvu_int", mm, n, k)] for n, k in shapes] * (cfg.num_layers * reps)
+    granite_peak = torch.cuda.max_memory_allocated()
+    del model, params, experts, proj, p0, layer0
+    torch.cuda.empty_cache()
+
+    # (c) full-width Qwen3-MoE cut to MOE_CUT_LAYERS layers: one prefill of
+    # group 0 and MOE_CUT_STEPS greedy decode steps
+    torch.cuda.reset_peak_memory_stats()
+    qcfg = get_config(MOE_CUT_ARCH).replace(num_layers=MOE_CUT_LAYERS,
+                                            linear_backend=LM_BACKEND)
+    t0 = time.perf_counter()
+    qmodel = build(qcfg, device=dev)
+    qparams = qmodel.init(g, quantize=LM_BACKEND)
+    torch.cuda.synchronize()
+    q_init_s = time.perf_counter() - t0
+    q_experts = nbytes(qparams["layers"]["moe"][k] for k in ("w_up", "w_gate", "w_down"))
+
+    def qrun():
+        state = qmodel.init_decode_state(LM_BATCH, LM_MAX_LEN)
+        logits, state = qmodel.prefill(qparams, {"tokens": toks0}, state)
+        for _ in range(MOE_CUT_STEPS):
+            logits, state = qmodel.decode_step(qparams, state, torch.argmax(logits, -1))
+        return logits
+
+    n_q = len(attn_names) * MOE_CUT_LAYERS * (1 + MOE_CUT_STEPS)
+    qlogits = counted(qrun, {"mvu_int": n_q}, f"lm_moe: {qcfg.name} at {MOE_CUT_LAYERS} layers")
+    check(bool(torch.isfinite(qlogits).all())
+          and tuple(qlogits.shape) == (LM_BATCH, qcfg.vocab_size),
+          f"lm_moe: {qcfg.name}'s logits {tuple(qlogits.shape)} are not finite")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qrun()
+    torch.cuda.synchronize()
+    q_s = time.perf_counter() - t0
+    print(f"lm_moe: cut: {qcfg.name} at full width ({qcfg.d_model}, {qcfg.num_heads} / "
+          f"{qcfg.num_kv_heads} heads of {qcfg.head_dim}, qk-norm, {qcfg.num_experts} experts "
+          f"top-{qcfg.num_experts_per_tok} of d_ff {qcfg.moe_d_ff}, vocab {qcfg.vocab_size}) at "
+          f"{MOE_CUT_LAYERS} of its 94 layers, drawn and quantized in {q_init_s:.2f} s "
+          f"(experts {q_experts / 1e9:.3f} GB bf16): prefill of {LM_BATCH} x {toks0.shape[1]} "
+          f"+ {MOE_CUT_STEPS} greedy steps, finite logits {tuple(qlogits.shape)}; mvu_int "
+          f"launched {n_q} times = {len(attn_names)} x {MOE_CUT_LAYERS} layers x "
+          f"{1 + MOE_CUT_STEPS} calls, nothing else; {q_s * 1e3:.3f} ms the run (host clock, "
+          f"synchronised, the second); peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+          f"allocated", flush=True)
+    q0 = tf.layer(qparams["layers"], 0)
+    qtimed = projection_rows(q0, "mvu_int", {LM_BATCH, m_pre[0]}, ga, "lm_moe")
+    qshapes = [tuple(p["values"].shape) for p in deployed_projections(q0).values()]
+    for mm, reps in ((m_pre[0], 1), (LM_BATCH, MOE_CUT_STEPS)):
+        rows += [qtimed[("mvu_int", mm, n, k)] for n, k in qshapes] * (MOE_CUT_LAYERS * reps)
+    del qmodel, qparams, q0
+    torch.cuda.empty_cache()
+
+    launches = {"mvu_int": per_group * len(groups) + n_q}
+    check(len(rows) == launches["mvu_int"], "lm_moe: a row for every launch")
+    print(f"lm_moe: launches of the counted runs {launches}; kernel ms over them "
+          f"{round(sum(r[0] for r in rows), 4)}; phase {time.perf_counter() - t_phase:.2f} s, "
+          f"peak {max(granite_peak, torch.cuda.max_memory_allocated()) / 1e9:.2f} GB "
+          f"allocated ({smi})", flush=True)
+    return {"launches": launches, "rows": {"mvu_int": rows}}
+
+
 def bound_of(nbytes: int, ops: int) -> tuple[float, str]:
     """Least ms the card needs: ``nbytes`` at the HBM rate or ``ops`` at the
     int8 tensor-core peak, whichever is larger."""
@@ -2998,7 +3280,8 @@ def trace_acc(acc, x, label: str) -> dict:
     """One ``torch.profiler`` trace of ``acc(x)`` after two warm-up calls:
     the window, device busy time and idle share, the host split, the top
     device ops, the longest idle gaps and the hand kernels' events beside
-    their launch counters.  Saves the Chrome trace under ``TRACE_DIR``."""
+    their launch counters.  Saves the Chrome trace under ``TRACE_DIR``.
+    The active step sleeps ``TRACE_PAUSE_S`` before and after the call."""
     import gzip
 
     import torch
@@ -3019,11 +3302,14 @@ def trace_acc(acc, x, label: str) -> dict:
         for step in range(2):
             if step == 1:
                 ops.reset_launch_counts()
+                time.sleep(TRACE_PAUSE_S)
             t0 = time.perf_counter()
             with record_function("chip_smoke.acc"):
                 acc(x)
                 torch.cuda.synchronize()
             host_window_ms = (time.perf_counter() - t0) * 1e3
+            if step == 1:
+                time.sleep(TRACE_PAUSE_S)
             prof.step()
     counts = ops.launch_counts()
     with gzip.open(path, "rt") as f:
@@ -3104,14 +3390,14 @@ def take_trace(acc, xp, name: str) -> dict:
     spaces as _>.json.gz``, whose hand-kernel events must equal the launch
     counters of the traced call.
 
-    A trace that holds no device event at all while kernels launched
-    (CUPTI delivered nothing; seen once, in a process's fourth trace, cause
-    unknown) is reported with what it did hold, counted in
-    ``TRACE_RETAKES`` and taken once more; a second such trace in one run
-    fails the script.  So is a trace that holds some of the counted
-    hand-kernel events and none beyond them (seen once, a replay of 576
-    kernels traced with 322 of them, while the replay's output equalled
-    the eager stream's); its retake must hold them all."""
+    A trace that holds no device event at all while kernels launched is
+    reported with what it did hold, counted in ``TRACE_RETAKES`` and taken
+    once more; a second such trace in one run fails the script.  So is a
+    trace that holds some of the counted hand-kernel events and none beyond
+    them; its retake must hold them all.  Both were seen when the traced
+    call began at the profiler's window: the events whose card timestamps
+    fell before the window on the host clock were dropped.
+    ``TRACE_PAUSE_S`` now keeps the call clear of both ends of the window."""
     TRACES.append(name)
     r = trace_acc(acc, xp, name.replace(" ", "_"))
     if r["device_events"] == 0 and any(r["counts"].values()):
@@ -3659,6 +3945,7 @@ def main() -> int:
     lm = lm_phase(dev, smi)
     lm_qat = lm_qat_phase(dev, smi)
     trained = train_phase(dev, smi)
+    moe_lm = lm_moe_phase(dev, smi)
 
     # -------------------------------------------------------- 5. results
     mb = plan.microbatch
@@ -3687,9 +3974,9 @@ def main() -> int:
                 if dense == name:
                     rows += [timing[(entry, CNV_DENSE_M, n, k)] for n, k in cnv_dense] * n_micro
                     n_launches += counts[name]
-            # the pipeline, lm, lm_qat and train phases' counted runs, each launch
-            # at its shape
-            for phase in (piped, lm, lm_qat, trained):
+            # the pipeline, lm, lm_qat, train and lm_moe phases' counted runs,
+            # each launch at its shape
+            for phase in (piped, lm, lm_qat, trained, moe_lm):
                 rows += phase["rows"].get(name, [])
                 n_launches += phase["launches"].get(name, 0)
             if name == "mvu_xnor":  # the packed entry on the same launches, beside it

@@ -1,17 +1,22 @@
-"""The reduced Yi-9B golden run: the JAX package's logits and greedy tokens.
+"""A reduced LM's golden run: the JAX package's logits and greedy tokens.
 
 Usage (from the repo root, JAX on the CPU):
     PYTHONPATH=src python scripts/lm_golden.py            # check the file
     PYTHONPATH=src python scripts/lm_golden.py --write    # (re)write it
+    PYTHONPATH=src python scripts/lm_golden.py --arch granite-moe-3b-a800m --write
     PYTHONPATH=src python scripts/lm_golden.py --bf16-gap # bfloat16 gaps
 
-Runs ``repro.models.model.build(get_reduced("yi-9b"))`` in float32 on the
-tree of ``repro_torch.convert.lm_numpy_params(cfg, SEED)`` -- dense, and
-after ``quantize_model_params(params, "mvu_w8a8")`` -- through ``prefill``
-of a seeded prompt batch and three greedy ``decode_step``s
-(``repro_torch.configs.lm_golden``).  The result is
-``src/repro_torch/configs/yi_9b_lm_golden.json``; ``tests/test_torch_lm.py``
-and ``chip_smoke.py`` hold the port to it.
+Runs ``repro.models.model.build(get_reduced(arch))`` (``--arch``, one of
+``lm_golden.LM_GOLDENS``; default ``yi-9b``) in float32 on the tree of
+``repro_torch.convert.lm_numpy_params(cfg, SEED)`` -- dense, and after
+``quantize_model_params(params, "mvu_w8a8")`` -- through ``prefill`` of a
+seeded prompt batch and three greedy ``decode_step``s
+(``repro_torch.configs.lm_golden``).  For a MoE arch it also counts, for
+each call, the token-to-expert assignments the routing dropped for
+capacity (a ``jax.debug.callback`` on each ``dispatch_combine``).  The
+result is ``lm_golden.golden_path(arch)`` under
+``src/repro_torch/configs/``; ``tests/test_torch_lm.py``,
+``tests/test_torch_lm_moe.py`` and ``chip_smoke.py`` hold the port to it.
 
 ``--bf16-gap`` prints, for the reduced model in bfloat16 at three seeds,
 the prefill logits' max |difference| over the largest logit and 1 -
@@ -29,40 +34,69 @@ import sys
 import numpy as np
 
 
-def jax_run(backend: str) -> dict:
+def jax_run(backend: str, arch: str) -> dict:
     import jax
     import jax.numpy as jnp
 
+    import repro.models.moe as moe
     from repro.configs import get_reduced
     from repro.models.layers import quantize_model_params
     from repro.models.model import build
     from repro_torch.configs import lm_golden as G
     from repro_torch.convert import lm_numpy_params
 
-    cfg = get_reduced(G.ARCH).replace(dtype="float32", remat=False, linear_backend=backend)
+    cfg = get_reduced(arch).replace(dtype="float32", remat=False, linear_backend=backend)
     params = jax.tree.map(jnp.asarray, lm_numpy_params(cfg, G.SEED))
     if backend != "dense":
         params = quantize_model_params(params, backend)
     model = build(cfg)
-    state = model.init_decode_state(G.BATCH, G.MAX_LEN)
-    logits, state = model.prefill(params, {"tokens": jnp.asarray(G.prompt_tokens())}, state)
-    outs, toks = [], []
-    for step in range(G.DECODE_STEPS + 1):
-        outs.append(np.asarray(logits, np.float32))
-        nxt = jnp.argmax(logits, -1)
-        toks.append(np.asarray(nxt))
-        if step < G.DECODE_STEPS:
-            logits, state = model.decode_step(params, state, nxt)
-    return {"logits": np.stack(outs).tolist(), "tokens": np.stack(toks, axis=1).tolist()}
+
+    # each dispatch_combine's dropped assignments, wherever it is traced
+    drops = []
+    inner = moe.dispatch_combine
+
+    def counted(idx, weights, e, capacity):
+        dispatch, combine = inner(idx, weights, e, capacity)
+        jax.debug.callback(lambda i, d: drops.append(int(i.size - np.count_nonzero(d))),
+                           idx, dispatch)
+        return dispatch, combine
+
+    dropped = []
+
+    def call(fn, *args):
+        mark = len(drops)
+        out = jax.block_until_ready(fn(*args))
+        jax.effects_barrier()
+        dropped.append(sum(drops[mark:]))
+        return out
+
+    moe.dispatch_combine = counted
+    try:
+        state = model.init_decode_state(G.BATCH, G.MAX_LEN)
+        logits, state = call(model.prefill, params,
+                             {"tokens": jnp.asarray(G.prompt_tokens(cfg.vocab_size))}, state)
+        outs, toks = [], []
+        for step in range(G.DECODE_STEPS + 1):
+            outs.append(np.asarray(logits, np.float32))
+            nxt = jnp.argmax(logits, -1)
+            toks.append(np.asarray(nxt))
+            if step < G.DECODE_STEPS:
+                logits, state = call(model.decode_step, params, state, nxt)
+    finally:
+        moe.dispatch_combine = inner
+    run = {"logits": np.stack(outs).tolist(), "tokens": np.stack(toks, axis=1).tolist()}
+    if cfg.is_moe:
+        run["dropped"] = dropped
+    return run
 
 
-def golden() -> dict:
+def golden(arch: str) -> dict:
     from repro_torch.configs import lm_golden as G
 
-    return {"arch": G.ARCH, "seed": G.SEED, "token_seed": G.TOKEN_SEED, "batch": G.BATCH,
+    return {"arch": arch, "seed": G.SEED, "token_seed": G.TOKEN_SEED, "batch": G.BATCH,
             "prompt_len": G.PROMPT_LEN, "max_len": G.MAX_LEN,
             "decode_steps": G.DECODE_STEPS, "dtype": "float32",
-            "variants": {b: jax_run(b) for b in G.VARIANTS}}
+            "variants": {b: jax_run(b, arch) for b in G.VARIANTS}}
 
 
 def bf16_gap() -> None:
@@ -111,9 +145,11 @@ def bf16_gap() -> None:
 
 
 def main(argv=None) -> int:
-    from repro_torch.configs.lm_golden import GOLDEN, load_golden
+    from repro_torch.configs.lm_golden import ARCH, LM_GOLDENS, golden_path, load_golden
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default=ARCH, choices=LM_GOLDENS,
+                    help="the reduced arch whose golden run to check or write")
     ap.add_argument("--write", action="store_true", help="rewrite the golden file")
     ap.add_argument("--bf16-gap", action="store_true",
                     help="print the bfloat16 gaps between compiled JAX, op-by-op JAX and the "
@@ -122,14 +158,14 @@ def main(argv=None) -> int:
     if args.bf16_gap:
         bf16_gap()
         return 0
-    digest = golden()
+    digest = golden(args.arch)
     if args.write:
-        with open(GOLDEN, "w") as f:
+        with open(golden_path(args.arch), "w") as f:
             json.dump(digest, f, sort_keys=True)
             f.write("\n")
-        print(f"wrote {GOLDEN}")
+        print(f"wrote {golden_path(args.arch)}")
         return 0
-    same = load_golden() == json.loads(json.dumps(digest))
+    same = load_golden(args.arch) == json.loads(json.dumps(digest))
     print("golden run matches" if same else "golden run DIFFERS")
     return 0 if same else 1
 

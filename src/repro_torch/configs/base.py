@@ -3,9 +3,9 @@
 families: dense | moe | ssm | hybrid | vlm | audio
 
 The port of the JAX package's ``repro/configs/base.py``, field for field.
-The port's models run the dense family only (``models/transformer.py``);
-the other families' fields are kept so every config and its parameter
-counts equal the reference's.
+The port's models run the dense and MoE families (``models/transformer.py``,
+``models/moe.py``); the other families' fields are kept so every config
+and its parameter counts equal the reference's.
 """
 
 from __future__ import annotations

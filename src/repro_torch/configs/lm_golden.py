@@ -1,14 +1,18 @@
-"""The reduced Yi-9B's golden runs: the JAX package's logits and greedy
-tokens for one fixed prompt batch, its QAT loss and gradients for one
-fixed training batch, and the tolerances the port is held to.
+"""The reduced LMs' golden runs: the JAX package's logits and greedy
+tokens for one fixed prompt batch, the reduced Yi-9B's QAT loss and
+gradients for one fixed training batch and its training steps, and the
+tolerances the port is held to.
 
-``scripts/lm_golden.py`` writes ``GOLDEN`` (``yi_9b_lm_golden.json``) with
-the JAX package on the CPU: ``get_reduced("yi-9b")`` in float32 from
+``scripts/lm_golden.py [--arch ARCH]`` writes :func:`golden_path` of an
+arch of ``LM_GOLDENS`` (``yi_9b_lm_golden.json`` for ``ARCH``, the default)
+with the JAX package on the CPU: ``get_reduced(arch)`` in float32 from
 ``convert.lm_numpy_params(cfg, SEED)``, a (BATCH, PROMPT_LEN) prompt from
 ``np.random.default_rng(TOKEN_SEED)``, then ``prefill`` and
 ``DECODE_STEPS`` greedy ``decode_step``s, for each variant in
 ``VARIANTS``: the dense projections and ``quantize_model_params(params,
-"mvu_w8a8")``.  The tests (on the CPU) and ``chip_smoke.py`` (on the card)
+"mvu_w8a8")``.  A MoE arch's file also records, for each call, how many
+token-to-expert assignments the routing dropped for capacity
+(``dropped``).  The tests (on the CPU) and ``chip_smoke.py`` (on the card)
 run the port the same way (:func:`greedy_run`) and hold it to the file
 with :func:`mismatch`.
 
@@ -34,6 +38,7 @@ moments.  The port's side is :func:`train_run`, held to the file with
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 
@@ -46,8 +51,10 @@ from repro_torch.launch.train import make_train_step
 from repro_torch.optim import adamw
 from repro_torch.tree import flat_leaves
 
-GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "yi_9b_lm_golden.json")
 ARCH = "yi-9b"
+# the archs with a golden run of prefill and decode; the MoE family's two
+LM_GOLDENS = ("yi-9b", "granite-moe-3b-a800m", "qwen3-moe-235b-a22b")
+MOE_ARCHS = LM_GOLDENS[1:]
 SEED = 0  # lm_numpy_params
 TOKEN_SEED = 1
 BATCH = 2
@@ -85,43 +92,93 @@ TRAIN_LR_RTOL = 1e-6
 TRAIN_ATOL = 1e-4
 
 
-def golden_config(backend: str = "dense"):
-    """The golden run's config, and the train golden's: the reduced Yi-9B in
-    float32 under ``backend``, remat off."""
-    return get_reduced(ARCH).replace(dtype="float32", remat=False, linear_backend=backend)
+def golden_path(arch: str = ARCH) -> str:
+    """The golden run's file of ``arch`` (one of ``LM_GOLDENS``)."""
+    if arch not in LM_GOLDENS:
+        raise KeyError(f"no LM golden run for {arch!r}; there is one for {LM_GOLDENS}")
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        arch.replace("-", "_").replace(".", "_") + "_lm_golden.json")
 
 
-def prompt_tokens() -> np.ndarray:
+GOLDEN = golden_path()
+
+
+def golden_config(backend: str = "dense", arch: str = ARCH):
+    """The golden run's config, and the train golden's: the reduced ``arch``
+    in float32 under ``backend``, remat off."""
+    return get_reduced(arch).replace(dtype="float32", remat=False, linear_backend=backend)
+
+
+def prompt_tokens(vocab_size: int | None = None) -> np.ndarray:
+    """The golden prompt batch over ``vocab_size`` tokens (default: the
+    reduced Yi-9B's)."""
     return np.random.default_rng(TOKEN_SEED).integers(
-        0, golden_config().vocab_size, (BATCH, PROMPT_LEN)).astype(np.int32)
+        0, vocab_size or golden_config().vocab_size, (BATCH, PROMPT_LEN)).astype(np.int32)
 
 
-def load_golden() -> dict:
-    with open(GOLDEN) as f:
+def load_golden(arch: str = ARCH) -> dict:
+    with open(golden_path(arch)) as f:
         return json.load(f)
+
+
+@contextlib.contextmanager
+def counting_drops():
+    """While open, each ``moe.dispatch_combine`` call of the port's MoE FFN
+    appends to the yielded list the number of its token-to-expert
+    assignments that no capacity slot took (a 0-d tensor on the routing's
+    device: no host sync)."""
+    from repro_torch.models import moe
+
+    inner = moe.dispatch_combine
+    drops = []
+
+    def counted(idx, weights, e, capacity):
+        dispatch, combine = inner(idx, weights, e, capacity)
+        drops.append(idx.numel() - torch.count_nonzero(dispatch))
+        return dispatch, combine
+
+    moe.dispatch_combine = counted
+    try:
+        yield drops
+    finally:
+        moe.dispatch_combine = inner
 
 
 def greedy_run(model, params) -> dict:
     """The golden run on the port: ``prefill`` of :func:`prompt_tokens`, then
     ``DECODE_STEPS`` greedy ``decode_step``s; float32 numpy logits of each
     call (``logits[0]`` the prefill's) and the greedy tokens, (BATCH,
-    1 + DECODE_STEPS)."""
-    state = model.init_decode_state(BATCH, MAX_LEN)
-    logits, state = model.prefill(params, {"tokens": prompt_tokens()}, state)
-    outs, toks = [], []
-    for step in range(DECODE_STEPS + 1):
-        outs.append(logits.to(torch.float32).cpu().numpy())
-        nxt = torch.argmax(logits, -1)
-        toks.append(nxt.cpu().numpy())
-        if step < DECODE_STEPS:
-            logits, state = model.decode_step(params, state, nxt)
-    return {"logits": np.stack(outs), "tokens": np.stack(toks, axis=1)}
+    1 + DECODE_STEPS); for a MoE model also each call's dropped
+    assignments (:func:`counting_drops`)."""
+    dropped = []
+    with counting_drops() as drops:
+        def call(fn, *args):
+            mark = len(drops)
+            out = fn(*args)
+            dropped.append(int(sum(drops[mark:])))
+            return out
+
+        state = model.init_decode_state(BATCH, MAX_LEN)
+        logits, state = call(model.prefill, params,
+                             {"tokens": prompt_tokens(model.cfg.vocab_size)}, state)
+        outs, toks = [], []
+        for step in range(DECODE_STEPS + 1):
+            outs.append(logits.to(torch.float32).cpu().numpy())
+            nxt = torch.argmax(logits, -1)
+            toks.append(nxt.cpu().numpy())
+            if step < DECODE_STEPS:
+                logits, state = call(model.decode_step, params, state, nxt)
+    run = {"logits": np.stack(outs), "tokens": np.stack(toks, axis=1)}
+    if model.cfg.is_moe:
+        run["dropped"] = dropped
+    return run
 
 
 def mismatch(want: dict, got: dict) -> str | None:
     """None if ``got`` meets the float32 parity contract against ``want``
     (both ``greedy_run``-shaped): every call's logits within ``LOGIT_ATOL``
-    times the reference's largest magnitude, and the greedy tokens equal;
+    times the reference's largest magnitude, the greedy tokens equal and,
+    where ``want`` counts them, each call's dropped assignments equal;
     else what differs."""
     ref, out = np.asarray(want["logits"], np.float32), np.asarray(got["logits"], np.float32)
     if ref.shape != out.shape:
@@ -132,6 +189,8 @@ def mismatch(want: dict, got: dict) -> str | None:
         return f"max |logit error| {err:.3e} > {bound:.3e}"
     if not np.array_equal(np.asarray(want["tokens"]), np.asarray(got["tokens"])):
         return f"greedy tokens {np.asarray(got['tokens']).tolist()}, want {want['tokens']}"
+    if "dropped" in want and list(got.get("dropped", ())) != list(want["dropped"]):
+        return f"dropped assignments by call {got.get('dropped')}, want {want['dropped']}"
     return None
 
 

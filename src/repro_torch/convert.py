@@ -22,9 +22,10 @@ the port never imports JAX.
 
 An LM's parameter tree crosses the same way: ``lm_params_from_numpy(tree,
 device)`` takes the JAX package's tree as nested dicts of numpy arrays
-(``np.asarray`` on each leaf) and returns the port's, leaf for leaf;
-``lm_numpy_params(cfg, seed)`` draws a dense decoder's tree in that layout
-with numpy alone, so both packages can start from the same weights.  An
+(``np.asarray`` on each leaf) and returns the port's, leaf for leaf (a
+MoE router given in float32 stays float32 in a bfloat16 tree);
+``lm_numpy_params(cfg, seed)`` draws a dense or MoE decoder's tree in that
+layout with numpy alone, so both packages can start from the same weights.  An
 AdamW state (``adamw.init`` / ``update``'s ``{"mu", "nu", "step"}``)
 crosses by ``opt_state_from_numpy(state, device)``, and any port tree
 goes back by ``numpy_tree(tree)``, so both packages can also carry on
@@ -41,7 +42,7 @@ from repro_torch.core.ir import Graph, Node
 from repro_torch.core.mvu import KernelBlocks, MVUConfig, MVUParams
 from repro_torch.kernels.ops import BACKEND_NAMES
 from repro_torch.models.layers import is_gated
-from repro_torch.models.transformer import require_dense
+from repro_torch.models.transformer import require_ported
 from repro_torch.tree import tree_map
 
 
@@ -126,13 +127,15 @@ def numpy_tree(tree):
 
 
 def lm_numpy_params(cfg, seed: int = 0) -> dict:
-    """A dense decoder's parameters in the JAX package's layout (the tree
-    its ``build(cfg).init`` returns, layers stacked on a leading axis) as
-    float32 numpy arrays from ``np.random.default_rng(seed)``: each
+    """A dense or MoE decoder's parameters in the JAX package's layout (the
+    tree its ``build(cfg).init`` returns, layers stacked on a leading axis)
+    as float32 numpy arrays from ``np.random.default_rng(seed)``: each
     projection ``normal / sqrt(fan_in)``, the embedding ``normal * 0.02``,
-    the norms at their init (scale 1, bias 0).  The config's dtype is the
-    caller's cast."""
-    require_dense(cfg)
+    the norms at their init (scale 1, bias 0).  A MoE block holds
+    ``moe/{router/w (L, d, E), w_up (L, E, d, f), w_gate (L, E, d, f),
+    w_down (L, E, f, d)}`` in place of ``ffn``.  The config's dtype is the
+    caller's cast, which leaves a MoE router float32."""
+    require_ported(cfg)
     rng = np.random.default_rng(seed)
     n_layers, d, hd, ff = cfg.num_layers, cfg.d_model, cfg.head_dim, cfg.d_ff
 
@@ -152,13 +155,20 @@ def lm_numpy_params(cfg, seed: int = 0) -> dict:
             "wo": {"w": dense(n_layers, cfg.num_heads * hd, d)}}
     if cfg.qk_norm:
         attn["qnorm"], attn["knorm"] = norm(n_layers, hd), norm(n_layers, hd)
-    ffn = {"w_up": {"w": dense(n_layers, d, ff)}, "w_down": {"w": dense(n_layers, ff, d)}}
-    if is_gated(cfg.activation):
-        ffn["w_gate"] = {"w": dense(n_layers, d, ff)}
-    params = {"embed": {"table": table},
-              "layers": {"ln1": norm(n_layers, d), "ln2": norm(n_layers, d), "attn": attn,
-                         "ffn": ffn},
-              "ln_f": norm(d)}
+    layers = {"ln1": norm(n_layers, d), "ln2": norm(n_layers, d), "attn": attn}
+    if cfg.is_moe:
+        e, f = cfg.num_experts, cfg.moe_d_ff
+        moe = {"router": {"w": dense(n_layers, d, e)}, "w_up": dense(n_layers, e, d, f),
+               "w_down": dense(n_layers, e, f, d)}
+        if is_gated(cfg.activation):
+            moe["w_gate"] = dense(n_layers, e, d, f)
+        layers["moe"] = moe
+    else:
+        ffn = {"w_up": {"w": dense(n_layers, d, ff)}, "w_down": {"w": dense(n_layers, ff, d)}}
+        if is_gated(cfg.activation):
+            ffn["w_gate"] = {"w": dense(n_layers, d, ff)}
+        layers["ffn"] = ffn
+    params = {"embed": {"table": table}, "layers": layers, "ln_f": norm(d)}
     if not cfg.tie_embeddings:
         params["unembed"] = {"w": dense(d, cfg.vocab_size)}
     return params

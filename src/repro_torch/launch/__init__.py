@@ -4,8 +4,8 @@ Ported so far:
 
 * :mod:`repro_torch.launch.serve` -- ``serve_loop`` and its ``Request``,
   the LM's batched prefill-and-decode loop over
-  :mod:`repro_torch.models` (integer-deployed projections on the hand
-  MVU kernels); ``EngineServer``, the deprecated request-coalescing shim
+  :mod:`repro_torch.models`, dense and MoE decoders (integer-deployed
+  projections on the hand MVU kernels, a MoE block's experts float); ``EngineServer``, the deprecated request-coalescing shim
   over :class:`repro_torch.serving.ContinuousBatcher`, and its
   ``EngineRequest``;
 * :mod:`repro_torch.launch.nid_qat` -- the paper's Section 6.5 flow (the
@@ -13,7 +13,8 @@ Ported so far:
   build into the integer MVU chain and run on the hand-written kernels),
   the counterpart of the JAX package's ``benchmarks/nid_mlp.py``;
 * :mod:`repro_torch.launch.train` -- ``make_train_step``, one AdamW
-  training step of the LM (``Model.loss``, its gradients, ``adamw.update``).
+  training step of the LM (``Model.loss``, its gradients, ``adamw.update``;
+  a MoE model's loss adds its load-balancing term).
 
 Not ported yet (ROADMAP queue A item 7): the rest of ``train.py``
 (``shard_train_step``, ``init_sharded``, ``train_loop``, ``main``) and

@@ -1,5 +1,6 @@
 """Model facade: build(config) -> init / loss / prefill / decode_step; the
-port of the JAX package's ``repro/models/model.py`` for the dense decoder.
+port of the JAX package's ``repro/models/model.py`` for the dense and MoE
+decoders.
 
     batch (train): {"tokens": (B, S+1) int}
     batch (serving prefill): {"tokens": (B, S) int}
@@ -9,9 +10,12 @@ port of the JAX package's ``repro/models/model.py`` for the dense decoder.
 card, and raises when CUDA is absent (pass ``device="cpu"`` to run the
 kernels' plain versions).  ``loss`` is the QAT forward: under an ``mvu_*``
 backend on float params every projection runs ``linear``'s fake-quant arm,
-and ``torch.autograd`` gives the STE gradients; ``launch/train.py``'s
-``make_train_step`` adds the AdamW step (``optim/adamw.py``), and the train
-loop waits for ROADMAP queue A item 7, step 3c.
+and ``torch.autograd`` gives the STE gradients (a MoE model's experts and
+router stay float under every backend, as in the reference, and its loss
+adds ``cfg.aux_loss_weight`` times the summed load-balancing loss);
+``launch/train.py``'s ``make_train_step`` adds the AdamW step
+(``optim/adamw.py``), and the train loop waits for ROADMAP queue A item 7,
+step 3c.
 """
 
 from __future__ import annotations
@@ -69,7 +73,7 @@ def _device(device) -> torch.device:
 
 
 def build(cfg: ModelConfig, device=None) -> Model:
-    tf.require_dense(cfg)
+    tf.require_ported(cfg)
     device = _device(device)
     dt = getattr(torch, cfg.dtype)
 
@@ -101,10 +105,12 @@ def build(cfg: ModelConfig, device=None) -> Model:
     # ----------------------------------------------------------------- loss
     def loss(params, batch):
         """(total, {"ce", "aux"}) of next-token prediction on ``batch["tokens"]``
-        (B, S+1): ``total = ce + cfg.aux_loss_weight * aux``.  Only the dense
-        family builds (``build`` raises for the encoder-decoder and VLM
-        configs, naming ROADMAP item 7, step 4), so the reference's
-        encoder-decoder and VLM-prefix branches have no counterpart here."""
+        (B, S+1): ``total = ce + cfg.aux_loss_weight * aux``, ``aux`` the MoE
+        blocks' summed load-balancing loss (0 for the dense family).  Only
+        the dense and MoE families build (``build`` raises for the
+        encoder-decoder and VLM configs, naming ROADMAP item 7, step 4), so
+        the reference's encoder-decoder and VLM-prefix branches have no
+        counterpart here."""
         tokens = torch.as_tensor(batch["tokens"], device=device)
         inputs, targets = tokens[:, :-1], tokens[:, 1:]
         b, s = inputs.shape

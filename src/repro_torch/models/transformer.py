@@ -1,6 +1,7 @@
-"""Transformer assembly, dense family: the uniform decoder stack (its
-training forward, with ``remat``), its serving prefill and its KV-cache
-decode; the port of the JAX package's ``repro/models/transformer.py``.
+"""Transformer assembly, dense and MoE families: the uniform decoder stack
+(its training forward, with ``remat``), its serving prefill and its
+KV-cache decode; the port of the JAX package's
+``repro/models/transformer.py``.
 
 Per-layer params are stacked on a leading layer axis, as the reference's
 scanned stacks are; the port walks that axis in a Python loop.  With
@@ -8,7 +9,11 @@ scanned stacks are; the port walks that axis in a Python loop.  With
 ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` with
 ``nothing_saveable``): the same values, only a block's input kept for the
 backward.  The KV caches are stacked the same way, once, and each layer
-writes its slice in place.  The other families -- MoE, SSM, the hybrid interleave (Jamba), the
+writes its slice in place.  A MoE block (``cfg.is_moe``) holds ``"moe"``
+(``models/moe.py``) in place of ``"ffn"``: the training forward and the
+prefill route with ``cfg.capacity_factor``, the decode step with 2.0, as
+the reference does, and each block's load-balancing loss is summed in
+float32.  The other families -- SSM, the hybrid interleave (Jamba), the
 VLM backbone (M-RoPE) and encoder-decoder (Whisper) -- raise
 ``NotImplementedError`` (ROADMAP queue A item 7, step 4).
 """
@@ -38,14 +43,15 @@ from repro_torch.models.layers import (
     rmsnorm_init,
     with_column_scales,
 )
+from repro_torch.models.moe import moe_ffn, moe_init
 
 
-def require_dense(cfg) -> None:
+def require_ported(cfg) -> None:
     """Raise for a config of a family the port does not run yet."""
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe") or cfg.is_hybrid:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported; the port runs the "
-            "dense decoder (MoE, SSM, hybrid, VLM and encoder-decoder wait for "
+            "dense and MoE decoders (SSM, hybrid, VLM and encoder-decoder wait for "
             "ROADMAP queue A item 7, step 4)")
 
 
@@ -103,19 +109,34 @@ def ffn(p: Params, cfg, x: torch.Tensor, *, backend: str = "dense") -> torch.Ten
 
 # ------------------------------------------------------------ uniform block
 def block_init(generator, cfg, dtype, device) -> Params:
-    require_dense(cfg)
-    return {"ln1": _norm_init(cfg, dtype, device), "ln2": _norm_init(cfg, dtype, device),
-            "attn": attn_init(generator, cfg, dtype, device),
-            "ffn": ffn_init(generator, cfg, dtype, device)}
+    require_ported(cfg)
+    p = {"ln1": _norm_init(cfg, dtype, device), "ln2": _norm_init(cfg, dtype, device),
+         "attn": attn_init(generator, cfg, dtype, device)}
+    if cfg.is_moe:
+        p["moe"] = moe_init(generator, cfg, dtype, device)
+    else:
+        p["ffn"] = ffn_init(generator, cfg, dtype, device)
+    return p
+
+
+def _block_ffn(p, cfg, x, capacity_factor):
+    """The block's FFN half on ``ln2(x)``: (y, aux), aux the MoE FFN's
+    load-balancing loss, or None for a dense FFN."""
+    h = _norm(cfg, p["ln2"], x)
+    if cfg.is_moe:
+        return moe_ffn(p["moe"], cfg, h, group_size=cfg.moe_group_size,
+                       capacity_factor=capacity_factor)
+    return ffn(p["ffn"], cfg, h, backend=cfg.linear_backend), None
 
 
 def block_forward(p, cfg, x, positions, *, causal=True):
-    require_dense(cfg)
-    be = cfg.linear_backend
+    require_ported(cfg)
     x = x + attention(p["attn"], cfg, _norm(cfg, p["ln1"], x), positions,
-                      causal=causal, backend=be)
-    x = x + ffn(p["ffn"], cfg, _norm(cfg, p["ln2"], x), backend=be)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+                      causal=causal, backend=cfg.linear_backend)
+    y, aux = _block_ffn(p, cfg, x, cfg.capacity_factor)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + y, aux
 
 
 # --------------------------------------------------------------- stacks
@@ -150,7 +171,7 @@ def stack_forward(params, cfg, x, positions, *, causal=True):
 
 # --------------------------------------------------------------- decode path
 def init_block_cache(cfg, batch: int, max_len: int, dtype, device):
-    require_dense(cfg)
+    require_ported(cfg)
     return init_kv_cache(cfg, batch, max_len, dtype, device)
 
 
@@ -160,13 +181,12 @@ def init_stack_caches(cfg, batch: int, max_len: int, dtype=torch.bfloat16, devic
 
 
 def _block_decode(p, cfg, x, pos, cache):
-    require_dense(cfg)
+    require_ported(cfg)
     be = cfg.linear_backend
     y, cache = attention_decode(p["attn"], cfg, _norm(cfg, p["ln1"], x), pos, cache,
                                 backend=be)
     x = x + y
-    x = x + ffn(p["ffn"], cfg, _norm(cfg, p["ln2"], x), backend=be)
-    return x, cache
+    return x + _block_ffn(p, cfg, x, 2.0)[0], cache
 
 
 def stack_decode(params, cfg, x, pos, caches):
@@ -179,13 +199,12 @@ def stack_decode(params, cfg, x, pos, caches):
 
 def _block_prefill(p, cfg, x, positions, cache):
     """Full-seq pass that fills caches (serving prefill)."""
-    require_dense(cfg)
+    require_ported(cfg)
     be = cfg.linear_backend
     y, cache = attention_prefill(p["attn"], cfg, _norm(cfg, p["ln1"], x), positions, cache,
                                  backend=be)
     x = x + y
-    x = x + ffn(p["ffn"], cfg, _norm(cfg, p["ln2"], x), backend=be)
-    return x, cache
+    return x + _block_ffn(p, cfg, x, cfg.capacity_factor)[0], cache
 
 
 def stack_prefill(params, cfg, x, positions, caches):

@@ -926,6 +926,70 @@ def test_lm_golden_run_on_the_card(cuda, backend):
     assert G.mismatch(G.load_golden()["variants"][backend], got) is None
 
 
+@pytest.mark.parametrize("backend", ["dense", "mvu_w8a8"])
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "qwen3-moe-235b-a22b"])
+def test_moe_lm_golden_run_on_the_card(cuda, arch, backend):
+    """The reduced MoE archs in float32 on the card against the JAX
+    package's golden runs, each call's dropped assignments included; W8A8
+    launches ``mvu_int`` for the four attention projections only."""
+    from repro_torch.configs import lm_golden as G
+    from repro_torch.convert import lm_numpy_params, lm_params_from_numpy
+    from repro_torch.models.layers import quantize_model_params
+    from repro_torch.models.model import build as build_lm
+
+    cfg = G.golden_config(backend, arch)
+    params = lm_params_from_numpy(lm_numpy_params(cfg, G.SEED), cuda)
+    if backend != "dense":
+        params = quantize_model_params(params, backend)
+    ops.reset_launch_counts()
+    got = G.greedy_run(build_lm(cfg, device=cuda), params)
+    torch.cuda.synchronize()
+    n = 0 if backend == "dense" else 4 * cfg.num_layers * (1 + G.DECODE_STEPS)
+    assert ops.launch_counts() == {k: n if k == "mvu_int" else 0 for k in ops.launch_counts()}
+    assert G.mismatch(G.load_golden(arch)["variants"][backend], got) is None
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("tokens", [(4, 1), (4, 114)])
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "qwen3-moe-235b-a22b"])
+def test_moe_ffn_on_the_card_equals_the_cpu(cuda, arch, tokens, dtype):
+    """``moe_ffn`` of one layer at the full width's expert count, top-k and
+    ``moe_d_ff`` (d cut to 256) at the decode and a prefill's rows: the
+    routing on the card equal to the CPU's, the output within 1e-5 of the
+    largest CPU magnitude in float32 (TF32 off) and within 2e-2,
+    correlation >= 0.999, in bfloat16; no hand kernel launched."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = get_config(arch).replace(d_model=256, dtype=dtype)
+    dt = getattr(torch, dtype)
+    p = moe.moe_init(torch.Generator().manual_seed(0), cfg, dt)
+    x = torch.from_numpy(np.random.default_rng(1).normal(0, 0.5, (*tokens, cfg.d_model))
+                         .astype(np.float32)).to(dt)
+    factor = 2.0 if tokens[1] == 1 else cfg.capacity_factor
+    logits = x.reshape(-1, cfg.d_model).float() @ p["router"]["w"]
+    want_idx = moe.route_topk(logits, cfg.num_experts_per_tok)[1]
+    got_idx = moe.route_topk(logits.to(cuda), cfg.num_experts_per_tok)[1]
+    assert torch.equal(got_idx.cpu(), want_idx)
+    want, want_aux = moe.moe_ffn(p, cfg, x, group_size=cfg.moe_group_size,
+                                 capacity_factor=factor)
+    pc = {k: ({"w": v["w"].to(cuda)} if k == "router" else v.to(cuda)) for k, v in p.items()}
+    ops.reset_launch_counts()
+    got, aux = moe.moe_ffn(pc, cfg, x.to(cuda), group_size=cfg.moe_group_size,
+                           capacity_factor=factor)
+    torch.cuda.synchronize()
+    assert set(ops.launch_counts().values()) == {0}
+    assert got.dtype == dt and got.device.type == cuda.type
+    ref, out = want.float().numpy(), got.float().cpu().numpy()
+    if dtype == "float32":
+        assert np.abs(out - ref).max() <= 1e-5 * np.abs(ref).max()
+    else:
+        assert np.corrcoef(ref.ravel(), out.ravel())[0, 1] >= 0.999
+        assert np.abs(out - ref).max() <= 2e-2 * np.abs(ref).max()
+    assert abs(aux.item() - want_aux.item()) <= 1e-5 * want_aux.item()
+
+
 @pytest.mark.parametrize("backend", ["dense", "mvu_w8a8", "mvu_binary"])
 def test_lm_qat_golden_on_the_card(cuda, backend):
     """The reduced Yi-9B's QAT loss and gradients in float32 (remat on) on
