@@ -398,11 +398,37 @@ Phases, each printing its own line(s); any failure exits non-zero:
            ``mvu_int`` 4 x 4 x 5 times and nothing else, finite logits;
            its layer 0's projections as Granite's.  The phase's seconds and
            peak memory.
+   lm_ssm  the SSM family (``models/ssm.py``: the chunked SSD, the causal
+           convs, the O(1) recurrent decode step).  No SSM projection is in
+           ``PROJ_NAMES``, so none is integer-deployed and under W8A8 each
+           takes ``linear``'s fake-quant arm, as in the reference: the
+           phase launches no kernel, every run counted to hold that.
+           First the reduced mamba2 in float32, dense and W8A8, held to the
+           JAX package's golden run (``configs/mamba2_780m_lm_golden.json``:
+           logits within 1e-3 of the largest, greedy tokens equal).  Then
+           full-width, full-depth mamba2-780m (48 x 1536, d_inner 3072, 48
+           heads of 64, state 128, chunk 128, vocab 50,280, bf16) drawn on
+           the card from a seed with ``init(g, quantize="mvu_w8a8")``, every
+           projection still a float ``{"w"}`` and ``A_log`` / ``D`` /
+           ``dt_bias`` float32, served by ``serve_loop`` on the lm phase's 8
+           requests: every request answered; group 0's prefill and decode ms
+           on the host clock (median of 3), tokens/s, the model's bytes and
+           peak memory; the decode step again under ``dense`` on the same
+           weights (the gap is what the fake-quant arm costs a step); layer
+           0's ``ssm_prefill`` and ``ssm_decode_step`` (both backends) by
+           CUDA events.  Then ``ssd_chunked`` at full-width shapes across
+           chunks (B = 4, S = 300: two chunks and a part; H = 48, P = 64,
+           N = 128), float32 against a float64 step recurrence on the card:
+           y and the final state within 1e-4 of their largest magnitude.
+           Then full-width mamba2-780m in float32 (dense, 3.1 GB): a prefill
+           of 2 x 300 tokens against a prefill of 296 and 4 decode steps,
+           within the reference's rtol = atol = 2e-2, argmax equal.  The
+           phase's seconds and peak memory.
 5. the kernels JSON line (each kernel also with its tiles phase's times
    by tile; ``mvu_int``'s launches and times include the qat phase's three
    counted ``acc(x)``; ``mvu_int``'s and ``mvu_binary``'s the pipeline,
    lm, lm_qat, train and lm_moe phases' counted runs, each launch at its
-   shape), the card's
+   shape; the lm_ssm phase's add none), the card's
    ``nvidia-smi`` line, and last the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -531,6 +557,20 @@ MOE_CUT_ARCH = "qwen3-moe-235b-a22b"
 MOE_CUT_LAYERS = 4
 MOE_CUT_STEPS = 4  # greedy decode steps after the prefill
 MOE_DECODE_CAPACITY = 2.0  # the reference's decode capacity factor
+# the lm_ssm phase: full-width, full-depth mamba2-780m served on the lm
+# phase's requests (its projections on linear's fake-quant arm: none is in
+# PROJ_NAMES), ssd_chunked at full-width shapes, and prefill + decode
+# against one long prefill in float32
+SSM_ARCH = "mamba2-780m"
+SSM_PROJ = ("w_z", "w_x", "w_B", "w_C", "w_dt", "out_proj")
+SSM_FLOAT32 = ("A_log", "D", "dt_bias")
+SSD_CHECK = (4, 300)  # (B, S): two whole chunks of 128 and a partial one
+# y and the final state within SSD_ATOL of their largest magnitude: the
+# bound tests/test_ssm.py holds the reference to its recurrence; float32
+# on the CPU reaches 4.9e-6 (y) and 2.0e-6 (state) at these shapes, B = 1
+SSD_ATOL = 1e-4
+SSM_LONG = (2, 300, 4)  # (B, S, decode steps): a prefill of S against S - 4 + steps
+SSM_LONG_TOL = 2e-2  # the reference's test_prefill_decode_matches_forward
 TRACE_KERNELS = {
     "conv_mvu_kernel": "conv_mvu",
     "Coding<false,false,false>": "mvu_int",
@@ -3141,6 +3181,240 @@ def lm_moe_phase(dev, smi: str) -> dict:
     return {"launches": launches, "rows": {"mvu_int": rows}}
 
 
+def ssd_recurrence(x, dt, a_log, b_mat, c_mat):
+    """The SSD as its step recurrence in float64 on the inputs' device (the
+    port of ``tests/test_ssm.py::_naive_recurrence``): (y (B, S, H, P),
+    final state (B, H, P, N))."""
+    import torch
+
+    f64 = torch.float64
+    a = -torch.exp(a_log.to(f64))
+    x, dt, b_mat, c_mat = (t.to(f64) for t in (x, dt, b_mat, c_mat))
+    bsz, s, h, p = x.shape
+    rep = h // b_mat.shape[2]
+    state = torch.zeros((bsz, h, p, b_mat.shape[3]), dtype=f64, device=x.device)
+    ys = torch.empty((bsz, s, h, p), dtype=f64, device=x.device)
+    for t in range(s):
+        bh = b_mat[:, t].repeat_interleave(rep, dim=1)
+        ch = c_mat[:, t].repeat_interleave(rep, dim=1)
+        state = state * torch.exp(dt[:, t] * a)[..., None, None] + (
+            dt[:, t][..., None, None] * x[:, t][..., None] * bh[:, :, None, :])
+        ys[:, t] = torch.einsum("bhpn,bhn->bhp", state, ch)
+    return ys, state
+
+
+def lm_ssm_phase(dev, smi: str) -> dict:
+    """The lm_ssm phase (see the module doc): the reduced mamba2's golden,
+    full-width, full-depth mamba2-780m served by ``serve_loop`` with layer
+    0's prefill and decode step timed, ``ssd_chunked`` at full-width shapes
+    against the float64 recurrence, and prefill + decode against one long
+    prefill in float32.  Every run is counted: no kernel launches.  Returns
+    the (empty) launches and rows by kernel, as the other LM phases do."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, lm_golden as G
+    from repro_torch.configs.base import ssm_dims
+    from repro_torch.convert import lm_numpy_params, lm_params_from_numpy
+    from repro_torch.launch.serve import Request, prompt_batch, serve_loop
+    from repro_torch.models import layers as L, ssm, transformer as tf
+    from repro_torch.models.model import build
+    from repro_torch.tree import flat_leaves
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+
+    # (a) the reduced mamba2, float32, against the JAX package's golden run
+    golden = G.load_golden(SSM_ARCH)
+    for backend in G.VARIANTS:
+        cfg = G.golden_config(backend, SSM_ARCH)
+        params = lm_params_from_numpy(lm_numpy_params(cfg, G.SEED), dev)
+        if backend != "dense":
+            params = L.quantize_model_params(params, backend)
+        model = build(cfg, device=dev)
+        got = counted(lambda: G.greedy_run(model, params), {},
+                      f"lm_ssm: the {SSM_ARCH} golden run ({backend})")
+        bad = G.mismatch(golden["variants"][backend], got)
+        check(bad is None, f"lm_ssm: the reduced {SSM_ARCH} {backend} model on the card "
+              f"differs from the JAX package's golden run: {bad}")
+        ref = np.asarray(golden["variants"][backend]["logits"], np.float32)
+        print(f"lm_ssm: golden: reduced {cfg.name} {backend} float32 on the card, prefill of "
+              f"{G.BATCH} x {G.PROMPT_LEN} + {G.DECODE_STEPS} greedy steps: max |logit error| "
+              f"{float(np.abs(got['logits'] - ref).max()):.3e} (bound {G.LOGIT_ATOL} x "
+              f"{float(np.abs(ref).max()):.4f}), greedy tokens equal the JAX package's; no "
+              f"kernel launched", flush=True)
+
+    # (b) full-width, full-depth mamba2-780m, bf16, served by serve_loop
+    cfg = get_config(SSM_ARCH).replace(linear_backend=LM_BACKEND)
+    d_inner, nheads, _ = ssm_dims(cfg)
+    g = torch.Generator(device=dev).manual_seed(LM_SEED)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build(cfg, device=dev)
+    params = model.init(g, quantize=LM_BACKEND)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    blk = params["layers"]["ssm"]
+    check(all(set(blk[k]) == {"w"} and blk[k]["w"].dtype == torch.bfloat16
+              and blk[k]["w"].shape[0] == cfg.num_layers for k in SSM_PROJ),
+          f"lm_ssm: an SSM projection is not a float bf16 {{'w'}} on every layer after "
+          f"init(quantize={LM_BACKEND!r}) (none is in PROJ_NAMES)")
+    check(all(blk[k].dtype == torch.float32 for k in SSM_FLOAT32),
+          f"lm_ssm: {SSM_FLOAT32} must stay float32 in a bf16 model")
+    leaves = flat_leaves(params).values()
+    model_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    n_params = sum(t.numel() for t in leaves)
+    print(f"lm_ssm: full width: {cfg.name} ({cfg.num_layers} layers x {cfg.d_model}, d_inner "
+          f"{d_inner}, {nheads} heads of {cfg.ssm_headdim}, state {cfg.ssm_state}, conv "
+          f"{cfg.ssm_conv}, chunk {cfg.ssd_chunk}, vocab {cfg.vocab_size}, tied embeddings, "
+          f"{cfg.dtype}) drawn on the card from seed {LM_SEED} with init(quantize="
+          f"{LM_BACKEND!r}) in {init_s:.2f} s: {n_params:,} parameters, {model_bytes / 1e9:.3f} "
+          f"GB; every projection ({', '.join(SSM_PROJ)}) a float bf16 {{'w'}}, "
+          f"{'/'.join(SSM_FLOAT32)} float32", flush=True)
+    rng = np.random.default_rng(LM_SEED)
+    lens = rng.integers(LM_PROMPT_LENS[0], LM_PROMPT_LENS[1] + 1, LM_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in lens]
+
+    def requests():
+        return [Request(i, p, LM_MAX_NEW) for i, p in enumerate(prompts)]
+
+    groups = [requests()[i:i + LM_BATCH] for i in range(0, LM_REQUESTS, LM_BATCH)]
+    toks0 = torch.from_numpy(prompt_batch(groups[0]))
+    t0 = time.perf_counter()
+    done = counted(lambda: serve_loop(model, params, requests(), batch=LM_BATCH,
+                                      max_len=LM_MAX_LEN),
+                   {}, "lm_ssm: serve_loop of mamba2-780m at full width")
+    serve_s = time.perf_counter() - t0
+    check([r.rid for r in done] == list(range(LM_REQUESTS))
+          and all(len(r.out) == LM_MAX_NEW and all(0 <= t < cfg.vocab_size for t in r.out)
+                  for r in done),
+          "lm_ssm: serve_loop did not answer every request with its tokens in the vocabulary")
+    print(f"lm_ssm: serve_loop: {LM_REQUESTS} requests (prompts {lens.tolist()} tokens) in "
+          f"{len(groups)} groups of {LM_BATCH}, max_new {LM_MAX_NEW}, max_len {LM_MAX_LEN} "
+          f"(ignored by the SSM cache): every request answered, no kernel launched; "
+          f"{LM_REQUESTS * LM_MAX_NEW / serve_s:.2f} tokens/s over the loop's {serve_s:.3f} s "
+          f"(host clock, the first run: no warm-up); first tokens "
+          f"{[r.out[:4] for r in done[:2]]}", flush=True)
+
+    # (e) serving times on the host clock, synchronised: group 0's prefill,
+    # then its decode steps, under W8A8 (the fake-quant arm) and under dense
+    # on the same weights
+    dense_model = build(cfg.replace(linear_backend="dense"), device=dev)
+    times = {}
+    for what, m in ((LM_BACKEND, model), ("dense", dense_model)):
+        pre, dec = [], []
+        for _ in range(3):
+            state = m.init_decode_state(LM_BATCH, LM_MAX_LEN)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, state = m.prefill(params, {"tokens": toks0}, state)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(LM_MAX_NEW):
+                logits, state = m.decode_step(params, state, torch.argmax(logits, -1))
+            torch.cuda.synchronize()
+            pre.append(t1 - t0)
+            dec.append((time.perf_counter() - t1) / LM_MAX_NEW)
+        check(bool(torch.isfinite(logits).all())
+              and tuple(logits.shape) == (LM_BATCH, cfg.vocab_size),
+              f"lm_ssm: full-width {what} logits {tuple(logits.shape)} not finite")
+        times[what] = (statistics.median(pre) * 1e3, statistics.median(dec) * 1e3)
+    pre_ms, dec_ms = times[LM_BACKEND]
+    print(f"lm_ssm: full width {LM_BACKEND}, group 0 ({LM_BATCH} x {toks0.shape[1]} tokens): "
+          f"prefill {pre_ms:.3f} ms, decode {dec_ms:.3f} ms a step ({LM_BATCH} tokens), "
+          f"{LM_BATCH / dec_ms * 1e3:.2f} decode tokens/s, "
+          f"{LM_BATCH * toks0.shape[1] / pre_ms * 1e3:.1f} prefill tokens/s; dense on the same "
+          f"weights: prefill {times['dense'][0]:.3f} ms, decode {times['dense'][1]:.3f} ms a "
+          f"step: the fake-quant arm costs {dec_ms - times['dense'][1]:.3f} ms a step (host "
+          f"clock, synchronised, median of 3 after the served run); the model "
+          f"{model_bytes / 1e9:.3f} GB, peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+          f"allocated ({smi})", flush=True)
+
+    # (f) layer 0's ssm_prefill and ssm_decode_step alone, by CUDA events
+    p0 = tf.layer(params["layers"], 0)["ssm"]
+    x = torch.randn((*toks0.shape, cfg.d_model), generator=g, device=dev).to(torch.bfloat16)
+    x1 = torch.randn((LM_BATCH, 1, cfg.d_model), generator=g, device=dev).to(torch.bfloat16)
+    prefill0 = lambda: ssm.ssm_prefill(p0, cfg, x, chunk=cfg.ssd_chunk, backend=LM_BACKEND)
+    cache0 = prefill0()[1]
+    layer_ms = {"prefill": device_ms(prefill0, reps=5)}
+    for be in (LM_BACKEND, "dense"):
+        layer_ms[be] = device_ms(lambda: ssm.ssm_decode_step(p0, cfg, x1, cache0, backend=be),
+                                 reps=5)
+    print(f"lm_ssm: layer 0 ssm_prefill ({LM_BATCH} x {toks0.shape[1]} tokens, {LM_BACKEND}) "
+          f"{layer_ms['prefill']:.4f} ms, x {cfg.num_layers} layers = "
+          f"{layer_ms['prefill'] * cfg.num_layers / pre_ms:.1%} of the prefill's {pre_ms:.3f} ms; "
+          f"ssm_decode_step ({LM_BATCH} tokens) {layer_ms[LM_BACKEND]:.4f} ms under "
+          f"{LM_BACKEND}, {layer_ms['dense']:.4f} ms under dense, x {cfg.num_layers} layers = "
+          f"{layer_ms[LM_BACKEND] * cfg.num_layers / dec_ms:.1%} of the decode step's "
+          f"{dec_ms:.3f} ms (CUDA events, median of 5 x 5 calls; {smi})", flush=True)
+    del model, dense_model, params, blk, p0, cache0, leaves
+    torch.cuda.empty_cache()
+
+    # (c) ssd_chunked at full-width shapes across chunks against the float64
+    # step recurrence
+    bsz, s = SSD_CHECK
+    gc = torch.Generator(device=dev).manual_seed(LM_SEED + 5)
+    rnd = lambda *shape: torch.randn(shape, generator=gc, device=dev)
+    xs, dts = rnd(bsz, s, nheads, cfg.ssm_headdim), ssm.softplus(rnd(bsz, s, nheads))
+    a_log = torch.rand((nheads,), generator=gc, device=dev)
+    bm, cm = rnd(bsz, s, cfg.ssm_groups, cfg.ssm_state), rnd(bsz, s, cfg.ssm_groups,
+                                                              cfg.ssm_state)
+    ssd = lambda: ssm.ssd_chunked(xs, dts, a_log, bm, cm, chunk=cfg.ssd_chunk)
+    y, st = counted(ssd, {}, "lm_ssm: ssd_chunked at full width")
+    y_ref, st_ref = ssd_recurrence(xs, dts, a_log, bm, cm)
+    errs = [float((got.double() - want).abs().max() / want.abs().max())
+            for got, want in ((y, y_ref), (st, st_ref))]
+    check(all(e <= SSD_ATOL for e in errs),
+          f"lm_ssm: ssd_chunked (y, state) off the float64 recurrence by {errs} of the largest, "
+          f"bound {SSD_ATOL}")
+    ssd_ms = device_ms(ssd, reps=5)
+    print(f"lm_ssm: ssd_chunked float32 at B={bsz} S={s} (chunk {cfg.ssd_chunk}: "
+          f"{-(-s // cfg.ssd_chunk)} chunks, the last padded) H={nheads} P={cfg.ssm_headdim} "
+          f"N={cfg.ssm_state}: y and the final state within {errs[0]:.3e} and {errs[1]:.3e} of "
+          f"their largest magnitude of the float64 step recurrence (bound {SSD_ATOL}); "
+          f"{ssd_ms:.4f} ms (CUDA events, median of 5 x 5 calls)", flush=True)
+    del xs, dts, bm, cm, y, st, y_ref, st_ref
+
+    # (d) full width in float32: one prefill of S tokens against a prefill of
+    # S - steps and steps decode steps
+    bsz, s, steps = SSM_LONG
+    fcfg = get_config(SSM_ARCH).replace(dtype="float32")
+    fmodel = build(fcfg, device=dev)
+    fparams = fmodel.init(g)
+    toks = torch.from_numpy(np.random.default_rng(LM_SEED + 6).integers(
+        0, fcfg.vocab_size, (bsz, s)).astype(np.int32))
+
+    def one_prefill():
+        return fmodel.prefill(fparams, {"tokens": toks}, fmodel.init_decode_state(bsz, s))[0]
+
+    def prefill_then_decode():
+        logits, state = fmodel.prefill(fparams, {"tokens": toks[:, :s - steps]},
+                                       fmodel.init_decode_state(bsz, s))
+        for t in range(s - steps, s):
+            logits, state = fmodel.decode_step(fparams, state, toks[:, t].to(dev))
+        return logits
+
+    full = counted(one_prefill, {}, "lm_ssm: the long prefill")
+    part = counted(prefill_then_decode, {}, "lm_ssm: prefill + decode")
+    err = float((part - full).abs().max())
+    close = bool(torch.allclose(part, full, rtol=SSM_LONG_TOL, atol=SSM_LONG_TOL))
+    same = bool(torch.equal(part.argmax(-1), full.argmax(-1)))
+    check(close and same, f"lm_ssm: prefill of {s - steps} + {steps} decode steps differs from "
+          f"one prefill of {s}: max |logit error| {err:.3e} (rtol = atol = {SSM_LONG_TOL}), "
+          f"argmax equal {same}")
+    f_bytes = sum(t.numel() * t.element_size() for t in flat_leaves(fparams).values())
+    print(f"lm_ssm: full width float32 ({f_bytes / 1e9:.3f} GB), dense: a prefill of {bsz} x {s - steps} + {steps} decode steps gives one "
+          f"prefill of {bsz} x {s}'s logits: max |error| {err:.3e} of largest "
+          f"{float(full.abs().max()):.4f} (rtol = atol = {SSM_LONG_TOL}), argmax equal; no "
+          f"kernel launched", flush=True)
+    del fmodel, fparams, full, part
+    torch.cuda.empty_cache()
+    print(f"lm_ssm: phase {time.perf_counter() - t_phase:.2f} s, peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated since (b) ({smi})",
+          flush=True)
+    return {"launches": {}, "rows": {}}
+
+
 def bound_of(nbytes: int, ops: int) -> tuple[float, str]:
     """Least ms the card needs: ``nbytes`` at the HBM rate or ``ops`` at the
     int8 tensor-core peak, whichever is larger."""
@@ -3946,6 +4220,7 @@ def main() -> int:
     lm_qat = lm_qat_phase(dev, smi)
     trained = train_phase(dev, smi)
     moe_lm = lm_moe_phase(dev, smi)
+    ssm_lm = lm_ssm_phase(dev, smi)
 
     # -------------------------------------------------------- 5. results
     mb = plan.microbatch
@@ -3974,9 +4249,9 @@ def main() -> int:
                 if dense == name:
                     rows += [timing[(entry, CNV_DENSE_M, n, k)] for n, k in cnv_dense] * n_micro
                     n_launches += counts[name]
-            # the pipeline, lm, lm_qat, train and lm_moe phases' counted runs,
-            # each launch at its shape
-            for phase in (piped, lm, lm_qat, trained, moe_lm):
+            # the pipeline, lm, lm_qat, train, lm_moe and lm_ssm phases'
+            # counted runs, each launch at its shape (lm_ssm's: none)
+            for phase in (piped, lm, lm_qat, trained, moe_lm, ssm_lm):
                 rows += phase["rows"].get(name, [])
                 n_launches += phase["launches"].get(name, 0)
             if name == "mvu_xnor":  # the packed entry on the same launches, beside it

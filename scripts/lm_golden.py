@@ -4,7 +4,9 @@ Usage (from the repo root, JAX on the CPU):
     PYTHONPATH=src python scripts/lm_golden.py            # check the file
     PYTHONPATH=src python scripts/lm_golden.py --write    # (re)write it
     PYTHONPATH=src python scripts/lm_golden.py --arch granite-moe-3b-a800m --write
+    PYTHONPATH=src python scripts/lm_golden.py --arch mamba2-780m --write
     PYTHONPATH=src python scripts/lm_golden.py --bf16-gap # bfloat16 gaps
+    PYTHONPATH=src python scripts/lm_golden.py --bf16-gap --arch mamba2-780m
 
 Runs ``repro.models.model.build(get_reduced(arch))`` (``--arch``, one of
 ``lm_golden.LM_GOLDENS``; default ``yi-9b``) in float32 on the tree of
@@ -16,9 +18,12 @@ each call, the token-to-expert assignments the routing dropped for
 capacity (a ``jax.debug.callback`` on each ``dispatch_combine``).  The
 result is ``lm_golden.golden_path(arch)`` under
 ``src/repro_torch/configs/``; ``tests/test_torch_lm.py``,
-``tests/test_torch_lm_moe.py`` and ``chip_smoke.py`` hold the port to it.
+``tests/test_torch_lm_moe.py``, ``tests/test_torch_lm_ssm.py`` and
+``chip_smoke.py`` hold the port to it.
 
-``--bf16-gap`` prints, for the reduced model in bfloat16 at three seeds,
+``--bf16-gap`` prints, for the reduced ``--arch`` in bfloat16 (the leaves
+``convert.FLOAT32_LEAVES`` kept float32, as the reference's init keeps
+them) at three seeds,
 the prefill logits' max |difference| over the largest logit and 1 -
 correlation between the JAX package compiled (its ``lax.scan`` layer
 loop), the JAX package op by op (``jax.disable_jit()``) and the port on
@@ -99,7 +104,7 @@ def golden(arch: str) -> dict:
             "variants": {b: jax_run(b, arch) for b in G.VARIANTS}}
 
 
-def bf16_gap() -> None:
+def bf16_gap(arch: str) -> None:
     import jax
     import jax.numpy as jnp
     import torch
@@ -108,7 +113,7 @@ def bf16_gap() -> None:
     from repro.models.layers import quantize_model_params
     from repro.models.model import build
     from repro_torch.configs import get_reduced as port_reduced
-    from repro_torch.convert import lm_numpy_params, lm_params_from_numpy
+    from repro_torch.convert import cast_numpy_params, lm_numpy_params, lm_params_from_numpy
     from repro_torch.models import layers as port_layers
     from repro_torch.models.model import build as port_build
 
@@ -119,10 +124,9 @@ def bf16_gap() -> None:
     for backend in ("dense", "mvu_w8a8", "mvu_binary"):
         for seed in range(3):
             kw = dict(dtype="bfloat16", remat=False, linear_backend=backend)
-            cfg = get_reduced("yi-9b").replace(**kw)
-            jp = jax.tree.map(lambda a: jnp.asarray(a).astype("bfloat16"),
-                              lm_numpy_params(cfg, seed))
-            tp = lm_params_from_numpy(jax.tree.map(np.asarray, jp))
+            cfg = get_reduced(arch).replace(**kw)
+            tree = cast_numpy_params(lm_numpy_params(cfg, seed), jnp.bfloat16)
+            jp, tp = jax.tree.map(jnp.asarray, tree), lm_params_from_numpy(tree)
             if backend != "dense":
                 jp = quantize_model_params(jp, backend)
                 tp = port_layers.quantize_model_params(tp, backend)
@@ -135,11 +139,11 @@ def bf16_gap() -> None:
                                            model.init_decode_state(2, 32))
                 logits.append(np.asarray(out.astype(jnp.float32)))
             op_by_op, compiled = logits
-            pm = port_build(port_reduced("yi-9b").replace(**kw), device="cpu")
+            pm = port_build(port_reduced(arch).replace(**kw), device="cpu")
             port, _ = pm.prefill(tp, {"tokens": toks.astype(np.int32)},
                                  pm.init_decode_state(2, 32))
             port = port.to(torch.float32).numpy()
-            print(f"bf16 {backend} seed {seed}: max|d|/max|ref| / 1-corr: JAX compiled vs op "
+            print(f"bf16 {arch} {backend} seed {seed}: max|d|/max|ref| / 1-corr: JAX compiled vs op "
                   f"by op {gap(compiled, op_by_op)}; port vs compiled {gap(compiled, port)}; "
                   f"port vs op by op {gap(op_by_op, port)}")
 
@@ -149,14 +153,15 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default=ARCH, choices=LM_GOLDENS,
-                    help="the reduced arch whose golden run to check or write")
+                    help="the reduced arch whose golden run to check or write (or whose "
+                         "bfloat16 gaps to print)")
     ap.add_argument("--write", action="store_true", help="rewrite the golden file")
     ap.add_argument("--bf16-gap", action="store_true",
                     help="print the bfloat16 gaps between compiled JAX, op-by-op JAX and the "
                          "port instead")
     args = ap.parse_args(argv)
     if args.bf16_gap:
-        bf16_gap()
+        bf16_gap(args.arch)
         return 0
     digest = golden(args.arch)
     if args.write:

@@ -3,8 +3,9 @@
 families: dense | moe | ssm | hybrid | vlm | audio
 
 The port of the JAX package's ``repro/configs/base.py``, field for field.
-The port's models run the dense and MoE families (``models/transformer.py``,
-``models/moe.py``); the other families' fields are kept so every config
+The port's models run the dense, MoE and SSM families
+(``models/transformer.py``, ``models/moe.py``, ``models/ssm.py``); the
+other families' fields are kept so every config
 and its parameter counts equal the reference's.
 """
 

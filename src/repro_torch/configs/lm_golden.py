@@ -52,9 +52,11 @@ from repro_torch.optim import adamw
 from repro_torch.tree import flat_leaves
 
 ARCH = "yi-9b"
-# the archs with a golden run of prefill and decode; the MoE family's two
-LM_GOLDENS = ("yi-9b", "granite-moe-3b-a800m", "qwen3-moe-235b-a22b")
-MOE_ARCHS = LM_GOLDENS[1:]
+# the archs with a golden run of prefill and decode: the dense Yi-9B, the
+# MoE family's two and the SSM family's one
+MOE_ARCHS = ("granite-moe-3b-a800m", "qwen3-moe-235b-a22b")
+SSM_ARCH = "mamba2-780m"
+LM_GOLDENS = ("yi-9b", *MOE_ARCHS, SSM_ARCH)
 SEED = 0  # lm_numpy_params
 TOKEN_SEED = 1
 BATCH = 2

@@ -23,9 +23,11 @@ the port never imports JAX.
 An LM's parameter tree crosses the same way: ``lm_params_from_numpy(tree,
 device)`` takes the JAX package's tree as nested dicts of numpy arrays
 (``np.asarray`` on each leaf) and returns the port's, leaf for leaf (a
-MoE router given in float32 stays float32 in a bfloat16 tree);
-``lm_numpy_params(cfg, seed)`` draws a dense or MoE decoder's tree in that
-layout with numpy alone, so both packages can start from the same weights.  An
+leaf given in float32 stays float32 in a bfloat16 tree);
+``lm_numpy_params(cfg, seed)`` draws a dense, MoE or SSM decoder's tree in
+that layout with numpy alone, so both packages can start from the same
+weights, and ``cast_numpy_params(tree, dtype)`` casts it to a model's dtype
+but for the leaves the reference keeps float32 (``FLOAT32_LEAVES``).  An
 AdamW state (``adamw.init`` / ``update``'s ``{"mu", "nu", "step"}``)
 crosses by ``opt_state_from_numpy(state, device)``, and any port tree
 goes back by ``numpy_tree(tree)``, so both packages can also carry on
@@ -37,6 +39,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ssm_dims
 from repro_torch.core.folding import Folding
 from repro_torch.core.ir import Graph, Node
 from repro_torch.core.mvu import KernelBlocks, MVUConfig, MVUParams
@@ -126,18 +129,42 @@ def numpy_tree(tree):
     return tree_map(leaf, tree)
 
 
+# the leaves the reference keeps float32 in a model of any dtype: a MoE
+# block's router, an SSM block's A_log, D and dt_bias
+FLOAT32_LEAVES = ("router", "A_log", "D", "dt_bias")
+
+
+def keeps_float32(path: str) -> bool:
+    """Whether the leaf at ``path`` ("layers/moe/router/w") stays float32
+    whatever the model's dtype."""
+    return any(k in FLOAT32_LEAVES for k in path.split("/"))
+
+
+def cast_numpy_params(tree: dict, dtype) -> dict:
+    """A float32 numpy tree (:func:`lm_numpy_params`'s) in a model's
+    ``dtype`` (a numpy dtype, e.g. ``ml_dtypes.bfloat16``), each leaf of
+    :func:`keeps_float32` left float32, as the reference's init leaves it."""
+    def walk(node, prefix):
+        return {k: walk(v, f"{prefix}{k}/") if isinstance(v, dict)
+                else v if keeps_float32(prefix + k) else np.asarray(v).astype(dtype)
+                for k, v in node.items()}
+
+    return walk(tree, "")
+
+
 def lm_numpy_params(cfg, seed: int = 0) -> dict:
-    """A dense or MoE decoder's parameters in the JAX package's layout (the
-    tree its ``build(cfg).init`` returns, layers stacked on a leading axis)
-    as float32 numpy arrays from ``np.random.default_rng(seed)``: each
-    projection ``normal / sqrt(fan_in)``, the embedding ``normal * 0.02``,
-    the norms at their init (scale 1, bias 0).  A MoE block holds
+    """A dense, MoE or SSM decoder's parameters in the JAX package's layout
+    (the tree its ``build(cfg).init`` returns, layers stacked on a leading
+    axis) as float32 numpy arrays from ``np.random.default_rng(seed)``:
+    each projection ``normal / sqrt(fan_in)``, the embedding ``normal *
+    0.02``, the norms at their init (scale 1, bias 0).  A MoE block holds
     ``moe/{router/w (L, d, E), w_up (L, E, d, f), w_gate (L, E, d, f),
-    w_down (L, E, f, d)}`` in place of ``ffn``.  The config's dtype is the
-    caller's cast, which leaves a MoE router float32."""
+    w_down (L, E, f, d)}`` in place of ``ffn``.  An SSM block holds
+    ``ln1`` and ``ssm`` (:func:`_ssm_numpy_params`) and no ``ln2``.  The
+    config's dtype is the caller's cast (:func:`cast_numpy_params`)."""
     require_ported(cfg)
     rng = np.random.default_rng(seed)
-    n_layers, d, hd, ff = cfg.num_layers, cfg.d_model, cfg.head_dim, cfg.d_ff
+    d = cfg.d_model
 
     def dense(*shape):  # (..., fan_in, fan_out)
         return rng.standard_normal(shape, dtype=np.float32) / np.float32(np.sqrt(shape[-2]))
@@ -149,6 +176,18 @@ def lm_numpy_params(cfg, seed: int = 0) -> dict:
         return p
 
     table = rng.standard_normal((cfg.vocab_size, d), dtype=np.float32) * np.float32(0.02)
+    params = {"embed": {"table": table}, "layers": _layers_numpy_params(cfg, rng, dense, norm),
+              "ln_f": norm(d)}
+    if not cfg.tie_embeddings:
+        params["unembed"] = {"w": dense(d, cfg.vocab_size)}
+    return params
+
+
+def _layers_numpy_params(cfg, rng, dense, norm) -> dict:
+    """The stacked layers of :func:`lm_numpy_params`, drawn on ``rng``."""
+    n_layers, d, hd, ff = cfg.num_layers, cfg.d_model, cfg.head_dim, cfg.d_ff
+    if cfg.family == "ssm":
+        return {"ln1": norm(n_layers, d), "ssm": _ssm_numpy_params(cfg, rng, dense)}
     attn = {"wq": {"w": dense(n_layers, d, cfg.num_heads * hd)},
             "wk": {"w": dense(n_layers, d, cfg.num_kv_heads * hd)},
             "wv": {"w": dense(n_layers, d, cfg.num_kv_heads * hd)},
@@ -168,7 +207,36 @@ def lm_numpy_params(cfg, seed: int = 0) -> dict:
         if is_gated(cfg.activation):
             ffn["w_gate"] = {"w": dense(n_layers, d, ff)}
         layers["ffn"] = ffn
-    params = {"embed": {"table": table}, "layers": layers, "ln_f": norm(d)}
-    if not cfg.tie_embeddings:
-        params["unembed"] = {"w": dense(d, cfg.vocab_size)}
-    return params
+    return layers
+
+
+def _ssm_numpy_params(cfg, rng, dense) -> dict:
+    """An SSM layer stack's ``ssm`` node in the reference's layout:
+    ``{w_z, w_x, w_B, w_C, w_dt, out_proj}/w (L, in, out)``,
+    ``conv_{x,B,C}/{w (L, K, C) normal * 0.2, b (L, C) zero}`` with
+    ``conv_C`` equal to ``conv_B`` (the reference draws both from one
+    key), ``A_log`` = log(1..H), ``D`` = 1 and ``dt_bias`` =
+    log(expm1(0.01)), each (L, H), and ``norm/scale`` (L, d_inner) ones."""
+    n_layers, d = cfg.num_layers, cfg.d_model
+    d_inner, nheads, _ = ssm_dims(cfg)
+    gn = cfg.ssm_groups * cfg.ssm_state
+
+    def conv(c):
+        w = rng.standard_normal((n_layers, cfg.ssm_conv, c), dtype=np.float32) * np.float32(0.2)
+        return {"w": w, "b": np.zeros((n_layers, c), np.float32)}
+
+    per_head = lambda v: np.broadcast_to(np.asarray(v, np.float32), (n_layers, nheads)).copy()
+    conv_bc = conv(gn)
+    return {"w_z": {"w": dense(n_layers, d, d_inner)},
+            "w_x": {"w": dense(n_layers, d, d_inner)},
+            "w_B": {"w": dense(n_layers, d, gn)},
+            "w_C": {"w": dense(n_layers, d, gn)},
+            "w_dt": {"w": dense(n_layers, d, nheads)},
+            "conv_x": conv(d_inner),
+            "conv_B": conv_bc,
+            "conv_C": {k: v.copy() for k, v in conv_bc.items()},
+            "A_log": per_head(np.log(np.arange(1, nheads + 1, dtype=np.float32))),
+            "D": per_head(np.ones(nheads, np.float32)),
+            "dt_bias": per_head(np.log(np.expm1(np.full(nheads, 0.01, np.float32)))),
+            "norm": {"scale": np.ones((n_layers, d_inner), np.float32)},
+            "out_proj": {"w": dense(n_layers, d_inner, d)}}

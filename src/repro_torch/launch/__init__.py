@@ -4,8 +4,9 @@ Ported so far:
 
 * :mod:`repro_torch.launch.serve` -- ``serve_loop`` and its ``Request``,
   the LM's batched prefill-and-decode loop over
-  :mod:`repro_torch.models`, dense and MoE decoders (integer-deployed
-  projections on the hand MVU kernels, a MoE block's experts float); ``EngineServer``, the deprecated request-coalescing shim
+  :mod:`repro_torch.models`, dense, MoE and SSM decoders (integer-deployed
+  attention and FFN projections on the hand MVU kernels, a MoE block's
+  experts and an SSM block's projections float); ``EngineServer``, the deprecated request-coalescing shim
   over :class:`repro_torch.serving.ContinuousBatcher`, and its
   ``EngineRequest``;
 * :mod:`repro_torch.launch.nid_qat` -- the paper's Section 6.5 flow (the

@@ -1,6 +1,6 @@
 """Model facade: build(config) -> init / loss / prefill / decode_step; the
-port of the JAX package's ``repro/models/model.py`` for the dense and MoE
-decoders.
+port of the JAX package's ``repro/models/model.py`` for the dense, MoE
+and SSM decoders.
 
     batch (train): {"tokens": (B, S+1) int}
     batch (serving prefill): {"tokens": (B, S) int}
@@ -12,10 +12,11 @@ kernels' plain versions).  ``loss`` is the QAT forward: under an ``mvu_*``
 backend on float params every projection runs ``linear``'s fake-quant arm,
 and ``torch.autograd`` gives the STE gradients (a MoE model's experts and
 router stay float under every backend, as in the reference, and its loss
-adds ``cfg.aux_loss_weight`` times the summed load-balancing loss);
-``launch/train.py``'s ``make_train_step`` adds the AdamW step
-(``optim/adamw.py``), and the train loop waits for ROADMAP queue A item 7,
-step 3c.
+adds ``cfg.aux_loss_weight`` times the summed load-balancing loss; an SSM
+model's projections are not in ``PROJ_NAMES`` and stay float too, so they
+take the fake-quant arm at serving as well); ``launch/train.py``'s
+``make_train_step`` adds the AdamW step (``optim/adamw.py``), and the
+train loop waits for ROADMAP queue A item 7, step 3c.
 """
 
 from __future__ import annotations
@@ -106,11 +107,11 @@ def build(cfg: ModelConfig, device=None) -> Model:
     def loss(params, batch):
         """(total, {"ce", "aux"}) of next-token prediction on ``batch["tokens"]``
         (B, S+1): ``total = ce + cfg.aux_loss_weight * aux``, ``aux`` the MoE
-        blocks' summed load-balancing loss (0 for the dense family).  Only
-        the dense and MoE families build (``build`` raises for the
-        encoder-decoder and VLM configs, naming ROADMAP item 7, step 4), so
-        the reference's encoder-decoder and VLM-prefix branches have no
-        counterpart here."""
+        blocks' summed load-balancing loss (0 for the dense and SSM
+        families).  The dense, MoE and SSM families build (``build`` raises
+        for the hybrid, encoder-decoder and VLM configs, naming ROADMAP item
+        7, step 4), so the reference's encoder-decoder and VLM-prefix
+        branches have no counterpart here."""
         tokens = torch.as_tensor(batch["tokens"], device=device)
         inputs, targets = tokens[:, :-1], tokens[:, 1:]
         b, s = inputs.shape

@@ -1,6 +1,6 @@
-"""Transformer assembly, dense and MoE families: the uniform decoder stack
-(its training forward, with ``remat``), its serving prefill and its
-KV-cache decode; the port of the JAX package's
+"""Transformer assembly, dense, MoE and SSM families: the uniform decoder
+stack (its training forward, with ``remat``), its serving prefill and its
+cached decode; the port of the JAX package's
 ``repro/models/transformer.py``.
 
 Per-layer params are stacked on a leading layer axis, as the reference's
@@ -13,8 +13,11 @@ writes its slice in place.  A MoE block (``cfg.is_moe``) holds ``"moe"``
 (``models/moe.py``) in place of ``"ffn"``: the training forward and the
 prefill route with ``cfg.capacity_factor``, the decode step with 2.0, as
 the reference does, and each block's load-balancing loss is summed in
-float32.  The other families -- SSM, the hybrid interleave (Jamba), the
-VLM backbone (M-RoPE) and encoder-decoder (Whisper) -- raise
+float32.  An SSM block (``cfg.family == "ssm"``, Mamba-2) holds ``ln1``
+and ``"ssm"`` (``models/ssm.py``) and no ``ln2``; its cache is the conv
+tails and the float32 state (``max_len`` is ignored), written in place as
+the KV caches are.  The other families -- the hybrid interleave (Jamba),
+the VLM backbone (M-RoPE) and encoder-decoder (Whisper) -- raise
 ``NotImplementedError`` (ROADMAP queue A item 7, step 4).
 """
 
@@ -44,14 +47,21 @@ from repro_torch.models.layers import (
     with_column_scales,
 )
 from repro_torch.models.moe import moe_ffn, moe_init
+from repro_torch.models.ssm import (
+    init_ssm_cache,
+    ssm_decode_step,
+    ssm_forward,
+    ssm_init,
+    ssm_prefill,
+)
 
 
 def require_ported(cfg) -> None:
     """Raise for a config of a family the port does not run yet."""
-    if cfg.family not in ("dense", "moe") or cfg.is_hybrid:
+    if cfg.family not in ("dense", "moe", "ssm") or cfg.is_hybrid:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported; the port runs the "
-            "dense and MoE decoders (SSM, hybrid, VLM and encoder-decoder wait for "
+            "dense, MoE and SSM decoders (hybrid, VLM and encoder-decoder wait for "
             "ROADMAP queue A item 7, step 4)")
 
 
@@ -110,6 +120,9 @@ def ffn(p: Params, cfg, x: torch.Tensor, *, backend: str = "dense") -> torch.Ten
 # ------------------------------------------------------------ uniform block
 def block_init(generator, cfg, dtype, device) -> Params:
     require_ported(cfg)
+    if cfg.family == "ssm":
+        return {"ln1": _norm_init(cfg, dtype, device),
+                "ssm": ssm_init(generator, cfg, dtype, device)}
     p = {"ln1": _norm_init(cfg, dtype, device), "ln2": _norm_init(cfg, dtype, device),
          "attn": attn_init(generator, cfg, dtype, device)}
     if cfg.is_moe:
@@ -131,6 +144,10 @@ def _block_ffn(p, cfg, x, capacity_factor):
 
 def block_forward(p, cfg, x, positions, *, causal=True):
     require_ported(cfg)
+    if cfg.family == "ssm":
+        return (x + ssm_forward(p["ssm"], cfg, _norm(cfg, p["ln1"], x), chunk=cfg.ssd_chunk,
+                                backend=cfg.linear_backend),
+                torch.zeros((), dtype=torch.float32, device=x.device))
     x = x + attention(p["attn"], cfg, _norm(cfg, p["ln1"], x), positions,
                       causal=causal, backend=cfg.linear_backend)
     y, aux = _block_ffn(p, cfg, x, cfg.capacity_factor)
@@ -172,6 +189,8 @@ def stack_forward(params, cfg, x, positions, *, causal=True):
 # --------------------------------------------------------------- decode path
 def init_block_cache(cfg, batch: int, max_len: int, dtype, device):
     require_ported(cfg)
+    if cfg.family == "ssm":
+        return init_ssm_cache(cfg, batch, dtype, device)
     return init_kv_cache(cfg, batch, max_len, dtype, device)
 
 
@@ -180,9 +199,19 @@ def init_stack_caches(cfg, batch: int, max_len: int, dtype=torch.bfloat16, devic
                          for _ in range(cfg.num_layers)])
 
 
+def _write(cache: dict, new: dict) -> None:
+    """Each of ``new``'s tensors copied into ``cache``'s view of that name."""
+    for k, v in new.items():
+        cache[k].copy_(v)
+
+
 def _block_decode(p, cfg, x, pos, cache):
     require_ported(cfg)
     be = cfg.linear_backend
+    if cfg.family == "ssm":
+        y, new = ssm_decode_step(p["ssm"], cfg, _norm(cfg, p["ln1"], x), cache, backend=be)
+        _write(cache, new)
+        return x + y, cache
     y, cache = attention_decode(p["attn"], cfg, _norm(cfg, p["ln1"], x), pos, cache,
                                 backend=be)
     x = x + y
@@ -198,9 +227,20 @@ def stack_decode(params, cfg, x, pos, caches):
 
 
 def _block_prefill(p, cfg, x, positions, cache):
-    """Full-seq pass that fills caches (serving prefill)."""
+    """Full-seq pass that fills caches (serving prefill).  An SSM prompt
+    shorter than the conv tail (``ssm_conv - 1`` tokens) raises: the
+    reference has no valid path there (its cache changes shape, and its
+    next decode step fails)."""
     require_ported(cfg)
     be = cfg.linear_backend
+    if cfg.family == "ssm":
+        if x.shape[1] < cfg.ssm_conv - 1:
+            raise ValueError(f"{cfg.name}: a prompt of {x.shape[1]} tokens is shorter than "
+                             f"the conv tail of {cfg.ssm_conv - 1} the decode cache holds")
+        y, new = ssm_prefill(p["ssm"], cfg, _norm(cfg, p["ln1"], x), chunk=cfg.ssd_chunk,
+                             backend=be)
+        _write(cache, new)
+        return x + y, cache
     y, cache = attention_prefill(p["attn"], cfg, _norm(cfg, p["ln1"], x), positions, cache,
                                  backend=be)
     x = x + y
