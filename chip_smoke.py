@@ -424,11 +424,44 @@ Phases, each printing its own line(s); any failure exits non-zero:
            of 2 x 300 tokens against a prefill of 296 and 4 decode steps,
            within the reference's rtol = atol = 2e-2, argmax equal.  The
            phase's seconds and peak memory.
+   lm_hybrid  the hybrid (Jamba) interleave of ``models/transformer.py``:
+           groups of ``attn_period`` layers, attention at j = per // 2 and
+           an SSM layer elsewhere, a MoE FFN at odd j and a dense one at
+           even j; only the attention and dense-FFN projections
+           integer-deployed, as in the reference.  First the reduced Jamba
+           (one group of 4) in float32, dense and W8A8, held to the JAX
+           package's golden run (``configs/jamba_1_5_large_398b_lm_golden.json``:
+           logits within 1e-3 of the largest, greedy tokens and each call's
+           dropped assignments equal), W8A8 launching ``mvu_int`` exactly 10
+           times a call (4 attention + 3 x 2 dense-FFN projections) and
+           nothing else.  Then full-width Jamba-1.5-Large (8192, 64 / 8
+           heads of 128, no RoPE; SSM d_inner 16384 in 128 heads of 128,
+           state 128; 16 experts top-2 of d_ff 24576; dense d_ff 24576;
+           vocab 65,536, untied; bf16) cut to one group of 4 layers (72 ->
+           4, period 8 -> 4: one group of 8 is ~88 GB of weights), drawn on
+           the card from a seed with ``init(g, quantize="mvu_w8a8")`` into
+           stacks allocated once: the attention and dense FFN int8, the SSM
+           projections and the experts bf16, the router and ``A_log`` /
+           ``D`` / ``dt_bias`` float32; served by ``serve_loop`` on the lm
+           phase's 8 requests, ``mvu_int`` exactly 10 times a call, every
+           request answered, the prefill assignments dropped by capacity
+           counted (none may drop at decode); the model's bytes, the peak
+           while drawing and while serving; group 0's prefill and decode ms
+           on the host clock (median of 3), tokens/s; the group's
+           attention, SSM, MoE and dense-FFN sub-layers by CUDA events at
+           the decode and the prefill rows.  The attention's and the first
+           dense FFN's projections ((K, N) = (8192, 8192), (8192, 1024),
+           (8192, 24576), (24576, 8192)) against the plain version at the
+           decode and each group's prefill rows, each shape timed.  Then the
+           reduced Jamba in float32 at capacity 8.0: a prefill of 1 x 40
+           tokens (three SSD chunks) against a prefill of 36 and 4 decode
+           steps, within rtol = atol = 2e-2, argmax equal.  The phase's
+           seconds and peak memory.
 5. the kernels JSON line (each kernel also with its tiles phase's times
    by tile; ``mvu_int``'s launches and times include the qat phase's three
    counted ``acc(x)``; ``mvu_int``'s and ``mvu_binary``'s the pipeline,
-   lm, lm_qat, train and lm_moe phases' counted runs, each launch at its
-   shape; the lm_ssm phase's add none), the card's
+   lm, lm_qat, train, lm_moe and lm_hybrid phases' counted runs, each
+   launch at its shape; the lm_ssm phase's add none), the card's
    ``nvidia-smi`` line, and last the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -571,6 +604,16 @@ SSD_CHECK = (4, 300)  # (B, S): two whole chunks of 128 and a partial one
 SSD_ATOL = 1e-4
 SSM_LONG = (2, 300, 4)  # (B, S, decode steps): a prefill of S against S - 4 + steps
 SSM_LONG_TOL = 2e-2  # the reference's test_prefill_decode_matches_forward
+# the lm_hybrid phase: full-width Jamba-1.5-Large cut to one group of
+# HYBRID_CUT layers (one group of its 8 needs 87.7 GB of weights) served on
+# the lm phase's requests, and the reduced Jamba's prefill + decode against
+# one long prefill in float32
+HYBRID_CUT = 4  # num_layers = attn_period: the reference's REDUCED interleave, 1:3
+# (K, N) of its integer-deployed projections: wq / wo, wk / wv, w_up / w_gate, w_down
+HYBRID_SHAPES = [(8192, 8192), (8192, 1024), (8192, 24576), (24576, 8192)]
+HYBRID_LONG = (1, 40, 4)  # (B, S, decode steps): three SSD chunks of 16, one routing group
+HYBRID_LONG_CAPACITY = 8.0  # the reference's test_prefill_decode_matches_forward: no drops
+ATTN_NAMES = ("wq", "wk", "wv", "wo")  # a block's integer-deployed attention projections
 TRACE_KERNELS = {
     "conv_mvu_kernel": "conv_mvu",
     "Coding<false,false,false>": "mvu_int",
@@ -2971,7 +3014,7 @@ def lm_moe_phase(dev, smi: str) -> dict:
 
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    attn_names = ("wq", "wk", "wv", "wo")  # a MoE block's integer-deployed projections
+    attn_names = ATTN_NAMES  # a MoE block's integer-deployed projections
 
     # (a) the reduced MoE models, float32, against the JAX package's golden runs
     for arch in G.MOE_ARCHS:
@@ -3413,6 +3456,294 @@ def lm_ssm_phase(dev, smi: str) -> dict:
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated since (b) ({smi})",
           flush=True)
     return {"launches": {}, "rows": {}}
+
+
+def lm_hybrid_phase(dev, smi: str) -> dict:
+    """The lm_hybrid phase (see the module doc): the reduced Jamba's golden
+    with its launches and drops, full-width Jamba-1.5-Large cut to one
+    group of ``HYBRID_CUT`` layers served by ``serve_loop`` on ``mvu_int``
+    with its sub-layers timed, its new ``mvu_int`` shapes against the
+    plain version, and prefill + decode against one long prefill of the
+    reduced Jamba.  Returns, by kernel, the served run's launches and a
+    timing row for each launch."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, lm_golden as G
+    from repro_torch.configs.base import ssm_dims
+    from repro_torch.convert import keeps_float32, lm_numpy_params, lm_params_from_numpy
+    from repro_torch.launch.serve import Request, prompt_batch, serve_loop
+    from repro_torch.models import attention, layers as L, moe, ssm, transformer as tf
+    from repro_torch.models.model import build
+    from repro_torch.tree import flat_leaves
+
+    t_phase = time.perf_counter()
+    arch = G.HYBRID_ARCH
+    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+
+    def launches_a_call(cfg) -> int:
+        """mvu_int launches of one prefill or decode call: the four
+        attention projections and the gated dense FFNs' three each."""
+        per = cfg.attn_period
+        return cfg.num_layers // per * (len(ATTN_NAMES) + 3 * (per - per // 2))
+
+    # (a) the reduced Jamba, float32, against the JAX package's golden run
+    golden = G.load_golden(arch)
+    for backend in G.VARIANTS:
+        cfg = G.golden_config(backend, arch)
+        params = lm_params_from_numpy(lm_numpy_params(cfg, G.SEED), dev)
+        if backend != "dense":
+            params = L.quantize_model_params(params, backend)
+        want = {} if backend == "dense" else {
+            "mvu_int": launches_a_call(cfg) * (1 + G.DECODE_STEPS)}
+        model = build(cfg, device=dev)
+        got = counted(lambda: G.greedy_run(model, params), want,
+                      f"lm_hybrid: the {arch} golden run ({backend})")
+        bad = G.mismatch(golden["variants"][backend], got)
+        check(bad is None, f"lm_hybrid: the reduced {arch} {backend} model on the card differs "
+              f"from the JAX package's golden run: {bad}")
+        ref = np.asarray(golden["variants"][backend]["logits"], np.float32)
+        print(f"lm_hybrid: golden: reduced {cfg.name} {backend} float32 on the card (one group "
+              f"of {cfg.attn_period} layers), prefill of {G.BATCH} x {G.PROMPT_LEN} + "
+              f"{G.DECODE_STEPS} greedy steps: max |logit error| "
+              f"{float(np.abs(got['logits'] - ref).max()):.3e} (bound {G.LOGIT_ATOL} x "
+              f"{float(np.abs(ref).max()):.4f}), greedy tokens and dropped assignments by call "
+              f"{got['dropped']} equal the JAX package's; launches {want or 'none'}", flush=True)
+    del model, params
+    torch.cuda.empty_cache()
+
+    # (b) full width, one group of HYBRID_CUT layers, bf16, drawn on the card
+    full = get_config(arch)
+    cfg = full.replace(num_layers=HYBRID_CUT, attn_period=HYBRID_CUT, linear_backend=LM_BACKEND)
+    d_inner, nheads, _ = ssm_dims(cfg)
+    check(LM_BATCH * LM_PROMPT_LENS[1] <= cfg.moe_group_size,
+          "lm_hybrid: a prefill group must hold at most one routing group of tokens")
+    g = torch.Generator(device=dev).manual_seed(LM_SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build(cfg, device=dev)
+    params = model.init(g, quantize=LM_BACKEND)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    draw_peak = torch.cuda.max_memory_allocated()
+    lay = params["layers"]
+    per, n_groups = cfg.attn_period, cfg.num_layers // cfg.attn_period
+    n_moe, n_dense = per // 2, per - per // 2
+    proj = {**{k: lay["attn"][k] for k in ATTN_NAMES},
+            **{k: lay["ffn"][k] for k in ("w_up", "w_gate", "w_down")}}
+    check(all(set(p) == {"values", "scale"} and p["values"].dtype == torch.int8
+              and p["values"].shape[0] == n_groups for p in proj.values())
+          and lay["ffn"]["w_up"]["values"].shape[:2] == (n_groups, n_dense),
+          "lm_hybrid: the attention and dense-FFN projections are not int8 on every sub-layer")
+    float_leaves = {f"{node}/{path}": t for node in ("ssm", "moe")
+                    for path, t in flat_leaves(lay[node]).items()}
+    check(all(t.dtype == (torch.float32 if keeps_float32(path) else torch.bfloat16)
+              for path, t in float_leaves.items())
+          and all(set(lay["ssm"][k]) == {"w"} for k in SSM_PROJ)
+          and lay["moe"]["w_up"].shape[:2] == (n_groups, n_moe)
+          and lay["ssm"]["w_z"]["w"].shape[:2] == (n_groups, per - 1),
+          "lm_hybrid: the SSM projections and the experts must stay bf16, the router and "
+          f"{'/'.join(SSM_FLOAT32)} float32")
+    expert_bytes = nbytes(lay["moe"][k] for k in ("w_up", "w_gate", "w_down"))
+    model_bytes = nbytes(flat_leaves(params).values())
+    # a model of one group at the config's attn_period, from this tree: each
+    # kind's bytes a sub-layer times the sub-layers it adds
+    each = {k: nbytes(flat_leaves(lay[k]).values()) / (n_groups * n)
+            for k, n in (("ssm", per - 1), ("moe", n_moe), ("ffn", n_dense))}
+    fp = full.attn_period
+    group_bytes = model_bytes / n_groups + ((fp - per) * each["ssm"]
+                                            + (fp // 2 - n_moe) * each["moe"]
+                                            + (fp - fp // 2 - n_dense) * each["ffn"])
+    print(f"lm_hybrid: cut: {full.name} ({full.num_layers} layers, attn_period {fp}: "
+          f"1:{fp - 1}) -> {cfg.num_layers} layers, attn_period {per} (1:{per - 1}, the "
+          f"reference's REDUCED interleave), every width and the {cfg.num_experts} experts "
+          f"kept: a model of one group of {fp} layers would hold {group_bytes / 1e9:.1f} GB "
+          f"of weights (these sub-layers' bytes), one of {per} holds "
+          f"{model_bytes / 1e9:.1f} GB", flush=True)
+    print(f"lm_hybrid: full width: {cfg.name} ({cfg.d_model}, {cfg.num_heads} / "
+          f"{cfg.num_kv_heads} heads of {cfg.head_dim}, no RoPE; SSM d_inner {d_inner}, "
+          f"{nheads} heads of {cfg.ssm_headdim}, state {cfg.ssm_state}; {cfg.num_experts} "
+          f"experts top-{cfg.num_experts_per_tok} of d_ff {cfg.moe_d_ff}; dense d_ff "
+          f"{cfg.d_ff}; vocab {cfg.vocab_size}, untied; {cfg.dtype}): {n_groups} group of "
+          f"{per} (1 attention + {per - 1} SSM, {n_moe} MoE + {n_dense} dense FFNs) drawn on "
+          f"the card from seed {LM_SEED} with init(quantize={LM_BACKEND!r}) in {init_s:.2f} s: "
+          f"the model {model_bytes / 1e9:.3f} GB (experts {expert_bytes / 1e9:.3f} GB bf16), "
+          f"attention and dense FFN int8, SSM projections and experts bf16, router and "
+          f"{'/'.join(SSM_FLOAT32)} float32; peak while drawing {draw_peak / 1e9:.2f} GB "
+          f"allocated ({smi})", flush=True)
+    rng = np.random.default_rng(LM_SEED)
+    lens = rng.integers(LM_PROMPT_LENS[0], LM_PROMPT_LENS[1] + 1, LM_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in lens]
+
+    def requests():
+        return [Request(i, p, LM_MAX_NEW) for i, p in enumerate(prompts)]
+
+    groups = [requests()[i:i + LM_BATCH] for i in range(0, LM_REQUESTS, LM_BATCH)]
+    group_tokens = [prompt_batch(grp) for grp in groups]
+    a_call = launches_a_call(cfg)
+    per_group = a_call * (1 + LM_MAX_NEW)
+    torch.cuda.reset_peak_memory_stats()
+    with G.counting_drops() as drops:
+        t0 = time.perf_counter()
+        done = counted(lambda: serve_loop(model, params, requests(), batch=LM_BATCH,
+                                          max_len=LM_MAX_LEN),
+                       {"mvu_int": per_group * len(groups)},
+                       "lm_hybrid: serve_loop of Jamba at full width")
+        serve_s = time.perf_counter() - t0
+    serve_peak = torch.cuda.max_memory_allocated()
+    check([r.rid for r in done] == list(range(LM_REQUESTS))
+          and all(len(r.out) == LM_MAX_NEW and all(0 <= t < cfg.vocab_size for t in r.out)
+                  for r in done),
+          "lm_hybrid: serve_loop did not answer every request with its tokens in the vocabulary")
+    # one count a MoE layer a call: each group's prefill, then its decode steps
+    by_call = torch.stack(drops).reshape(len(groups), 1 + LM_MAX_NEW,
+                                         n_groups * n_moe).sum(-1)
+    pre_drops = by_call[:, 0].tolist()
+    pre_assign = [t.size * cfg.num_experts_per_tok * n_groups * n_moe for t in group_tokens]
+    check(int(by_call[:, 1:].sum()) == 0, "lm_hybrid: a decode step dropped an assignment "
+          f"(its capacity of max(4, ...) slots holds the {LM_BATCH} tokens an expert can get)")
+    print(f"lm_hybrid: serve_loop: {LM_REQUESTS} requests (prompts {lens.tolist()} tokens) in "
+          f"{len(groups)} groups of {LM_BATCH}, max_new {LM_MAX_NEW}, max_len {LM_MAX_LEN}: "
+          f"every request answered; mvu_int launched {per_group * len(groups)} times = "
+          f"{a_call} a call ({len(ATTN_NAMES)} attention + 3 x {n_dense} dense-FFN projections) "
+          f"x (1 prefill + {LM_MAX_NEW} decode steps) x {len(groups)} groups, nothing else; "
+          f"prefill assignments dropped by capacity {pre_drops} of {pre_assign} by group "
+          f"(capacity factor {cfg.capacity_factor}), none at decode; "
+          f"{LM_REQUESTS * LM_MAX_NEW / serve_s:.2f} tokens/s over the loop's {serve_s:.3f} s "
+          f"(host clock, the first run: no warm-up, a drop count a MoE layer); peak while "
+          f"serving {serve_peak / 1e9:.2f} GB allocated; first tokens "
+          f"{[r.out[:4] for r in done[:2]]} ({smi})", flush=True)
+
+    # (e) serving times on the host clock, synchronised: group 0's prefill,
+    # then its decode steps
+    toks0 = torch.from_numpy(group_tokens[0])
+    pre, dec = [], []
+    for _ in range(3):
+        state = model.init_decode_state(LM_BATCH, LM_MAX_LEN)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, state = model.prefill(params, {"tokens": toks0}, state)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(LM_MAX_NEW):
+            logits, state = model.decode_step(params, state, torch.argmax(logits, -1))
+        torch.cuda.synchronize()
+        pre.append(t1 - t0)
+        dec.append((time.perf_counter() - t1) / LM_MAX_NEW)
+    check(bool(torch.isfinite(logits).all())
+          and tuple(logits.shape) == (LM_BATCH, cfg.vocab_size),
+          f"lm_hybrid: full-width logits {tuple(logits.shape)} not finite")
+    pre_ms, dec_ms = statistics.median(pre) * 1e3, statistics.median(dec) * 1e3
+    print(f"lm_hybrid: full width {LM_BACKEND}, group 0 ({LM_BATCH} x {toks0.shape[1]} "
+          f"tokens): prefill {pre_ms:.3f} ms, decode {dec_ms:.3f} ms a step ({LM_BATCH} "
+          f"tokens), {LM_BATCH / dec_ms * 1e3:.2f} decode tokens/s, "
+          f"{toks0.numel() / pre_ms * 1e3:.1f} prefill tokens/s (host clock, synchronised, "
+          f"median of 3 after the served run) ({smi})", flush=True)
+
+    # (f) the group's sub-layers alone by CUDA events, at the decode and the
+    # prefill rows: the attention, an SSM layer, a MoE FFN and a dense FFN
+    group0 = tf.layer(lay, 0)
+    subs = tf._sub_layers(group0)
+    kv = attention.init_kv_cache(cfg, LM_BATCH, LM_MAX_LEN, torch.bfloat16, dev)
+    pos = torch.full((LM_BATCH, 1), toks0.shape[1], dtype=torch.int32, device=dev)
+    positions = torch.arange(toks0.shape[1], dtype=torch.int32, device=dev)[None].expand(
+        LM_BATCH, -1)
+    bf16 = lambda *shape: torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+    cache0 = ssm.ssm_prefill(subs["ssm"][0], cfg, bf16(LM_BATCH, 8, cfg.d_model),
+                             chunk=cfg.ssd_chunk, backend=LM_BACKEND)[1]
+    step_ms = {"decode": dec_ms, "prefill": pre_ms}
+    for what, rows, factor in (("decode", 1, MOE_DECODE_CAPACITY),
+                               ("prefill", toks0.shape[1], cfg.capacity_factor)):
+        x = bf16(LM_BATCH, rows, cfg.d_model)
+        if what == "decode":
+            fns = {"attention": lambda: attention.attention_decode(
+                       group0["attn"], cfg, x, pos, kv, backend=LM_BACKEND),
+                   "ssm": lambda: ssm.ssm_decode_step(subs["ssm"][0], cfg, x, cache0,
+                                                      backend=LM_BACKEND)}
+        else:
+            fns = {"attention": lambda: attention.attention_prefill(
+                       group0["attn"], cfg, x, positions, kv, backend=LM_BACKEND),
+                   "ssm": lambda: ssm.ssm_prefill(subs["ssm"][0], cfg, x, chunk=cfg.ssd_chunk,
+                                                  backend=LM_BACKEND)}
+        fns["moe"] = lambda: moe.moe_ffn(subs["moe"][0], cfg, x, group_size=cfg.moe_group_size,
+                                         capacity_factor=factor)
+        fns["ffn"] = lambda: tf.ffn(subs["ffn"][0], cfg, x, backend=LM_BACKEND)
+        ms = {k: device_ms(fn, reps=3) for k, fn in fns.items()}
+        count = {"attention": n_groups, "ssm": n_groups * (per - 1), "moe": n_groups * n_moe,
+                 "ffn": n_groups * n_dense}
+        total = sum(ms[k] * count[k] for k in ms)
+        t = LM_BATCH * rows
+        print(f"lm_hybrid: the group's sub-layers at the {what} rows ({t} tokens; MoE capacity "
+              f"{moe._capacity(t, cfg.num_experts, cfg.num_experts_per_tok, factor)} slots an "
+              f"expert), CUDA events, median of 5 x 3 calls: "
+              + ", ".join(f"{k} {ms[k]:.4f} ms (x {count[k]})" for k in ms)
+              + f"; {total:.3f} ms in all = {total / step_ms[what]:.1%} of the {what} step's "
+              f"{step_ms[what]:.3f} ms ({smi})", flush=True)
+    del kv, x, fns, cache0
+
+    # (c) the new mvu_int shapes: the attention and the first dense FFN
+    # against the plain version at the decode and each group's prefill rows
+    ga = torch.Generator(device=dev).manual_seed(LM_SEED + 4)
+    m_pre = [t.size for t in group_tokens]
+    layer0 = {"attn": group0["attn"], "ffn": subs["ffn"][0]}  # as one deployed layer
+    timed = projection_rows(layer0, "mvu_int", {LM_BATCH, *m_pre}, ga, "lm_hybrid")
+    shapes = [tuple(p["values"].shape) for p in deployed_projections(layer0).values()]
+    check(sorted({(k, n) for n, k in shapes}) == sorted(HYBRID_SHAPES),
+          f"lm_hybrid: the deployed shapes (K, N) {sorted({(k, n) for n, k in shapes})}, want "
+          f"{sorted(HYBRID_SHAPES)}")
+    # a call launches the attention's four once and the FFN's three n_dense
+    # times a group
+    call_shapes = shapes[:len(ATTN_NAMES)] + shapes[len(ATTN_NAMES):] * n_dense
+    rows = []
+    for m in m_pre:
+        for mm, reps in ((m, 1), (LM_BATCH, LM_MAX_NEW)):
+            rows += [timed[("mvu_int", mm, n, k)] for n, k in call_shapes] * (n_groups * reps)
+    del model, params, lay, proj, float_leaves, group0, subs, layer0
+    torch.cuda.empty_cache()
+
+    # (d) the reduced Jamba in float32, capacity 8.0: one prefill of S tokens
+    # against a prefill of S - steps and steps decode steps
+    bsz, s, steps = HYBRID_LONG
+    fcfg = G.golden_config("dense", arch).replace(capacity_factor=HYBRID_LONG_CAPACITY)
+    fmodel = build(fcfg, device=dev)
+    fparams = lm_params_from_numpy(lm_numpy_params(fcfg, G.SEED), dev)
+    toks = torch.from_numpy(np.random.default_rng(LM_SEED + 6).integers(
+        0, fcfg.vocab_size, (bsz, s)).astype(np.int32))
+
+    def one_prefill():
+        return fmodel.prefill(fparams, {"tokens": toks}, fmodel.init_decode_state(bsz, s))[0]
+
+    def prefill_then_decode():
+        logits, state = fmodel.prefill(fparams, {"tokens": toks[:, :s - steps]},
+                                       fmodel.init_decode_state(bsz, s))
+        for t in range(s - steps, s):
+            logits, state = fmodel.decode_step(fparams, state, toks[:, t].to(dev))
+        return logits
+
+    whole = counted(one_prefill, {}, "lm_hybrid: the long prefill")
+    part = counted(prefill_then_decode, {}, "lm_hybrid: prefill + decode")
+    err = float((part - whole).abs().max())
+    close = bool(torch.allclose(part, whole, rtol=SSM_LONG_TOL, atol=SSM_LONG_TOL))
+    same = bool(torch.equal(part.argmax(-1), whole.argmax(-1)))
+    check(close and same, f"lm_hybrid: prefill of {s - steps} + {steps} decode steps differs "
+          f"from one prefill of {s}: max |logit error| {err:.3e} (rtol = atol = "
+          f"{SSM_LONG_TOL}), argmax equal {same}")
+    print(f"lm_hybrid: reduced {fcfg.name} float32, capacity {HYBRID_LONG_CAPACITY}, dense: a "
+          f"prefill of {bsz} x {s - steps} + {steps} decode steps gives one prefill of {bsz} x "
+          f"{s}'s logits ({-(-s // fcfg.ssd_chunk)} SSD chunks of {fcfg.ssd_chunk}): max "
+          f"|error| {err:.3e} of largest {float(whole.abs().max()):.4f} (rtol = atol = "
+          f"{SSM_LONG_TOL}), argmax equal; no kernel launched", flush=True)
+    del fmodel, fparams, whole, part
+    torch.cuda.empty_cache()
+
+    launches = {"mvu_int": per_group * len(groups)}
+    check(len(rows) == launches["mvu_int"], "lm_hybrid: a row for every launch")
+    print(f"lm_hybrid: launches of the served run {launches}; kernel ms over them "
+          f"{round(sum(r[0] for r in rows), 4)}; phase {time.perf_counter() - t_phase:.2f} s, "
+          f"peak while drawing {draw_peak / 1e9:.2f} GB, while serving {serve_peak / 1e9:.2f} "
+          f"GB allocated ({smi})", flush=True)
+    return {"launches": launches, "rows": {"mvu_int": rows}}
 
 
 def bound_of(nbytes: int, ops: int) -> tuple[float, str]:
@@ -4221,6 +4552,7 @@ def main() -> int:
     trained = train_phase(dev, smi)
     moe_lm = lm_moe_phase(dev, smi)
     ssm_lm = lm_ssm_phase(dev, smi)
+    hybrid_lm = lm_hybrid_phase(dev, smi)
 
     # -------------------------------------------------------- 5. results
     mb = plan.microbatch
@@ -4249,9 +4581,9 @@ def main() -> int:
                 if dense == name:
                     rows += [timing[(entry, CNV_DENSE_M, n, k)] for n, k in cnv_dense] * n_micro
                     n_launches += counts[name]
-            # the pipeline, lm, lm_qat, train, lm_moe and lm_ssm phases'
-            # counted runs, each launch at its shape (lm_ssm's: none)
-            for phase in (piped, lm, lm_qat, trained, moe_lm, ssm_lm):
+            # the pipeline, lm, lm_qat, train, lm_moe, lm_ssm and lm_hybrid
+            # phases' counted runs, each launch at its shape (lm_ssm's: none)
+            for phase in (piped, lm, lm_qat, trained, moe_lm, ssm_lm, hybrid_lm):
                 rows += phase["rows"].get(name, [])
                 n_launches += phase["launches"].get(name, 0)
             if name == "mvu_xnor":  # the packed entry on the same launches, beside it

@@ -5,21 +5,24 @@ Usage (from the repo root, JAX on the CPU):
     PYTHONPATH=src python scripts/lm_golden.py --write    # (re)write it
     PYTHONPATH=src python scripts/lm_golden.py --arch granite-moe-3b-a800m --write
     PYTHONPATH=src python scripts/lm_golden.py --arch mamba2-780m --write
+    PYTHONPATH=src python scripts/lm_golden.py --arch jamba-1.5-large-398b --write
     PYTHONPATH=src python scripts/lm_golden.py --bf16-gap # bfloat16 gaps
     PYTHONPATH=src python scripts/lm_golden.py --bf16-gap --arch mamba2-780m
+    PYTHONPATH=src python scripts/lm_golden.py --bf16-gap --arch jamba-1.5-large-398b
 
 Runs ``repro.models.model.build(get_reduced(arch))`` (``--arch``, one of
 ``lm_golden.LM_GOLDENS``; default ``yi-9b``) in float32 on the tree of
 ``repro_torch.convert.lm_numpy_params(cfg, SEED)`` -- dense, and after
 ``quantize_model_params(params, "mvu_w8a8")`` -- through ``prefill`` of a
 seeded prompt batch and three greedy ``decode_step``s
-(``repro_torch.configs.lm_golden``).  For a MoE arch it also counts, for
-each call, the token-to-expert assignments the routing dropped for
-capacity (a ``jax.debug.callback`` on each ``dispatch_combine``).  The
-result is ``lm_golden.golden_path(arch)`` under
+(``repro_torch.configs.lm_golden``).  For a MoE arch, and the hybrid
+Jamba, it also counts, for each call, the token-to-expert assignments the
+routing dropped for capacity (a ``jax.debug.callback`` on each
+``dispatch_combine``).  The result is ``lm_golden.golden_path(arch)`` under
 ``src/repro_torch/configs/``; ``tests/test_torch_lm.py``,
-``tests/test_torch_lm_moe.py``, ``tests/test_torch_lm_ssm.py`` and
-``chip_smoke.py`` hold the port to it.
+``tests/test_torch_lm_moe.py``, ``tests/test_torch_lm_ssm.py``,
+``tests/test_torch_lm_hybrid.py`` and ``chip_smoke.py`` hold the port to
+it.
 
 ``--bf16-gap`` prints, for the reduced ``--arch`` in bfloat16 (the leaves
 ``convert.FLOAT32_LEAVES`` kept float32, as the reference's init keeps

@@ -10,7 +10,8 @@ with the JAX package on the CPU: ``get_reduced(arch)`` in float32 from
 ``np.random.default_rng(TOKEN_SEED)``, then ``prefill`` and
 ``DECODE_STEPS`` greedy ``decode_step``s, for each variant in
 ``VARIANTS``: the dense projections and ``quantize_model_params(params,
-"mvu_w8a8")``.  A MoE arch's file also records, for each call, how many
+"mvu_w8a8")``.  A MoE arch's file, and the hybrid's (whose MoE layers
+route as the MoE family's do), also records, for each call, how many
 token-to-expert assignments the routing dropped for capacity
 (``dropped``).  The tests (on the CPU) and ``chip_smoke.py`` (on the card)
 run the port the same way (:func:`greedy_run`) and hold it to the file
@@ -53,10 +54,11 @@ from repro_torch.tree import flat_leaves
 
 ARCH = "yi-9b"
 # the archs with a golden run of prefill and decode: the dense Yi-9B, the
-# MoE family's two and the SSM family's one
+# MoE family's two, the SSM family's one and the hybrid's one
 MOE_ARCHS = ("granite-moe-3b-a800m", "qwen3-moe-235b-a22b")
 SSM_ARCH = "mamba2-780m"
-LM_GOLDENS = ("yi-9b", *MOE_ARCHS, SSM_ARCH)
+HYBRID_ARCH = "jamba-1.5-large-398b"
+LM_GOLDENS = ("yi-9b", *MOE_ARCHS, SSM_ARCH, HYBRID_ARCH)
 SEED = 0  # lm_numpy_params
 TOKEN_SEED = 1
 BATCH = 2

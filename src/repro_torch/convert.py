@@ -24,10 +24,10 @@ An LM's parameter tree crosses the same way: ``lm_params_from_numpy(tree,
 device)`` takes the JAX package's tree as nested dicts of numpy arrays
 (``np.asarray`` on each leaf) and returns the port's, leaf for leaf (a
 leaf given in float32 stays float32 in a bfloat16 tree);
-``lm_numpy_params(cfg, seed)`` draws a dense, MoE or SSM decoder's tree in
-that layout with numpy alone, so both packages can start from the same
-weights, and ``cast_numpy_params(tree, dtype)`` casts it to a model's dtype
-but for the leaves the reference keeps float32 (``FLOAT32_LEAVES``).  An
+``lm_numpy_params(cfg, seed)`` draws a dense, MoE, SSM or hybrid decoder's
+tree in that layout with numpy alone, so both packages can start from the
+same weights, and ``cast_numpy_params(tree, dtype)`` casts it to a model's
+dtype but for the leaves the reference keeps float32 (``FLOAT32_LEAVES``).  An
 AdamW state (``adamw.init`` / ``update``'s ``{"mu", "nu", "step"}``)
 crosses by ``opt_state_from_numpy(state, device)``, and any port tree
 goes back by ``numpy_tree(tree)``, so both packages can also carry on
@@ -130,7 +130,8 @@ def numpy_tree(tree):
 
 
 # the leaves the reference keeps float32 in a model of any dtype: a MoE
-# block's router, an SSM block's A_log, D and dt_bias
+# layer's router, an SSM layer's A_log, D and dt_bias (in a uniform stack
+# or a hybrid's sub-stacks)
 FLOAT32_LEAVES = ("router", "A_log", "D", "dt_bias")
 
 
@@ -153,15 +154,20 @@ def cast_numpy_params(tree: dict, dtype) -> dict:
 
 
 def lm_numpy_params(cfg, seed: int = 0) -> dict:
-    """A dense, MoE or SSM decoder's parameters in the JAX package's layout
-    (the tree its ``build(cfg).init`` returns, layers stacked on a leading
-    axis) as float32 numpy arrays from ``np.random.default_rng(seed)``:
-    each projection ``normal / sqrt(fan_in)``, the embedding ``normal *
-    0.02``, the norms at their init (scale 1, bias 0).  A MoE block holds
-    ``moe/{router/w (L, d, E), w_up (L, E, d, f), w_gate (L, E, d, f),
-    w_down (L, E, f, d)}`` in place of ``ffn``.  An SSM block holds
-    ``ln1`` and ``ssm`` (:func:`_ssm_numpy_params`) and no ``ln2``.  The
-    config's dtype is the caller's cast (:func:`cast_numpy_params`)."""
+    """A dense, MoE, SSM or hybrid decoder's parameters in the JAX
+    package's layout (the tree its ``build(cfg).init`` returns, layers
+    stacked on a leading axis) as float32 numpy arrays from
+    ``np.random.default_rng(seed)``: each projection ``normal /
+    sqrt(fan_in)``, the embedding ``normal * 0.02``, the norms at their
+    init (scale 1, bias 0).  A MoE block holds ``moe/{router/w (L, d, E),
+    w_up (L, E, d, f), w_gate (L, E, d, f), w_down (L, E, f, d)}`` in place
+    of ``ffn``.  An SSM block holds ``ln1`` and ``ssm``
+    (:func:`_ssm_numpy_params`) and no ``ln2``.  A hybrid stack holds G =
+    ``num_layers // attn_period`` groups of ``per = attn_period``:
+    ``ln_mix`` / ``ln_ffn`` (G, per, d), ``attn`` (G, ...), ``ssm`` (G,
+    per - 1, ...), ``ffn`` (G, per - per // 2, ...) and ``moe`` (G, per //
+    2, ...).  The config's dtype is the caller's cast
+    (:func:`cast_numpy_params`)."""
     require_ported(cfg)
     rng = np.random.default_rng(seed)
     d = cfg.d_model
@@ -185,58 +191,89 @@ def lm_numpy_params(cfg, seed: int = 0) -> dict:
 
 def _layers_numpy_params(cfg, rng, dense, norm) -> dict:
     """The stacked layers of :func:`lm_numpy_params`, drawn on ``rng``."""
-    n_layers, d, hd, ff = cfg.num_layers, cfg.d_model, cfg.head_dim, cfg.d_ff
+    n_layers, d = cfg.num_layers, cfg.d_model
+    if cfg.is_hybrid:
+        n, per = n_layers // cfg.attn_period, cfg.attn_period
+        n_moe = per // 2
+        return {"ln_mix": norm(n, per, d), "ln_ffn": norm(n, per, d),
+                "attn": _attn_numpy_params(cfg, dense, norm, (n,)),
+                "ssm": _ssm_numpy_params(cfg, rng, dense, (n, per - 1)),
+                "ffn": _ffn_numpy_params(cfg, dense, (n, per - n_moe)),
+                "moe": _moe_numpy_params(cfg, dense, (n, n_moe))}
     if cfg.family == "ssm":
-        return {"ln1": norm(n_layers, d), "ssm": _ssm_numpy_params(cfg, rng, dense)}
-    attn = {"wq": {"w": dense(n_layers, d, cfg.num_heads * hd)},
-            "wk": {"w": dense(n_layers, d, cfg.num_kv_heads * hd)},
-            "wv": {"w": dense(n_layers, d, cfg.num_kv_heads * hd)},
-            "wo": {"w": dense(n_layers, cfg.num_heads * hd, d)}}
-    if cfg.qk_norm:
-        attn["qnorm"], attn["knorm"] = norm(n_layers, hd), norm(n_layers, hd)
-    layers = {"ln1": norm(n_layers, d), "ln2": norm(n_layers, d), "attn": attn}
+        return {"ln1": norm(n_layers, d), "ssm": _ssm_numpy_params(cfg, rng, dense, (n_layers,))}
+    layers = {"ln1": norm(n_layers, d), "ln2": norm(n_layers, d),
+              "attn": _attn_numpy_params(cfg, dense, norm, (n_layers,))}
     if cfg.is_moe:
-        e, f = cfg.num_experts, cfg.moe_d_ff
-        moe = {"router": {"w": dense(n_layers, d, e)}, "w_up": dense(n_layers, e, d, f),
-               "w_down": dense(n_layers, e, f, d)}
-        if is_gated(cfg.activation):
-            moe["w_gate"] = dense(n_layers, e, d, f)
-        layers["moe"] = moe
+        layers["moe"] = _moe_numpy_params(cfg, dense, (n_layers,))
     else:
-        ffn = {"w_up": {"w": dense(n_layers, d, ff)}, "w_down": {"w": dense(n_layers, ff, d)}}
-        if is_gated(cfg.activation):
-            ffn["w_gate"] = {"w": dense(n_layers, d, ff)}
-        layers["ffn"] = ffn
+        layers["ffn"] = _ffn_numpy_params(cfg, dense, (n_layers,))
     return layers
 
 
-def _ssm_numpy_params(cfg, rng, dense) -> dict:
-    """An SSM layer stack's ``ssm`` node in the reference's layout:
-    ``{w_z, w_x, w_B, w_C, w_dt, out_proj}/w (L, in, out)``,
-    ``conv_{x,B,C}/{w (L, K, C) normal * 0.2, b (L, C) zero}`` with
-    ``conv_C`` equal to ``conv_B`` (the reference draws both from one
-    key), ``A_log`` = log(1..H), ``D`` = 1 and ``dt_bias`` =
-    log(expm1(0.01)), each (L, H), and ``norm/scale`` (L, d_inner) ones."""
-    n_layers, d = cfg.num_layers, cfg.d_model
+def _attn_numpy_params(cfg, dense, norm, lead: tuple) -> dict:
+    """An attention stack: ``{wq, wk, wv, wo}/w (*lead, in, out)``, and
+    ``qnorm`` / ``knorm`` under ``cfg.qk_norm``."""
+    d, hd = cfg.d_model, cfg.head_dim
+    attn = {"wq": {"w": dense(*lead, d, cfg.num_heads * hd)},
+            "wk": {"w": dense(*lead, d, cfg.num_kv_heads * hd)},
+            "wv": {"w": dense(*lead, d, cfg.num_kv_heads * hd)},
+            "wo": {"w": dense(*lead, cfg.num_heads * hd, d)}}
+    if cfg.qk_norm:
+        attn["qnorm"], attn["knorm"] = norm(*lead, hd), norm(*lead, hd)
+    return attn
+
+
+def _ffn_numpy_params(cfg, dense, lead: tuple) -> dict:
+    """A dense FFN stack: ``{w_up, w_down, w_gate}/w (*lead, in, out)``
+    (``w_gate`` if the activation is gated)."""
+    d, ff = cfg.d_model, cfg.d_ff
+    ffn = {"w_up": {"w": dense(*lead, d, ff)}, "w_down": {"w": dense(*lead, ff, d)}}
+    if is_gated(cfg.activation):
+        ffn["w_gate"] = {"w": dense(*lead, d, ff)}
+    return ffn
+
+
+def _moe_numpy_params(cfg, dense, lead: tuple) -> dict:
+    """A MoE FFN stack: ``router/w (*lead, d, E)``, ``w_up`` / ``w_gate``
+    (*lead, E, d, f) and ``w_down`` (*lead, E, f, d), raw arrays as the
+    reference's ``moe_init`` makes them."""
+    d, e, f = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
+    moe = {"router": {"w": dense(*lead, d, e)}, "w_up": dense(*lead, e, d, f),
+           "w_down": dense(*lead, e, f, d)}
+    if is_gated(cfg.activation):
+        moe["w_gate"] = dense(*lead, e, d, f)
+    return moe
+
+
+def _ssm_numpy_params(cfg, rng, dense, lead: tuple) -> dict:
+    """An SSM stack's ``ssm`` node in the reference's layout, every leaf
+    with the leading axes ``lead``: ``{w_z, w_x, w_B, w_C, w_dt,
+    out_proj}/w (*lead, in, out)``, ``conv_{x,B,C}/{w (*lead, K, C) normal
+    * 0.2, b (*lead, C) zero}`` with each sub-layer's ``conv_C`` equal to
+    its ``conv_B`` (the reference draws both from one key), ``A_log`` =
+    log(1..H), ``D`` = 1 and ``dt_bias`` = log(expm1(0.01)), each (*lead,
+    H), and ``norm/scale`` (*lead, d_inner) ones."""
+    d = cfg.d_model
     d_inner, nheads, _ = ssm_dims(cfg)
     gn = cfg.ssm_groups * cfg.ssm_state
 
     def conv(c):
-        w = rng.standard_normal((n_layers, cfg.ssm_conv, c), dtype=np.float32) * np.float32(0.2)
-        return {"w": w, "b": np.zeros((n_layers, c), np.float32)}
+        w = rng.standard_normal((*lead, cfg.ssm_conv, c), dtype=np.float32) * np.float32(0.2)
+        return {"w": w, "b": np.zeros((*lead, c), np.float32)}
 
-    per_head = lambda v: np.broadcast_to(np.asarray(v, np.float32), (n_layers, nheads)).copy()
+    per_head = lambda v: np.broadcast_to(np.asarray(v, np.float32), (*lead, nheads)).copy()
     conv_bc = conv(gn)
-    return {"w_z": {"w": dense(n_layers, d, d_inner)},
-            "w_x": {"w": dense(n_layers, d, d_inner)},
-            "w_B": {"w": dense(n_layers, d, gn)},
-            "w_C": {"w": dense(n_layers, d, gn)},
-            "w_dt": {"w": dense(n_layers, d, nheads)},
+    return {"w_z": {"w": dense(*lead, d, d_inner)},
+            "w_x": {"w": dense(*lead, d, d_inner)},
+            "w_B": {"w": dense(*lead, d, gn)},
+            "w_C": {"w": dense(*lead, d, gn)},
+            "w_dt": {"w": dense(*lead, d, nheads)},
             "conv_x": conv(d_inner),
             "conv_B": conv_bc,
             "conv_C": {k: v.copy() for k, v in conv_bc.items()},
             "A_log": per_head(np.log(np.arange(1, nheads + 1, dtype=np.float32))),
             "D": per_head(np.ones(nheads, np.float32)),
             "dt_bias": per_head(np.log(np.expm1(np.full(nheads, 0.01, np.float32)))),
-            "norm": {"scale": np.ones((n_layers, d_inner), np.float32)},
-            "out_proj": {"w": dense(n_layers, d_inner, d)}}
+            "norm": {"scale": np.ones((*lead, d_inner), np.float32)},
+            "out_proj": {"w": dense(*lead, d_inner, d)}}

@@ -34,10 +34,14 @@ Params = dict[str, Any]
 
 
 # ---------------------------------------------------------------- init utils
-def _normal(generator: torch.Generator, shape, scale: float, dtype, device) -> torch.Tensor:
-    """``normal(shape) * scale`` in float32, drawn on ``generator``'s device,
-    then cast to ``dtype`` and placed on ``device``."""
-    x = torch.randn(shape, generator=generator, device=generator.device) * scale
+def _normal(generator: torch.Generator, shape, scale: float, dtype, device,
+            out: torch.Tensor | None = None) -> torch.Tensor:
+    """``normal(shape) * scale`` in float32, drawn on ``generator``'s device
+    and scaled in place, then cast to ``dtype`` and placed on ``device``, or
+    cast into ``out`` (a slice of a stack: no second copy of the draw)."""
+    x = torch.randn(shape, generator=generator, device=generator.device).mul_(scale)
+    if out is not None:
+        return out.copy_(x)
     return x.to(device=device, dtype=dtype)
 
 

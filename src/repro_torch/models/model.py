@@ -1,6 +1,6 @@
 """Model facade: build(config) -> init / loss / prefill / decode_step; the
-port of the JAX package's ``repro/models/model.py`` for the dense, MoE
-and SSM decoders.
+port of the JAX package's ``repro/models/model.py`` for the dense, MoE,
+SSM and hybrid (Jamba) decoders.
 
     batch (train): {"tokens": (B, S+1) int}
     batch (serving prefill): {"tokens": (B, S) int}
@@ -14,9 +14,11 @@ and ``torch.autograd`` gives the STE gradients (a MoE model's experts and
 router stay float under every backend, as in the reference, and its loss
 adds ``cfg.aux_loss_weight`` times the summed load-balancing loss; an SSM
 model's projections are not in ``PROJ_NAMES`` and stay float too, so they
-take the fake-quant arm at serving as well); ``launch/train.py``'s
-``make_train_step`` adds the AdamW step (``optim/adamw.py``), and the
-train loop waits for ROADMAP queue A item 7, step 3c.
+take the fake-quant arm at serving as well; a hybrid model holds both,
+and only its attention and dense-FFN projections are integer-deployed);
+``launch/train.py``'s ``make_train_step`` adds the AdamW step
+(``optim/adamw.py``), and the train loop waits for ROADMAP queue A item
+7, step 3c.
 """
 
 from __future__ import annotations
@@ -84,8 +86,8 @@ def build(cfg: ModelConfig, device=None) -> Model:
 
         ``quantize`` (an ``mvu_*`` backend) gives the serving params
         ``quantize_model_params(init(generator), quantize)`` from the same
-        draws, each layer quantized as soon as it is drawn, so the float
-        model never lies whole on the device."""
+        draws, each layer (a hybrid's group) quantized as soon as it is
+        drawn, so the float model never lies whole on the device."""
         params = {"embed": embed_init(generator, cfg.vocab_size, cfg.d_model, dt, device),
                   "layers": tf.stack_init(generator, cfg, dt, device, quantize=quantize)}
         params["ln_f"] = (layernorm_init(cfg.d_model, dt, device) if cfg.norm == "layernorm"
@@ -107,9 +109,9 @@ def build(cfg: ModelConfig, device=None) -> Model:
     def loss(params, batch):
         """(total, {"ce", "aux"}) of next-token prediction on ``batch["tokens"]``
         (B, S+1): ``total = ce + cfg.aux_loss_weight * aux``, ``aux`` the MoE
-        blocks' summed load-balancing loss (0 for the dense and SSM
-        families).  The dense, MoE and SSM families build (``build`` raises
-        for the hybrid, encoder-decoder and VLM configs, naming ROADMAP item
+        layers' summed load-balancing loss (0 for the dense and SSM
+        families).  The dense, MoE, SSM and hybrid families build (``build``
+        raises for the encoder-decoder and VLM configs, naming ROADMAP item
         7, step 4), so the reference's encoder-decoder and VLM-prefix
         branches have no counterpart here."""
         tokens = torch.as_tensor(batch["tokens"], device=device)

@@ -23,18 +23,31 @@ import math
 
 import torch
 
-from repro_torch.models.layers import Params, _normal, activation, is_gated, linear_init
+from repro_torch.models.layers import Params, _normal, activation, is_gated
 
 
-def moe_init(generator, cfg, dtype=torch.bfloat16, device="cpu") -> Params:
+def moe_init(generator, cfg, dtype=torch.bfloat16, device="cpu", *,
+             n: int | None = None) -> Params:
+    """One MoE FFN's params: the router float32, the experts in ``dtype``.
+    With ``n``, ``n`` of them stacked on a leading axis, drawn as ``n``
+    calls draw them: each leaf is allocated once and each FFN's draws are
+    cast into its slice, so one float32 draw lies beside the stack and no
+    second copy of it (one full-width Jamba MoE layer is 19.3 GB)."""
     e, d, f = cfg.num_experts, cfg.d_model, cfg.moe_d_ff
-    p = {
-        "router": linear_init(generator, d, e, torch.float32, device),
-        "w_up": _normal(generator, (e, d, f), 1.0 / math.sqrt(d), dtype, device),
-        "w_down": _normal(generator, (e, f, d), 1.0 / math.sqrt(f), dtype, device),
-    }
+    # leaf -> (shape, scale), in the order of the draws
+    draws = {"w_up": ((e, d, f), 1.0 / math.sqrt(d)), "w_down": ((e, f, d), 1.0 / math.sqrt(f))}
     if is_gated(cfg.activation):
-        p["w_gate"] = _normal(generator, (e, d, f), 1.0 / math.sqrt(d), dtype, device)
+        draws["w_gate"] = ((e, d, f), 1.0 / math.sqrt(d))
+    lead = () if n is None else (n,)
+    p = {"router": {"w": torch.empty((*lead, d, e), dtype=torch.float32, device=device)},
+         **{k: torch.empty((*lead, *shape), dtype=dtype, device=device)
+            for k, (shape, _) in draws.items()}}
+    for i in range(n or 1):
+        at = (lambda t: t) if n is None else (lambda t: t[i])
+        _normal(generator, (d, e), 1.0 / math.sqrt(d), torch.float32, device,
+                out=at(p["router"]["w"]))
+        for k, (shape, scale) in draws.items():
+            _normal(generator, shape, scale, dtype, device, out=at(p[k]))
     return p
 
 

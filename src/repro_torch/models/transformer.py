@@ -1,7 +1,7 @@
-"""Transformer assembly, dense, MoE and SSM families: the uniform decoder
-stack (its training forward, with ``remat``), its serving prefill and its
-cached decode; the port of the JAX package's
-``repro/models/transformer.py``.
+"""Transformer assembly, dense, MoE, SSM and hybrid families: the uniform
+decoder stack and the hybrid interleave (Jamba), each with its training
+forward (with ``remat``), its serving prefill and its cached decode; the
+port of the JAX package's ``repro/models/transformer.py``.
 
 Per-layer params are stacked on a leading layer axis, as the reference's
 scanned stacks are; the port walks that axis in a Python loop.  With
@@ -16,9 +16,21 @@ the reference does, and each block's load-balancing loss is summed in
 float32.  An SSM block (``cfg.family == "ssm"``, Mamba-2) holds ``ln1``
 and ``"ssm"`` (``models/ssm.py``) and no ``ln2``; its cache is the conv
 tails and the float32 state (``max_len`` is ignored), written in place as
-the KV caches are.  The other families -- the hybrid interleave (Jamba),
-the VLM backbone (M-RoPE) and encoder-decoder (Whisper) -- raise
-``NotImplementedError`` (ROADMAP queue A item 7, step 4).
+the KV caches are.
+
+A hybrid stack (``cfg.is_hybrid``, Jamba) is ``num_layers // attn_period``
+groups of ``per = attn_period`` layers, stacked on the leading axis: one
+attention layer at ``j == per // 2``, an SSM layer at every other ``j``,
+and after each a MoE FFN at odd ``j``, a dense one at even ``j``; the
+group's SSM, FFN and MoE sub-layers and its ``ln_mix`` / ``ln_ffn`` norms
+are sub-stacked on a second axis.  Its cache is a KV cache a group and
+``(per - 1)`` SSM caches a group, every SSM leaf float32 (the conv tails
+too, as the reference's ``init_stack_caches`` makes them).  A group is
+drawn sub-layer by sub-layer into stacks allocated once
+(:func:`stack_layers`, ``moe_init(n=...)``), so a full-width group never
+lies twice on the card.  The other families -- the VLM backbone (M-RoPE) and
+encoder-decoder (Whisper) -- raise ``NotImplementedError`` (ROADMAP queue
+A item 7, step 4).
 """
 
 from __future__ import annotations
@@ -54,14 +66,15 @@ from repro_torch.models.ssm import (
     ssm_init,
     ssm_prefill,
 )
+from repro_torch.tree import tree_map
 
 
 def require_ported(cfg) -> None:
     """Raise for a config of a family the port does not run yet."""
-    if cfg.family not in ("dense", "moe", "ssm") or cfg.is_hybrid:
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported; the port runs the "
-            "dense, MoE and SSM decoders (hybrid, VLM and encoder-decoder wait for "
+            "dense, MoE, SSM and hybrid decoders (VLM and encoder-decoder wait for "
             "ROADMAP queue A item 7, step 4)")
 
 
@@ -89,10 +102,23 @@ def unbind_layers(params: Params) -> list[Params]:
     return [{k: v[i] for k, v in leaves.items()} for i in range(len(next(iter(leaves.values()))))]
 
 
-def stack_layers(trees: list[Params]) -> Params:
-    """Per-layer trees -> one tree with a leading layer axis."""
-    return {k: stack_layers([t[k] for t in trees]) if isinstance(v, dict)
-            else torch.stack([t[k] for t in trees]) for k, v in trees[0].items()}
+def stack_layers(trees, n: int) -> Params:
+    """``n`` per-layer trees (any iterable, e.g. a generator that draws
+    each when asked) -> one tree with a leading layer axis.  Each leaf's
+    stack is allocated once, at the first tree, and each tree is copied
+    into its slice as soon as it comes, so one tree lies beside the stack
+    and never every tree with it; a lone tree is its own stack, as views."""
+    trees = iter(trees)
+    first = next(trees)
+    if n == 1:
+        return tree_map(lambda t: t.unsqueeze(0), first)
+    out = tree_map(lambda t: t.new_empty((n, *t.shape)), first)
+    tree_map(lambda o, t: o[0].copy_(t), out, first)
+    del first
+    for i, tree in enumerate(trees, 1):
+        tree_map(lambda o, t: o[i].copy_(t), out, tree)
+        del tree  # freed before the next one is drawn
+    return out
 
 
 # ------------------------------------------------------------------- FFN
@@ -156,32 +182,154 @@ def block_forward(p, cfg, x, positions, *, causal=True):
     return x + y, aux
 
 
+# ------------------------------------------------------------ hybrid (Jamba)
+def group_init(generator, cfg, dtype, device) -> Params:
+    """One Jamba group = ``per = attn_period`` layers: the per-layer norms
+    ``ln_mix`` / ``ln_ffn`` (per, d), one attention, ``per - 1`` SSM
+    layers, ``per - per // 2`` dense FFNs and ``per // 2`` MoE FFNs, each
+    kind sub-stacked on a leading axis.  Each kind's sub-layers go into a
+    stack allocated once, one drawn sub-layer beside it
+    (:func:`stack_layers`); the MoE experts are drawn straight into theirs
+    (``moe_init(n=...)``), as one full-width MoE layer is 19.3 GB."""
+    per = cfg.attn_period
+    n_moe = per // 2
+    n_dense = per - n_moe
+    each = lambda n, init: stack_layers((init() for _ in range(n)), n)
+    return {
+        "ln_mix": each(per, lambda: _norm_init(cfg, dtype, device)),
+        "ln_ffn": each(per, lambda: _norm_init(cfg, dtype, device)),
+        "attn": attn_init(generator, cfg, dtype, device),
+        "ssm": each(per - 1, lambda: ssm_init(generator, cfg, dtype, device)),
+        "ffn": each(n_dense, lambda: ffn_init(generator, cfg, dtype, device)),
+        "moe": moe_init(generator, cfg, dtype, device, n=n_moe),
+    }
+
+
+def _group_layers(cfg) -> list[tuple[int, int | None, str, int]]:
+    """A group's layers in order, as the reference's counters ``si``,
+    ``di``, ``mi`` walk them: (j, si, ffn, fi) with ``si`` the SSM
+    sub-layer at j (None at the attention, ``j == per // 2``), ``ffn``
+    "moe" at odd j and "ffn" at even j, and ``fi`` its index among its
+    kind."""
+    per = cfg.attn_period
+    si, count, out = 0, {"moe": 0, "ffn": 0}, []
+    for j in range(per):
+        kind = "moe" if j % 2 == 1 else "ffn"
+        out.append((j, None if j == per // 2 else si, kind, count[kind]))
+        si += j != per // 2
+        count[kind] += 1
+    return out
+
+
+def _sub_layers(p: Params) -> dict[str, list[Params]]:
+    """A group's sub-stacks as lists of per-sub-layer views (see
+    :func:`unbind_layers`)."""
+    return {k: unbind_layers(p[k]) for k in ("ln_mix", "ln_ffn", "ssm", "ffn", "moe")}
+
+
+def _group_ffn(subs, cfg, x, j: int, kind: str, fi: int, capacity_factor: float):
+    """Layer j's FFN half on ``ln_ffn[j](x)``: (y, aux), aux the MoE FFN's
+    load-balancing loss, or None for a dense FFN."""
+    h = _norm(cfg, subs["ln_ffn"][j], x)
+    if kind == "moe":
+        return moe_ffn(subs["moe"][fi], cfg, h, group_size=cfg.moe_group_size,
+                       capacity_factor=capacity_factor)
+    return ffn(subs["ffn"][fi], cfg, h, backend=cfg.linear_backend), None
+
+
+def group_forward(p, cfg, x, positions):
+    """One group's training forward: (x, the group's MoE aux losses summed
+    in float32, in the reference's order)."""
+    be = cfg.linear_backend
+    subs = _sub_layers(p)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for j, si, kind, fi in _group_layers(cfg):
+        h = _norm(cfg, subs["ln_mix"][j], x)
+        if si is None:
+            x = x + attention(p["attn"], cfg, h, positions, backend=be)
+        else:
+            x = x + ssm_forward(subs["ssm"][si], cfg, h, chunk=cfg.ssd_chunk, backend=be)
+        y, a = _group_ffn(subs, cfg, x, j, kind, fi, cfg.capacity_factor)
+        x = x + y
+        if a is not None:
+            aux = aux + a
+    return x, aux
+
+
+def _group_decode(p, cfg, x, pos, cache):
+    """One decode step through a group; the attention's KV cache and each
+    SSM layer's cache are written in place (the MoE routes with capacity
+    2.0, as the reference's decode does)."""
+    be = cfg.linear_backend
+    subs, ssm_caches = _sub_layers(p), unbind_layers(cache["ssm"])
+    for j, si, kind, fi in _group_layers(cfg):
+        h = _norm(cfg, subs["ln_mix"][j], x)
+        if si is None:
+            y, _ = attention_decode(p["attn"], cfg, h, pos, cache["attn"], backend=be)
+        else:
+            y, new = ssm_decode_step(subs["ssm"][si], cfg, h, ssm_caches[si], backend=be)
+            _write(ssm_caches[si], new)
+        x = x + y
+        x = x + _group_ffn(subs, cfg, x, j, kind, fi, 2.0)[0]
+    return x, cache
+
+
+def _group_prefill(p, cfg, x, positions, cache):
+    """The prompt through a group, filling its caches in place: the SSM
+    layers' bf16 conv tails are ``copy_``'d into the float32 cache (exact),
+    the state as it is; the MoE routes with ``cfg.capacity_factor``."""
+    _check_conv_tail(cfg, x)
+    be = cfg.linear_backend
+    subs, ssm_caches = _sub_layers(p), unbind_layers(cache["ssm"])
+    for j, si, kind, fi in _group_layers(cfg):
+        h = _norm(cfg, subs["ln_mix"][j], x)
+        if si is None:
+            y, _ = attention_prefill(p["attn"], cfg, h, positions, cache["attn"], backend=be)
+        else:
+            y, new = ssm_prefill(subs["ssm"][si], cfg, h, chunk=cfg.ssd_chunk, backend=be)
+            _write(ssm_caches[si], new)
+        x = x + y
+        x = x + _group_ffn(subs, cfg, x, j, kind, fi, cfg.capacity_factor)[0]
+    return x, cache
+
+
 # --------------------------------------------------------------- stacks
+def _n_stacked(cfg) -> int:
+    """The stack's leading axis: layers, or a hybrid's groups."""
+    return cfg.num_layers // cfg.attn_period if cfg.is_hybrid else cfg.num_layers
+
+
 def stack_init(generator, cfg, dtype, device, *, quantize: str | None = None) -> Params:
-    """Stacked per-layer params: leading axis = the layer axis.  With
-    ``quantize`` (an ``mvu_*`` backend) each layer's projections are
-    quantized as soon as that layer is drawn, so the float stack never
-    lies whole on ``device``."""
+    """Stacked per-layer params (a hybrid's per-group params): leading axis
+    = the layer (group) axis.  With ``quantize`` (an ``mvu_*`` backend)
+    each layer's (group's) projections are quantized as soon as it is
+    drawn, so the float stack never lies whole on ``device``."""
+    init = group_init if cfg.is_hybrid else block_init
+
     def one():
-        p = block_init(generator, cfg, dtype, device)
+        p = init(generator, cfg, dtype, device)
         return p if quantize is None else quantize_model_params(p, quantize)
-    return stack_layers([one() for _ in range(cfg.num_layers)])
+    n = _n_stacked(cfg)
+    return stack_layers((one() for _ in range(n)), n)
 
 
 def stack_forward(params, cfg, x, positions, *, causal=True):
     """The uncached forward through every layer (the training forward);
-    returns (x, the summed aux loss).  With ``cfg.remat`` each block is
-    recomputed from its input in the backward (non-reentrant
+    returns (x, the summed aux loss).  With ``cfg.remat`` each block (a
+    hybrid's group, as one scan step is in the reference) is recomputed
+    from its input in the backward (non-reentrant
     ``torch.utils.checkpoint``).  Under a 1-bit backend every layer's
     projection scales are computed once, before the blocks
     (:func:`with_column_scales`)."""
+    fwd = group_forward if cfg.is_hybrid else block_forward
+    kw = {} if cfg.is_hybrid else {"causal": causal}
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p in unbind_layers(with_column_scales(params, cfg.linear_backend)):
         if cfg.remat:
-            x, a = torch.utils.checkpoint.checkpoint(block_forward, p, cfg, x, positions,
-                                                     causal=causal, use_reentrant=False)
+            x, a = torch.utils.checkpoint.checkpoint(fwd, p, cfg, x, positions,
+                                                     use_reentrant=False, **kw)
         else:
-            x, a = block_forward(p, cfg, x, positions, causal=causal)
+            x, a = fwd(p, cfg, x, positions, **kw)
         aux = aux + a
     return x, aux
 
@@ -195,14 +343,36 @@ def init_block_cache(cfg, batch: int, max_len: int, dtype, device):
 
 
 def init_stack_caches(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device="cpu"):
-    return stack_layers([init_block_cache(cfg, batch, max_len, dtype, device)
-                         for _ in range(cfg.num_layers)])
+    """The caches stacked as the params are.  A hybrid group's: its KV
+    cache in ``dtype`` and its ``per - 1`` SSM caches with every leaf
+    float32, as the reference makes them."""
+    if cfg.is_hybrid:
+        n_ssm = cfg.attn_period - 1
+
+        def one():
+            return {"attn": init_kv_cache(cfg, batch, max_len, dtype, device),
+                    "ssm": stack_layers((init_ssm_cache(cfg, batch, torch.float32, device)
+                                         for _ in range(n_ssm)), n_ssm)}
+    else:
+        def one():
+            return init_block_cache(cfg, batch, max_len, dtype, device)
+    n = _n_stacked(cfg)
+    return stack_layers((one() for _ in range(n)), n)
 
 
 def _write(cache: dict, new: dict) -> None:
     """Each of ``new``'s tensors copied into ``cache``'s view of that name."""
     for k, v in new.items():
         cache[k].copy_(v)
+
+
+def _check_conv_tail(cfg, x) -> None:
+    """An SSM prompt shorter than the conv tail (``ssm_conv - 1`` tokens)
+    raises: the reference has no valid path there (its cache changes
+    shape, and its next decode step fails)."""
+    if x.shape[1] < cfg.ssm_conv - 1:
+        raise ValueError(f"{cfg.name}: a prompt of {x.shape[1]} tokens is shorter than "
+                         f"the conv tail of {cfg.ssm_conv - 1} the decode cache holds")
 
 
 def _block_decode(p, cfg, x, pos, cache):
@@ -219,24 +389,21 @@ def _block_decode(p, cfg, x, pos, cache):
 
 
 def stack_decode(params, cfg, x, pos, caches):
-    """One decode step through every layer; ``caches`` is written in place
-    and returned."""
-    for i in range(cfg.num_layers):
-        x, _ = _block_decode(layer(params, i), cfg, x, pos, layer(caches, i))
+    """One decode step through every layer (group); ``caches`` is written
+    in place and returned."""
+    dec = _group_decode if cfg.is_hybrid else _block_decode
+    for i in range(_n_stacked(cfg)):
+        x, _ = dec(layer(params, i), cfg, x, pos, layer(caches, i))
     return x, caches
 
 
 def _block_prefill(p, cfg, x, positions, cache):
-    """Full-seq pass that fills caches (serving prefill).  An SSM prompt
-    shorter than the conv tail (``ssm_conv - 1`` tokens) raises: the
-    reference has no valid path there (its cache changes shape, and its
-    next decode step fails)."""
+    """Full-seq pass that fills caches (serving prefill); an SSM prompt
+    shorter than the conv tail raises (:func:`_check_conv_tail`)."""
     require_ported(cfg)
     be = cfg.linear_backend
     if cfg.family == "ssm":
-        if x.shape[1] < cfg.ssm_conv - 1:
-            raise ValueError(f"{cfg.name}: a prompt of {x.shape[1]} tokens is shorter than "
-                             f"the conv tail of {cfg.ssm_conv - 1} the decode cache holds")
+        _check_conv_tail(cfg, x)
         y, new = ssm_prefill(p["ssm"], cfg, _norm(cfg, p["ln1"], x), chunk=cfg.ssd_chunk,
                              backend=be)
         _write(cache, new)
@@ -248,8 +415,9 @@ def _block_prefill(p, cfg, x, positions, cache):
 
 
 def stack_prefill(params, cfg, x, positions, caches):
-    """The prompt through every layer; ``caches`` is filled in place and
-    returned."""
-    for i in range(cfg.num_layers):
-        x, _ = _block_prefill(layer(params, i), cfg, x, positions, layer(caches, i))
+    """The prompt through every layer (group); ``caches`` is filled in
+    place and returned."""
+    pre = _group_prefill if cfg.is_hybrid else _block_prefill
+    for i in range(_n_stacked(cfg)):
+        x, _ = pre(layer(params, i), cfg, x, positions, layer(caches, i))
     return x, caches

@@ -514,8 +514,8 @@ def test_decode_writes_the_stacked_cache_in_place(kv_quant):
     assert written[:, :6].all() and not written[:, 6:].any()
 
 
-@pytest.mark.parametrize("arch", [a for a in ARCH_IDS
-                                  if get_reduced(a).family not in ("dense", "moe", "ssm")])
+@pytest.mark.parametrize("arch", [a for a in ARCH_IDS if get_reduced(a).family
+                                  not in ("dense", "moe", "ssm", "hybrid")])
 def test_non_dense_families_raise(arch):
     cfg = get_reduced(arch)
     with pytest.raises(NotImplementedError, match="item 7, step 4"):
