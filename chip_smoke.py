@@ -457,11 +457,45 @@ Phases, each printing its own line(s); any failure exits non-zero:
            tokens (three SSD chunks) against a prefill of 36 and 4 decode
            steps, within rtol = atol = 2e-2, argmax equal.  The phase's
            seconds and peak memory.
+   lm_vlm  the VLM backbone (Qwen2-VL): the dense stack with M-RoPE
+           (``layers.apply_mrope``, ``models/vlm.py``), every projection
+           integer-deployed.  First the reduced Qwen2-VL in float32, dense
+           and W8A8, held to the JAX package's golden run
+           (``configs/qwen2_vl_7b_lm_golden.json``: logits within 1e-3 of
+           the largest, greedy tokens equal), W8A8 launching ``mvu_int``
+           exactly 7 x 2 layers x 4 calls = 56 times and nothing else; then
+           its loss behind a 40-patch vision prefix (the t, h and w ids all
+           distinct), float32, remat on, under dense, W8A8 and binary (the
+           fake-quant arm, no kernel), held to the JAX package's prefix-loss
+           golden (``configs/qwen2_vl_7b_qat_golden.json``: the loss within
+           1e-5, every gradient leaf within 1e-4 of its largest).  Then
+           full-width, full-depth Qwen2-VL-7B (28 x 3584, 28 / 4 heads of
+           128, M-RoPE sections (16, 24, 24), theta 1e6, SwiGLU d_ff 18944,
+           vocab 152,064, untied, bf16) drawn on the card from a seed with
+           ``init(g, quantize="mvu_w8a8")``, served by ``serve_loop`` on the
+           lm phase's 8 requests (text only: serving reads no vision prefix
+           in either package), ``mvu_int`` exactly 7 x 28 x 17 x 2 = 6,664
+           times and nothing else, every request answered; the model's
+           bytes, the peak while drawing and while serving; group 0's
+           prefill and decode ms on the host clock (median of 3), tokens/s,
+           and a prefill carrying ``prefix_embeds`` equal to the same
+           tokens alone.  Layer 0's projections ((K, N) = (3584, 3584),
+           (3584, 512), (3584, 18944), (18944, 3584)) against the plain
+           version at the decode and each group's prefill rows, each shape
+           timed beside float32 ``torch.matmul``.  Then the QAT loss of
+           full-width, full-depth Qwen2-VL-7B (float bf16 params drawn on
+           the card, W8A8 fake-quant, remat on) on 2 rows of a 256-patch
+           prefix (the reference dry run's 16 x 16 grid, seeded, normal x
+           0.02) and 128 predicted tokens, with ``torch.autograd.grad`` of
+           every leaf: the loss finite within (0.5, 2.5) x ln(vocab), as the
+           reference's smoke test bounds it, every gradient finite, no
+           kernel launched; ms a call (3 calls) and the peak memory.  The
+           phase's seconds and peak memory.
 5. the kernels JSON line (each kernel also with its tiles phase's times
    by tile; ``mvu_int``'s launches and times include the qat phase's three
    counted ``acc(x)``; ``mvu_int``'s and ``mvu_binary``'s the pipeline,
-   lm, lm_qat, train, lm_moe and lm_hybrid phases' counted runs, each
-   launch at its shape; the lm_ssm phase's add none), the card's
+   lm, lm_qat, train, lm_moe, lm_hybrid and lm_vlm phases' counted runs,
+   each launch at its shape; the lm_ssm phase's add none), the card's
    ``nvidia-smi`` line, and last the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -614,6 +648,14 @@ HYBRID_SHAPES = [(8192, 8192), (8192, 1024), (8192, 24576), (24576, 8192)]
 HYBRID_LONG = (1, 40, 4)  # (B, S, decode steps): three SSD chunks of 16, one routing group
 HYBRID_LONG_CAPACITY = 8.0  # the reference's test_prefill_decode_matches_forward: no drops
 ATTN_NAMES = ("wq", "wk", "wv", "wo")  # a block's integer-deployed attention projections
+# the lm_vlm phase: full-width, full-depth Qwen2-VL-7B (the backbone; its
+# serving reads only tokens, as the reference's does) served on the lm
+# phase's requests, and its QAT loss behind the dry run's 16 x 16 patch grid
+VLM_SHAPES = [(3584, 3584), (3584, 512), (3584, 18944), (18944, 3584)]  # (K, N), as above
+VLM_PREFIX = 256  # patches: the reference dry run's prefix, a 16 x 16 grid
+VLM_PREFIX_SCALE = 0.02  # the patch embeddings' scale: the token embeddings' init
+VLM_LOSS_SEQ = 128  # text tokens predicted a row behind the prefix
+VLM_LOSS_CALLS = 3
 TRACE_KERNELS = {
     "conv_mvu_kernel": "conv_mvu",
     "Coding<false,false,false>": "mvu_int",
@@ -3746,6 +3788,258 @@ def lm_hybrid_phase(dev, smi: str) -> dict:
     return {"launches": launches, "rows": {"mvu_int": rows}}
 
 
+def lm_vlm_phase(dev, smi: str) -> dict:
+    """The lm_vlm phase (see the module doc): the reduced Qwen2-VL against
+    the JAX package's golden run and its prefix-loss golden, full-width,
+    full-depth Qwen2-VL-7B served by ``serve_loop`` on ``mvu_int`` with its
+    launches counted, its four projection shapes against the plain version,
+    and its QAT loss and gradients behind a 256-patch prefix.  Returns, by
+    kernel, the served run's launches and a timing row for each launch."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, lm_golden as G
+    from repro_torch.convert import lm_numpy_params, lm_params_from_numpy
+    from repro_torch.launch.serve import Request, prompt_batch, serve_loop
+    from repro_torch.models import layers as L, transformer as tf
+    from repro_torch.models.model import build
+    from repro_torch.tree import flat_leaves
+
+    t_phase = time.perf_counter()
+    arch = G.VLM_ARCH
+    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "lm_vlm: float32 matmuls must not run in TF32 (PyTorch's default is off)")
+    torch.cuda.reset_peak_memory_stats()
+
+    # (a) the reduced Qwen2-VL, float32, against the JAX package's golden run
+    golden = G.load_golden(arch)
+    for backend in G.VARIANTS:
+        cfg = G.golden_config(backend, arch)
+        params = lm_params_from_numpy(lm_numpy_params(cfg, G.SEED), dev)
+        if backend != "dense":
+            params = L.quantize_model_params(params, backend)
+        want = {} if backend == "dense" else {
+            "mvu_int": len(L.PROJ_NAMES) * cfg.num_layers * (1 + G.DECODE_STEPS)}
+        model = build(cfg, device=dev)
+        got = counted(lambda: G.greedy_run(model, params), want,
+                      f"lm_vlm: the {arch} golden run ({backend})")
+        bad = G.mismatch(golden["variants"][backend], got)
+        check(bad is None, f"lm_vlm: the reduced {arch} {backend} model on the card differs "
+              f"from the JAX package's golden run: {bad}")
+        ref = np.asarray(golden["variants"][backend]["logits"], np.float32)
+        print(f"lm_vlm: golden: reduced {cfg.name} {backend} float32 on the card (M-RoPE "
+              f"sections {cfg.mrope_sections}), prefill of {G.BATCH} x {G.PROMPT_LEN} + "
+              f"{G.DECODE_STEPS} greedy steps: max |logit error| "
+              f"{float(np.abs(got['logits'] - ref).max()):.3e} (bound {G.LOGIT_ATOL} x "
+              f"{float(np.abs(ref).max()):.4f}), greedy tokens equal the JAX package's "
+              f"{got['tokens'].tolist()}; launches {want or 'none'}", flush=True)
+
+    # (b) the loss behind a vision prefix, float32, remat on, against the
+    # JAX package's prefix-loss golden: the t, h and w ids all differ there
+    qgolden = G.load_qat_golden(arch)
+    for backend in G.QAT_VARIANTS:
+        cfg = G.qat_config(backend, arch)
+        params = lm_params_from_numpy(lm_numpy_params(cfg, G.SEED), dev)
+        model = build(cfg, device=dev)
+        got = counted(lambda: G.qat_run(model, params), {},
+                      f"lm_vlm: the prefix-loss golden's loss and backward ({backend})")
+        want = qgolden["variants"][backend]
+        bad = G.qat_mismatch(want, got)
+        check(bad is None, f"lm_vlm: the reduced {backend} model's prefix loss and gradients on "
+              f"the card differ from the JAX package's: {bad}")
+        wg = want["grads"]
+        worst = max(float(np.abs(np.subtract(gr["head"], wg[p]["head"])).max())
+                    / wg[p]["max_abs"] for p, gr in got["grads"].items())
+        print(f"lm_vlm: prefix-loss golden: reduced {cfg.name} {backend} float32, remat on, "
+              f"{G.BATCH} x {G.QAT_SEQ} tokens behind {G.VLM_PREFIX} patches on the card: loss "
+              f"{got['loss']:.7f} (JAX {want['loss']:.7f}, |error| "
+              f"{abs(got['loss'] - want['loss']):.3e}, bound {G.LOSS_RTOL} x |loss|); "
+              f"{len(got['grads'])} gradient leaves within the bounds, worst head error "
+              f"{worst:.3e} of the leaf's largest (bound {G.GRAD_ATOL}); no kernel launched",
+              flush=True)
+    del model, params
+    torch.cuda.empty_cache()
+
+    # (c) full width and depth, integer-deployed, served by serve_loop
+    cfg = get_config(arch).replace(linear_backend=LM_BACKEND)
+    g = torch.Generator(device=dev).manual_seed(LM_SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build(cfg, device=dev)
+    params = model.init(g, quantize=LM_BACKEND)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    draw_peak = torch.cuda.max_memory_allocated()
+    proj = {name: blk[name] for blk in (params["layers"]["attn"], params["layers"]["ffn"])
+            for name in L.PROJ_NAMES if name in blk}
+    check(len(proj) == len(L.PROJ_NAMES) and all(
+        set(p) == {"values", "scale"} and p["values"].dtype == torch.int8
+        and p["values"].shape[0] == cfg.num_layers for p in proj.values()),
+        "lm_vlm: a full-width projection is not integer-deployed int8 on every layer")
+    model_bytes = nbytes(flat_leaves(params).values())
+    proj_bytes = nbytes(p["values"] for p in proj.values())
+    print(f"lm_vlm: full width: {cfg.name} ({cfg.num_layers} layers x {cfg.d_model}, "
+          f"{cfg.num_heads} / {cfg.num_kv_heads} heads of {cfg.head_dim}, M-RoPE sections "
+          f"{cfg.mrope_sections} theta {cfg.rope_theta:g}, {cfg.activation} d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab_size}, untied {not cfg.tie_embeddings}, {cfg.dtype}) drawn on the "
+          f"card from seed {LM_SEED} with init(quantize={LM_BACKEND!r}) in {init_s:.2f} s: the "
+          f"model {model_bytes / 1e9:.3f} GB ({proj_bytes / 1e9:.3f} GB of int8 projections); "
+          f"peak while drawing {draw_peak / 1e9:.2f} GB allocated ({smi})", flush=True)
+    rng = np.random.default_rng(LM_SEED)
+    lens = rng.integers(LM_PROMPT_LENS[0], LM_PROMPT_LENS[1] + 1, LM_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in lens]
+
+    def requests():
+        return [Request(i, p, LM_MAX_NEW) for i, p in enumerate(prompts)]
+
+    groups = [requests()[i:i + LM_BATCH] for i in range(0, LM_REQUESTS, LM_BATCH)]
+    group_tokens = [prompt_batch(grp) for grp in groups]
+    per_group = len(L.PROJ_NAMES) * cfg.num_layers * (1 + LM_MAX_NEW)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    done = counted(lambda: serve_loop(model, params, requests(), batch=LM_BATCH,
+                                      max_len=LM_MAX_LEN),
+                   {"mvu_int": per_group * len(groups)},
+                   "lm_vlm: serve_loop of Qwen2-VL at full width")
+    serve_s = time.perf_counter() - t0
+    serve_peak = torch.cuda.max_memory_allocated()
+    check([r.rid for r in done] == list(range(LM_REQUESTS))
+          and all(len(r.out) == LM_MAX_NEW and all(0 <= t < cfg.vocab_size for t in r.out)
+                  for r in done),
+          "lm_vlm: serve_loop did not answer every request with its tokens in the vocabulary")
+    print(f"lm_vlm: serve_loop: {LM_REQUESTS} requests (prompts {lens.tolist()} tokens, text "
+          f"only: the served model reads no vision prefix, as the reference's) in "
+          f"{len(groups)} groups of {LM_BATCH}, max_new {LM_MAX_NEW}, max_len {LM_MAX_LEN}: "
+          f"every request answered; mvu_int launched {per_group * len(groups)} times = "
+          f"{len(L.PROJ_NAMES)} projections x {cfg.num_layers} layers x (1 prefill + "
+          f"{LM_MAX_NEW} decode steps) x {len(groups)} groups, nothing else; "
+          f"{LM_REQUESTS * LM_MAX_NEW / serve_s:.2f} tokens/s over the loop's {serve_s:.3f} s "
+          f"(host clock, the first run: no warm-up); peak while serving "
+          f"{serve_peak / 1e9:.2f} GB allocated; first tokens {[r.out[:4] for r in done[:2]]} "
+          f"({smi})", flush=True)
+
+    # serving times on the host clock, synchronised: group 0's prefill, then
+    # its decode steps; a prefill batch carrying a vision prefix is the same
+    # prefill (the reference ignores it too)
+    toks0 = torch.from_numpy(group_tokens[0])
+    pre, dec = [], []
+    for _ in range(3):
+        state = model.init_decode_state(LM_BATCH, LM_MAX_LEN)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, state = model.prefill(params, {"tokens": toks0}, state)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        first = logits
+        for _ in range(LM_MAX_NEW):
+            logits, state = model.decode_step(params, state, torch.argmax(logits, -1))
+        torch.cuda.synchronize()
+        pre.append(t1 - t0)
+        dec.append((time.perf_counter() - t1) / LM_MAX_NEW)
+    check(bool(torch.isfinite(logits).all())
+          and tuple(logits.shape) == (LM_BATCH, cfg.vocab_size),
+          f"lm_vlm: full-width logits {tuple(logits.shape)} not finite")
+    with_prefix, _ = model.prefill(params, {"tokens": toks0, "prefix_embeds": torch.zeros(
+        (LM_BATCH, VLM_PREFIX, cfg.d_model), dtype=torch.bfloat16, device=dev)},
+        model.init_decode_state(LM_BATCH, LM_MAX_LEN))
+    check(torch.equal(with_prefix, first), "lm_vlm: a prefill batch carrying prefix_embeds "
+          "gave other logits than the same tokens alone")
+    pre_ms, dec_ms = statistics.median(pre) * 1e3, statistics.median(dec) * 1e3
+    print(f"lm_vlm: full width {LM_BACKEND}, group 0 ({LM_BATCH} x {toks0.shape[1]} tokens): "
+          f"prefill {pre_ms:.3f} ms, decode {dec_ms:.3f} ms a step ({LM_BATCH} tokens), "
+          f"{LM_BATCH / dec_ms * 1e3:.2f} decode tokens/s, "
+          f"{toks0.numel() / pre_ms * 1e3:.1f} prefill tokens/s (host clock, synchronised, "
+          f"median of 3 after the served run); a prefill carrying a {VLM_PREFIX}-patch "
+          f"prefix_embeds gave the same logits ({smi})", flush=True)
+
+    # (d) the four new mvu_int shapes: layer 0's projections against the
+    # plain version at the decode rows and at each group's prefill rows
+    ga = torch.Generator(device=dev).manual_seed(LM_SEED + 5)
+    m_pre = [t.size for t in group_tokens]
+    layer0 = tf.layer(params["layers"], 0)
+    timed = projection_rows(layer0, "mvu_int", {LM_BATCH, *m_pre}, ga, "lm_vlm")
+    shapes = {name: tuple((layer0["attn"] | layer0["ffn"])[name]["values"].shape)
+              for name in L.PROJ_NAMES}
+    check(sorted({(k, n) for n, k in shapes.values()}) == sorted(VLM_SHAPES),
+          f"lm_vlm: the deployed shapes (K, N) {sorted({(k, n) for n, k in shapes.values()})}, "
+          f"want {sorted(VLM_SHAPES)}")
+    # a timing row per counted launch: each group's prefill and decode steps
+    rows = []
+    for m in m_pre:
+        for mm, reps in ((m, 1), (LM_BATCH, LM_MAX_NEW)):
+            rows += [timed[("mvu_int", mm, n, k)] for n, k in shapes.values()] * (
+                cfg.num_layers * reps)
+    del model, params, proj, layer0, logits, first, with_prefix, state
+    torch.cuda.empty_cache()
+
+    # (e) the QAT loss and its gradients at full width and depth behind the
+    # dry run's 256-patch prefix: float bf16 params, W8A8 fake-quant, remat on
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = build(cfg, device=dev).init(g)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = flat_leaves(params)
+    for t in leaves.values():
+        t.requires_grad_(True)
+    tokens = np.random.default_rng(LM_SEED + 7).integers(
+        0, cfg.vocab_size, (LM_QAT_BATCH, VLM_LOSS_SEQ + 1)).astype(np.int32)
+    prefix = torch.randn((LM_QAT_BATCH, VLM_PREFIX, cfg.d_model), generator=g,
+                         device=dev).mul_(VLM_PREFIX_SCALE).to(torch.bfloat16)
+    batch = {"tokens": torch.from_numpy(tokens).to(dev), "prefix_embeds": prefix}
+    model = build(cfg, device=dev)
+    check(cfg.remat, "lm_vlm: the full-width loss runs with remat on")
+
+    def step():
+        loss, _ = model.loss(params, batch)
+        return loss, torch.autograd.grad(loss, list(leaves.values()))
+
+    loss, grads = counted(step, {}, "lm_vlm: the full-width prefix loss and backward")
+    finite = torch.stack([torch.isfinite(gr).all() for gr in grads]).all()
+    ln_v = math.log(cfg.vocab_size)
+    check(bool(torch.isfinite(loss)) and 0.5 * ln_v < loss.item() < 2.5 * ln_v and bool(finite)
+          and all(gr.shape == t.shape and gr.dtype == t.dtype
+                  for gr, t in zip(grads, leaves.values())),
+          f"lm_vlm: the full-width prefix loss {loss.item()} is not finite within (0.5, 2.5) x "
+          "ln(vocab), or a gradient is not finite or not of its parameter's shape and dtype")
+    loss0 = loss.item()
+    del loss, grads
+    times = []
+    for _ in range(VLM_LOSS_CALLS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        del loss, grads
+    loss_peak = torch.cuda.max_memory_allocated()
+    print(f"lm_vlm: prefix loss at full width and depth ({cfg.num_layers} layers): {cfg.name} "
+          f"float {cfg.dtype} params drawn on the card in {init_s:.2f} s "
+          f"({sum(t.numel() for t in leaves.values()):,} parameters, "
+          f"{nbytes(leaves.values()) / 1e9:.3f} GB), {LM_BACKEND} fake-quant on every "
+          f"projection, remat on; {LM_QAT_BATCH} rows of {VLM_PREFIX} patches (a 16 x 16 grid, "
+          f"normal x {VLM_PREFIX_SCALE}, bf16) + {VLM_LOSS_SEQ} predicted tokens: loss "
+          f"{loss0:.6f} (ln(vocab) {ln_v:.4f}), finite; {len(leaves)} gradient leaves finite, "
+          f"each of its parameter's shape and dtype; no kernel launched; forward + backward "
+          f"{', '.join(f'{t:.3f}' for t in times)} ms, median {statistics.median(times):.3f} ms "
+          f"(host clock, synchronised, {VLM_LOSS_CALLS} calls after the checked one); peak "
+          f"{loss_peak / 1e9:.2f} GB allocated ({smi})", flush=True)
+    del model, params, leaves, batch, prefix
+    torch.cuda.empty_cache()
+
+    launches = {"mvu_int": per_group * len(groups)}
+    check(len(rows) == launches["mvu_int"], "lm_vlm: a row for every launch")
+    print(f"lm_vlm: launches of the served run {launches}; kernel ms over them "
+          f"{round(sum(r[0] for r in rows), 4)}; phase {time.perf_counter() - t_phase:.2f} s, "
+          f"peak while drawing {draw_peak / 1e9:.2f} GB, while serving {serve_peak / 1e9:.2f} "
+          f"GB, in the prefix loss {loss_peak / 1e9:.2f} GB allocated ({smi})", flush=True)
+    return {"launches": launches, "rows": {"mvu_int": rows}}
+
+
 def bound_of(nbytes: int, ops: int) -> tuple[float, str]:
     """Least ms the card needs: ``nbytes`` at the HBM rate or ``ops`` at the
     int8 tensor-core peak, whichever is larger."""
@@ -4553,6 +4847,7 @@ def main() -> int:
     moe_lm = lm_moe_phase(dev, smi)
     ssm_lm = lm_ssm_phase(dev, smi)
     hybrid_lm = lm_hybrid_phase(dev, smi)
+    vlm_lm = lm_vlm_phase(dev, smi)
 
     # -------------------------------------------------------- 5. results
     mb = plan.microbatch
@@ -4581,9 +4876,10 @@ def main() -> int:
                 if dense == name:
                     rows += [timing[(entry, CNV_DENSE_M, n, k)] for n, k in cnv_dense] * n_micro
                     n_launches += counts[name]
-            # the pipeline, lm, lm_qat, train, lm_moe, lm_ssm and lm_hybrid
-            # phases' counted runs, each launch at its shape (lm_ssm's: none)
-            for phase in (piped, lm, lm_qat, trained, moe_lm, ssm_lm, hybrid_lm):
+            # the pipeline, lm, lm_qat, train, lm_moe, lm_ssm, lm_hybrid and
+            # lm_vlm phases' counted runs, each launch at its shape (lm_ssm's:
+            # none)
+            for phase in (piped, lm, lm_qat, trained, moe_lm, ssm_lm, hybrid_lm, vlm_lm):
                 rows += phase["rows"].get(name, [])
                 n_launches += phase["launches"].get(name, 0)
             if name == "mvu_xnor":  # the packed entry on the same launches, beside it

@@ -6,6 +6,7 @@ Usage (from the repo root, JAX on the CPU):
     PYTHONPATH=src python scripts/lm_golden.py --arch granite-moe-3b-a800m --write
     PYTHONPATH=src python scripts/lm_golden.py --arch mamba2-780m --write
     PYTHONPATH=src python scripts/lm_golden.py --arch jamba-1.5-large-398b --write
+    PYTHONPATH=src python scripts/lm_golden.py --arch qwen2-vl-7b --write
     PYTHONPATH=src python scripts/lm_golden.py --bf16-gap # bfloat16 gaps
     PYTHONPATH=src python scripts/lm_golden.py --bf16-gap --arch mamba2-780m
     PYTHONPATH=src python scripts/lm_golden.py --bf16-gap --arch jamba-1.5-large-398b
@@ -21,8 +22,9 @@ routing dropped for capacity (a ``jax.debug.callback`` on each
 ``dispatch_combine``).  The result is ``lm_golden.golden_path(arch)`` under
 ``src/repro_torch/configs/``; ``tests/test_torch_lm.py``,
 ``tests/test_torch_lm_moe.py``, ``tests/test_torch_lm_ssm.py``,
-``tests/test_torch_lm_hybrid.py`` and ``chip_smoke.py`` hold the port to
-it.
+``tests/test_torch_lm_hybrid.py``, ``tests/test_torch_lm_vlm.py`` and
+``chip_smoke.py`` hold the port to it.  The VLM's prompt is text only, as
+its serving is in both packages (its M-RoPE ids all equal).
 
 ``--bf16-gap`` prints, for the reduced ``--arch`` in bfloat16 (the leaves
 ``convert.FLOAT32_LEAVES`` kept float32, as the reference's init keeps

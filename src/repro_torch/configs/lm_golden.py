@@ -17,14 +17,17 @@ token-to-expert assignments the routing dropped for capacity
 run the port the same way (:func:`greedy_run`) and hold it to the file
 with :func:`mismatch`.
 
-``scripts/lm_qat_golden.py`` writes ``QAT_GOLDEN``
-(``yi_9b_qat_golden.json``) the same way: the same float32 tree, remat on,
-``jax.value_and_grad(model.loss, has_aux=True)`` on a (BATCH, QAT_SEQ + 1)
-token batch from ``np.random.default_rng(TOKEN_SEED)``, for each backend
-in ``QAT_VARIANTS`` (the fake-quant arm under ``mvu_*``): the loss and each
-gradient leaf's :func:`grad_digest`, a layer at a time for a stacked leaf.
-The port's side is :func:`qat_run`, held to the file with
-:func:`qat_mismatch`.
+``scripts/lm_qat_golden.py [--arch ARCH]`` writes :func:`qat_golden_path`
+of an arch of ``QAT_GOLDENS`` (``yi_9b_qat_golden.json`` for ``ARCH``, the
+default) the same way: the same float32 tree, remat on,
+``jax.value_and_grad(model.loss, has_aux=True)`` on :func:`qat_batch` (a
+(BATCH, QAT_SEQ + 1) token batch from ``np.random.default_rng(TOKEN_SEED)``
+and, for the VLM, a (BATCH, VLM_PREFIX, d) vision prefix, normal x
+``PREFIX_SCALE`` from ``PREFIX_SEED``: at 40 patches on the 16-wide grid
+the t, h and w ids all differ), for each backend in ``QAT_VARIANTS`` (the
+fake-quant arm under ``mvu_*``): the loss and each gradient leaf's
+:func:`grad_digest`, a layer at a time for a stacked leaf.  The port's side
+is :func:`qat_run`, held to the file with :func:`qat_mismatch`.
 
 ``scripts/lm_train_golden.py`` writes ``TRAIN_GOLDEN``
 (``yi_9b_train_golden.json``): the golden run's float32 tree and config
@@ -58,7 +61,8 @@ ARCH = "yi-9b"
 MOE_ARCHS = ("granite-moe-3b-a800m", "qwen3-moe-235b-a22b")
 SSM_ARCH = "mamba2-780m"
 HYBRID_ARCH = "jamba-1.5-large-398b"
-LM_GOLDENS = ("yi-9b", *MOE_ARCHS, SSM_ARCH, HYBRID_ARCH)
+VLM_ARCH = "qwen2-vl-7b"
+LM_GOLDENS = ("yi-9b", *MOE_ARCHS, SSM_ARCH, HYBRID_ARCH, VLM_ARCH)
 SEED = 0  # lm_numpy_params
 TOKEN_SEED = 1
 BATCH = 2
@@ -68,7 +72,11 @@ DECODE_STEPS = 3
 VARIANTS = ("dense", "mvu_w8a8")
 # float32 logits: max |port - reference| <= LOGIT_ATOL * max |reference|
 LOGIT_ATOL = 1e-3
-QAT_GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "yi_9b_qat_golden.json")
+# the archs with a QAT golden: the dense Yi-9B, and the VLM with a vision prefix
+QAT_GOLDENS = ("yi-9b", VLM_ARCH)
+VLM_PREFIX = 40  # patches: h ids 0..2, w ids 0..15, the text from 16
+PREFIX_SEED = 3
+PREFIX_SCALE = 0.1
 QAT_VARIANTS = ("dense", "mvu_w8a8", "mvu_binary")
 QAT_SEQ = 16  # tokens predicted a row
 QAT_HEAD = 16  # each gradient row's first values kept
@@ -96,12 +104,23 @@ TRAIN_LR_RTOL = 1e-6
 TRAIN_ATOL = 1e-4
 
 
+def _path(arch: str, kind: str) -> str:
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        f"{arch.replace('-', '_').replace('.', '_')}_{kind}_golden.json")
+
+
 def golden_path(arch: str = ARCH) -> str:
     """The golden run's file of ``arch`` (one of ``LM_GOLDENS``)."""
     if arch not in LM_GOLDENS:
         raise KeyError(f"no LM golden run for {arch!r}; there is one for {LM_GOLDENS}")
-    return os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                        arch.replace("-", "_").replace(".", "_") + "_lm_golden.json")
+    return _path(arch, "lm")
+
+
+def qat_golden_path(arch: str = ARCH) -> str:
+    """The QAT golden's file of ``arch`` (one of ``QAT_GOLDENS``)."""
+    if arch not in QAT_GOLDENS:
+        raise KeyError(f"no QAT golden for {arch!r}; there is one for {QAT_GOLDENS}")
+    return _path(arch, "qat")
 
 
 GOLDEN = golden_path()
@@ -198,15 +217,24 @@ def mismatch(want: dict, got: dict) -> str | None:
     return None
 
 
-def qat_config(backend: str = "dense"):
-    """The QAT golden's config: the reduced Yi-9B in float32, remat on, under
-    ``backend``."""
-    return get_reduced(ARCH).replace(dtype="float32", remat=True, linear_backend=backend)
+def qat_config(backend: str = "dense", arch: str = ARCH):
+    """The QAT golden's config: the reduced ``arch`` (default Yi-9B) in
+    float32, remat on, under ``backend``."""
+    return get_reduced(arch).replace(dtype="float32", remat=True, linear_backend=backend)
 
 
-def qat_tokens() -> np.ndarray:
-    return np.random.default_rng(TOKEN_SEED).integers(
-        0, qat_config().vocab_size, (BATCH, QAT_SEQ + 1)).astype(np.int32)
+def qat_batch(cfg) -> dict:
+    """The QAT golden's batch for ``cfg`` (a :func:`qat_config`): (BATCH,
+    QAT_SEQ + 1) tokens over its vocabulary from ``TOKEN_SEED``, and for a
+    VLM ``"prefix_embeds"`` (BATCH, VLM_PREFIX, d) float32, normal x
+    ``PREFIX_SCALE`` from ``PREFIX_SEED``."""
+    batch = {"tokens": np.random.default_rng(TOKEN_SEED).integers(
+        0, cfg.vocab_size, (BATCH, QAT_SEQ + 1)).astype(np.int32)}
+    if cfg.family == "vlm":
+        rng = np.random.default_rng(PREFIX_SEED)
+        batch["prefix_embeds"] = (rng.standard_normal((BATCH, VLM_PREFIX, cfg.d_model))
+                                  * PREFIX_SCALE).astype(np.float32)
+    return batch
 
 
 def probe(n: int) -> np.ndarray:
@@ -239,20 +267,20 @@ def grad_digest(loss: float, grads: dict) -> dict:
 
 
 def qat_run(model, params) -> dict:
-    """The QAT golden on the port: ``model.loss`` of :func:`qat_tokens` and
+    """The QAT golden on the port: ``model.loss`` of :func:`qat_batch` and
     ``torch.autograd.grad`` of every leaf of ``params`` (float; each set to
     require grad), digested."""
     leaves = flat_leaves(params)
     for t in leaves.values():
         t.requires_grad_(True)
-    loss, _ = model.loss(params, {"tokens": qat_tokens()})
+    loss, _ = model.loss(params, qat_batch(model.cfg))
     grads = torch.autograd.grad(loss, list(leaves.values()))
     return grad_digest(loss.item(), {p: g.to(torch.float32).cpu().numpy()
                                      for p, g in zip(leaves, grads)})
 
 
-def load_qat_golden() -> dict:
-    with open(QAT_GOLDEN) as f:
+def load_qat_golden(arch: str = ARCH) -> dict:
+    with open(qat_golden_path(arch)) as f:
         return json.load(f)
 
 

@@ -24,8 +24,8 @@ An LM's parameter tree crosses the same way: ``lm_params_from_numpy(tree,
 device)`` takes the JAX package's tree as nested dicts of numpy arrays
 (``np.asarray`` on each leaf) and returns the port's, leaf for leaf (a
 leaf given in float32 stays float32 in a bfloat16 tree);
-``lm_numpy_params(cfg, seed)`` draws a dense, MoE, SSM or hybrid decoder's
-tree in that layout with numpy alone, so both packages can start from the
+``lm_numpy_params(cfg, seed)`` draws a dense, MoE, SSM, hybrid or VLM
+decoder's tree in that layout with numpy alone, so both packages can start from the
 same weights, and ``cast_numpy_params(tree, dtype)`` casts it to a model's
 dtype but for the leaves the reference keeps float32 (``FLOAT32_LEAVES``).  An
 AdamW state (``adamw.init`` / ``update``'s ``{"mu", "nu", "step"}``)
@@ -154,9 +154,9 @@ def cast_numpy_params(tree: dict, dtype) -> dict:
 
 
 def lm_numpy_params(cfg, seed: int = 0) -> dict:
-    """A dense, MoE, SSM or hybrid decoder's parameters in the JAX
+    """A dense, MoE, SSM, hybrid or VLM decoder's parameters in the JAX
     package's layout (the tree its ``build(cfg).init`` returns, layers
-    stacked on a leading axis) as float32 numpy arrays from
+    stacked on a leading axis; a VLM's is the dense tree) as float32 numpy arrays from
     ``np.random.default_rng(seed)``: each projection ``normal /
     sqrt(fan_in)``, the embedding ``normal * 0.02``, the norms at their
     init (scale 1, bias 0).  A MoE block holds ``moe/{router/w (L, d, E),

@@ -1,11 +1,14 @@
-"""Attention: MHA/GQA/MQA, causal + sliding-window masks, RoPE, prefill and
-single-token decode with a KV cache (float or int8); the port of the JAX
-package's ``repro/models/attention.py``.
+"""Attention: MHA/GQA/MQA, causal + sliding-window masks, RoPE / M-RoPE,
+prefill and single-token decode with a KV cache (float or int8); the port
+of the JAX package's ``repro/models/attention.py``.
 
 The same einsums, float32 scores, ``-1e30`` mask and softmax as the
 reference (not ``scaled_dot_product_attention``), so the port computes
-what JAX computes.  Not ported here: M-RoPE (the VLM family) and
-``cross_attention`` (encoder-decoder), ROADMAP queue A item 7, step 4.
+what JAX computes.  Under ``cfg.mrope`` (the VLM family) positions are
+(3, B, S) t/h/w ids, or (B, S) ids broadcast to all three (the decode
+step's and a text-only prefill's); nothing reads the positions' leading
+axis as the batch.  Not ported here: ``cross_attention``
+(encoder-decoder), ROADMAP queue A item 7, step 4.5.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import torch
 
 from repro_torch.models.layers import (
     Params,
+    apply_mrope,
     apply_rope,
     linear,
     linear_init,
@@ -51,9 +55,11 @@ def _qkv(p, cfg, x, positions, backend):
         q = rmsnorm(p["qnorm"], q)
         k = rmsnorm(p["knorm"], k)
     if cfg.mrope:
-        raise NotImplementedError(f"{cfg.name}: M-RoPE (the VLM family) is not ported "
-                                  "(ROADMAP queue A item 7, step 4)")
-    if cfg.rope:
+        if positions.ndim == 2:  # text-only fallback: identical t/h/w ids
+            positions = positions[None].expand(3, *positions.shape)
+        q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+    elif cfg.rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -110,7 +116,7 @@ def attention(
     p: Params,
     cfg,
     x: torch.Tensor,  # (B, S, d)
-    positions: torch.Tensor,  # (B, S)
+    positions: torch.Tensor,  # (B, S) or (3, B, S) for M-RoPE
     *,
     causal: bool = True,
     backend: str = "dense",

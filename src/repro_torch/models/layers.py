@@ -10,8 +10,7 @@ MVU datapath on the hand kernels with integer-deployed params
 (``quantize_model_params``) at serving.
 
 Not ported here (ROADMAP queue A item 7): ``seq_shard`` (a no-op without
-a mesh) waits for the training loop's sharding (step 3c), ``apply_mrope``
-for the VLM family (step 4).
+a mesh) waits for the training loop's sharding (step 3c).
 """
 
 from __future__ import annotations
@@ -220,6 +219,34 @@ def apply_rope(
     x1, x2 = xr[..., : rd // 2], xr[..., rd // 2:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return torch.cat([out.to(x.dtype), xp], dim=-1)
+
+
+def apply_mrope(
+    x: torch.Tensor,  # (B, S, H, hd)
+    positions: torch.Tensor,  # (3, B, S): temporal, height, width ids
+    theta: float = 1e6,
+    sections: tuple[int, int, int] = (16, 24, 24),  # half-dims per axis
+) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE: the rotary half-dims are split into
+    (temporal, height, width) sections, each rotated by its own position id.
+    Text tokens carry identical t/h/w ids, which degenerates to 1-D RoPE.
+    As in ``apply_rope``, a bfloat16 ``x`` times the float32 ``cos`` /
+    ``sin`` promotes to float32, and the result is cast back to x's dtype.
+    """
+    hd = x.shape[-1]
+    half = hd // 2
+    assert sum(sections) == half, (sections, half)
+    inv = 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32, device=x.device) / hd))
+    # per-frequency position id chosen by section
+    sec_id = torch.cat([torch.full((s,), i, dtype=torch.int64, device=x.device)
+                        for i, s in enumerate(sections)])  # (half,)
+    pos = positions.to(torch.float32)  # (3, B, S)
+    ang = torch.movedim(pos[sec_id], 0, -1) * inv  # (half, B, S) -> (B, S, half)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
 
 
 # ---------------------------------------------------------------- embeddings

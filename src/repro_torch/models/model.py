@@ -1,8 +1,9 @@
 """Model facade: build(config) -> init / loss / prefill / decode_step; the
 port of the JAX package's ``repro/models/model.py`` for the dense, MoE,
-SSM and hybrid (Jamba) decoders.
+SSM, hybrid (Jamba) and VLM (Qwen2-VL backbone) decoders.
 
     batch (train): {"tokens": (B, S+1) int}
+      vlm:  + {"prefix_embeds": (B, P, d)}, optional
     batch (serving prefill): {"tokens": (B, S) int}
     decode state: {"caches": ..., "pos": (B, 1) int32}
 
@@ -19,6 +20,17 @@ and only its attention and dense-FFN projections are integer-deployed);
 ``launch/train.py``'s ``make_train_step`` adds the AdamW step
 (``optim/adamw.py``), and the train loop waits for ROADMAP queue A item
 7, step 3c.
+
+A VLM (``cfg.mrope``) is the dense stack with M-RoPE: its positions are
+(3, B, S) t/h/w ids (``models/vlm.py::mrope_positions``).  Its ``loss``
+takes an optional vision prefix, as the reference's does: the patch
+embeddings cast to the model's dtype go in front of the token embeddings,
+the text's ids start after the patch grid's largest id, and the prefix
+rows are dropped before the final norm.  ``prefill`` and ``decode_step``
+read only tokens, as the reference's do, so the served VLM is text only
+(its t/h/w ids equal: 1-D RoPE); a ``prefix_embeds`` in a prefill batch
+is ignored (ROADMAP queue C).  The encoder-decoder family raises
+(ROADMAP queue A item 7, step 4.5).
 """
 
 from __future__ import annotations
@@ -41,6 +53,7 @@ from repro_torch.models.layers import (
     rmsnorm_init,
     unembed,
 )
+from repro_torch.models.vlm import mrope_positions
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,9 +67,13 @@ class Model:
     init_decode_state: Callable[..., Any]
 
 
-def _positions(batch: int, seq: int, device) -> torch.Tensor:
-    """(B, S) token positions 0..S-1 (M-RoPE's 3-D ids are not ported)."""
-    return torch.arange(seq, dtype=torch.int32, device=device)[None].expand(batch, seq)
+def _positions(cfg, batch: int, seq: int, device, prefix: int = 0) -> torch.Tensor:
+    """The positions of ``prefix + seq`` tokens: (3, B, P+S) M-RoPE ids for a
+    model with ``cfg.mrope``, else (B, P+S) positions 0..P+S-1."""
+    if cfg.mrope:
+        return mrope_positions(batch, prefix, seq, device=device)
+    return torch.arange(prefix + seq, dtype=torch.int32, device=device)[None].expand(
+        batch, prefix + seq)
 
 
 def _ce_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -109,16 +126,26 @@ def build(cfg: ModelConfig, device=None) -> Model:
     def loss(params, batch):
         """(total, {"ce", "aux"}) of next-token prediction on ``batch["tokens"]``
         (B, S+1): ``total = ce + cfg.aux_loss_weight * aux``, ``aux`` the MoE
-        layers' summed load-balancing loss (0 for the dense and SSM
-        families).  The dense, MoE, SSM and hybrid families build (``build``
-        raises for the encoder-decoder and VLM configs, naming ROADMAP item
-        7, step 4), so the reference's encoder-decoder and VLM-prefix
-        branches have no counterpart here."""
+        layers' summed load-balancing loss (0 for the dense, SSM and VLM
+        families).  A VLM batch may hold ``"prefix_embeds"`` (B, P, d): cast
+        to the model's dtype and put in front of the token embeddings, with
+        M-RoPE ids over the patch grid (``mrope_positions(b, s,
+        prefix=P)``); its P output rows are dropped before the norm and the
+        logits.  ``build`` raises for the encoder-decoder configs (ROADMAP
+        item 7, step 4.5), so the reference's encoder-decoder branch has no
+        counterpart here."""
         tokens = torch.as_tensor(batch["tokens"], device=device)
         inputs, targets = tokens[:, :-1], tokens[:, 1:]
         b, s = inputs.shape
         x = embed(params["embed"], inputs)
-        x, aux = tf.stack_forward(params["layers"], cfg, x, _positions(b, s, device))
+        p_len = 0
+        if cfg.family == "vlm" and "prefix_embeds" in batch:
+            prefix = torch.as_tensor(batch["prefix_embeds"], device=device).to(dt)
+            p_len = prefix.shape[1]
+            x = torch.cat([prefix, x], dim=1)
+        pos = _positions(cfg, b, s, device, prefix=p_len)
+        x, aux = tf.stack_forward(params["layers"], cfg, x, pos)
+        x = x[:, p_len:]
         ce = _ce_loss(_logits(params, _norm_f(params, x)), targets)
         return ce + cfg.aux_loss_weight * aux, {"ce": ce, "aux": aux}
 
@@ -128,11 +155,14 @@ def build(cfg: ModelConfig, device=None) -> Model:
                 "caches": tf.init_stack_caches(cfg, batch, max_len, dt, device)}
 
     def prefill(params, batch, state):
-        """Process the full prompt; returns (last-token logits, state)."""
+        """Process the full prompt; returns (last-token logits, state).  Only
+        ``batch["tokens"]`` is read, as in the reference: a VLM's
+        ``prefix_embeds`` is ignored and its prompt takes text ids 0..S-1
+        on all three M-RoPE axes (ROADMAP queue C)."""
         tokens = torch.as_tensor(batch["tokens"], device=device)
         b, s = tokens.shape
         x = embed(params["embed"], tokens)
-        pos = _positions(b, s, device)
+        pos = _positions(cfg, b, s, device)
         x, caches = tf.stack_prefill(params["layers"], cfg, x, pos, state["caches"])
         state = {**state, "caches": caches,
                  "pos": torch.full((b, 1), s, dtype=torch.int32, device=device)}

@@ -28,9 +28,12 @@ are sub-stacked on a second axis.  Its cache is a KV cache a group and
 too, as the reference's ``init_stack_caches`` makes them).  A group is
 drawn sub-layer by sub-layer into stacks allocated once
 (:func:`stack_layers`, ``moe_init(n=...)``), so a full-width group never
-lies twice on the card.  The other families -- the VLM backbone (M-RoPE) and
-encoder-decoder (Whisper) -- raise ``NotImplementedError`` (ROADMAP queue
-A item 7, step 4).
+lies twice on the card.  The VLM backbone (Qwen2-VL, ``cfg.family ==
+"vlm"``) is the uniform dense stack, as the reference's ``stack_init``
+dispatches it (neither hybrid nor SSM nor MoE): ``block_init`` /
+``block_forward`` / ``_block_prefill`` / ``_block_decode``, its M-RoPE in
+``attention._qkv``.  The encoder-decoder (Whisper) raises
+``NotImplementedError`` (ROADMAP queue A item 7, step 4.5).
 """
 
 from __future__ import annotations
@@ -71,11 +74,11 @@ from repro_torch.tree import tree_map
 
 def require_ported(cfg) -> None:
     """Raise for a config of a family the port does not run yet."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid", "vlm"):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported; the port runs the "
-            "dense, MoE, SSM and hybrid decoders (VLM and encoder-decoder wait for "
-            "ROADMAP queue A item 7, step 4)")
+            "dense, MoE, SSM, hybrid and VLM decoders (the encoder-decoder waits for "
+            "ROADMAP queue A item 7, step 4.5)")
 
 
 def _norm_init(cfg, dtype, device):

@@ -515,12 +515,12 @@ def test_decode_writes_the_stacked_cache_in_place(kv_quant):
 
 
 @pytest.mark.parametrize("arch", [a for a in ARCH_IDS if get_reduced(a).family
-                                  not in ("dense", "moe", "ssm", "hybrid")])
+                                  not in ("dense", "moe", "ssm", "hybrid", "vlm")])
 def test_non_dense_families_raise(arch):
     cfg = get_reduced(arch)
-    with pytest.raises(NotImplementedError, match="item 7, step 4"):
+    with pytest.raises(NotImplementedError, match="item 7, step 4.5"):
         build(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7, step 4"):
+    with pytest.raises(NotImplementedError, match="item 7, step 4.5"):
         lm_numpy_params(cfg, 0)
 
 

@@ -441,12 +441,12 @@ def test_qat_digest_catches_a_fault_in_one_layer():
 
 
 @pytest.mark.parametrize("arch", [a for a in ARCH_IDS if get_reduced(a).family
-                                  not in ("dense", "moe", "ssm", "hybrid")])
+                                  not in ("dense", "moe", "ssm", "hybrid", "vlm")])
 def test_loss_of_non_dense_families_raises(arch):
-    """The encoder-decoder and VLM losses wait for ROADMAP item 7, step 4:
-    ``build`` raises before a loss exists (the MoE, SSM and hybrid losses
-    are ``tests/test_torch_lm_moe.py``'s, ``tests/test_torch_lm_ssm.py``'s
-    and ``tests/test_torch_lm_hybrid.py``'s)."""
+    """The encoder-decoder loss waits for ROADMAP item 7, step 4.5:
+    ``build`` raises before a loss exists (the MoE, SSM, hybrid and VLM
+    losses are ``tests/test_torch_lm_moe.py``'s, ``tests/test_torch_lm_ssm.py``'s,
+    ``tests/test_torch_lm_hybrid.py``'s and ``tests/test_torch_lm_vlm.py``'s)."""
     cfg = get_reduced(arch).replace(dtype="float32", linear_backend="mvu_w8a8")
-    with pytest.raises(NotImplementedError, match="item 7, step 4"):
+    with pytest.raises(NotImplementedError, match="item 7, step 4.5"):
         build(cfg, device="cpu").loss({}, {"tokens": np.zeros((1, 3), np.int32)})
