@@ -491,10 +491,52 @@ Phases, each printing its own line(s); any failure exits non-zero:
            reference's smoke test bounds it, every gradient finite, no
            kernel launched; ms a call (3 calls) and the peak memory.  The
            phase's seconds and peak memory.
+   lm_encdec  the encoder-decoder (the Whisper backbone): an encoder of
+           non-causal self-attention and a decoder of causal self-attention
+           and cross attention over the encoder's output
+           (``attention.cross_attention``), both stacks integer-deployed,
+           the cross attention's projections with them.  First the reduced
+           whisper-tiny in float32, dense and W8A8, held to the JAX package's
+           golden run (``configs/whisper_tiny_lm_golden.json``: a prefill of
+           2 x 12 tokens behind 2 x 20 seeded frame embeddings, 40 encoder
+           rows a projection, and three greedy steps; logits within 1e-3 of
+           the largest, greedy tokens equal), W8A8 launching ``mvu_int``
+           exactly 2 x 6 + 2 x 10 x 4 = 92 times and nothing else; then its
+           loss and gradients behind those frames, float32, remat on, under
+           dense, W8A8 and binary (the fake-quant arm, no kernel), held to
+           the JAX package's QAT golden
+           (``configs/whisper_tiny_qat_golden.json``).  Then full-width,
+           full-depth whisper-tiny (4 encoder + 4 decoder layers x 384, 6
+           heads of 64, GELU d_ff 1536, LayerNorm, vocab 51,865, untied,
+           bf16) drawn on the card from a seed with ``init(g,
+           quantize="mvu_w8a8")``, served on the lm phase's 8 requests in
+           groups of 4 behind (4, 1500, 384) seeded frame embeddings (a
+           30-second window's 3000 mel frames after the stride-2 stem, a
+           stub in both packages) through ``prefill`` and 16 greedy
+           ``decode_step``s (``serve_encdec``: ``serve_loop``'s groups and
+           padding; ``serve_loop`` itself must raise ``KeyError:
+           'enc_embeds'``, as the reference's does, before any launch):
+           ``mvu_int`` exactly 2 x (64 + 16 x 40) = 1,408 times and nothing
+           else, every request answered; the model's bytes, the peak while
+           drawing and while serving; group 0's encoder, prefill and decode
+           ms on the host clock (median of 3), decode tokens/s.  The three
+           new shapes ((K, N) = (384, 384), (384, 1536), (1536, 384):
+           decoder layer 0's projections) against the plain version at
+           M = 4, each group's decoder prefill rows and the encoder's 6,000,
+           each timed beside float32 ``torch.matmul``, and the share of a
+           decode step's kernel time the cross attention's 8 launches at
+           M = 6,000 take (every step projects the encoder memory again).
+           Then the QAT loss of full-width, full-depth whisper-tiny (float
+           bf16 params, W8A8 fake-quant, remat on) on 2 rows of 1500 frames
+           and 128 predicted tokens, with ``torch.autograd.grad`` of every
+           leaf: finite within (0.5, 2.5) x ln(vocab), every gradient
+           finite, no kernel launched; ms a call (3 calls) and the peak
+           memory.  The phase's seconds and peak memory.
 5. the kernels JSON line (each kernel also with its tiles phase's times
    by tile; ``mvu_int``'s launches and times include the qat phase's three
    counted ``acc(x)``; ``mvu_int``'s and ``mvu_binary``'s the pipeline,
-   lm, lm_qat, train, lm_moe, lm_hybrid and lm_vlm phases' counted runs,
+   lm, lm_qat, train, lm_moe, lm_hybrid, lm_vlm and lm_encdec phases'
+   counted runs,
    each launch at its shape; the lm_ssm phase's add none), the card's
    ``nvidia-smi`` line, and last the result line
    ``{"ok": true, "device": {...}}``.
@@ -656,6 +698,13 @@ VLM_PREFIX = 256  # patches: the reference dry run's prefix, a 16 x 16 grid
 VLM_PREFIX_SCALE = 0.02  # the patch embeddings' scale: the token embeddings' init
 VLM_LOSS_SEQ = 128  # text tokens predicted a row behind the prefix
 VLM_LOSS_CALLS = 3
+# the lm_encdec phase: full-width, full-depth whisper-tiny served through
+# prefill / decode_step on the lm phase's requests behind a 30 s window's
+# encoder positions, and its QAT loss on the dry run's train batch
+ENCDEC_FRAMES = 1500  # 3000 mel frames halved by the stride-2 conv stem (a stub)
+ENCDEC_SCALE = 0.1  # the frame embeddings' scale: the reference's test's
+ENCDEC_SHAPES = [(384, 384), (384, 1536), (1536, 384)]  # (K, N): attention, w_up, w_down
+ENCDEC_LOSS_CALLS = 3
 TRACE_KERNELS = {
     "conv_mvu_kernel": "conv_mvu",
     "Coding<false,false,false>": "mvu_int",
@@ -4040,6 +4089,338 @@ def lm_vlm_phase(dev, smi: str) -> dict:
     return {"launches": launches, "rows": {"mvu_int": rows}}
 
 
+def serve_encdec(model, params, requests, enc_embeds, *, batch: int, max_len: int):
+    """``serve_loop``'s groups, padding and greedy lockstep decode for an
+    encoder-decoder, whose prefill also reads ``enc_embeds`` (batch, T, d):
+    the model is served through ``prefill`` and ``decode_step``, as the
+    reference's dry run drives it (``serve_loop`` hands ``prefill`` tokens
+    alone, and raises ``KeyError`` on it in both packages).  Returns the
+    answered requests in order."""
+    import torch
+
+    from repro_torch.launch.serve import Request, prompt_batch
+
+    done = []
+    for i in range(0, len(requests), batch):
+        group = requests[i:i + batch]
+        while len(group) < batch:
+            group.append(Request(rid=-1, prompt=group[0].prompt, max_new=group[0].max_new))
+        toks = torch.from_numpy(prompt_batch(group))
+        state = model.init_decode_state(batch, max_len)
+        t0 = time.perf_counter()
+        logits, state = model.prefill(params, {"tokens": toks, "enc_embeds": enc_embeds}, state)
+        nxt = torch.argmax(logits, -1)
+        for _ in range(max(r.max_new for r in group)):
+            host = nxt.tolist()
+            for j, r in enumerate(group):
+                if r.rid >= 0 and len(r.out) < r.max_new:
+                    r.out.append(host[j])
+            logits, state = model.decode_step(params, state, nxt)
+            nxt = torch.argmax(logits, -1)
+        t1 = time.perf_counter()
+        for r in group:
+            if r.rid >= 0:
+                r.t_done = t1 - t0
+                done.append(r)
+    return done
+
+
+def lm_encdec_phase(dev, smi: str) -> dict:
+    """The lm_encdec phase (see the module doc): the reduced whisper-tiny
+    against the JAX package's golden run and QAT golden, full-width,
+    full-depth whisper-tiny served through ``prefill`` / ``decode_step`` on
+    ``mvu_int`` with its launches counted, its three projection shapes
+    against the plain version, and its QAT loss and gradients behind 1500
+    encoder positions.  Returns, by kernel, the served run's launches and a
+    timing row for each launch."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, lm_golden as G
+    from repro_torch.convert import lm_numpy_params, lm_params_from_numpy
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import Request, prompt_batch, serve_loop
+    from repro_torch.models import layers as L, transformer as tf
+    from repro_torch.models.model import build
+    from repro_torch.tree import flat_leaves
+
+    t_phase = time.perf_counter()
+    arch = G.ENCDEC_ARCH
+    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "lm_encdec: float32 matmuls must not run in TF32 (PyTorch's default is off)")
+    torch.cuda.reset_peak_memory_stats()
+
+    def launches_a_run(cfg) -> int:
+        # a prefill: 6 projections an encoder layer, 10 a decoder layer (self
+        # and cross attention, the FFN); a decode step: 10 a decoder layer
+        enc, dec = 6 * cfg.enc_layers, 10 * cfg.num_layers
+        return enc + dec * (1 + G.DECODE_STEPS)
+
+    # (a) the reduced whisper-tiny, float32, against the JAX package's golden run
+    golden = G.load_golden(arch)
+    for backend in G.VARIANTS:
+        cfg = G.golden_config(backend, arch)
+        params = lm_params_from_numpy(lm_numpy_params(cfg, G.SEED), dev)
+        if backend != "dense":
+            params = L.quantize_model_params(params, backend)
+        want = {} if backend == "dense" else {"mvu_int": launches_a_run(cfg)}
+        model = build(cfg, device=dev)
+        got = counted(lambda: G.greedy_run(model, params), want,
+                      f"lm_encdec: the {arch} golden run ({backend})")
+        bad = G.mismatch(golden["variants"][backend], got)
+        check(bad is None, f"lm_encdec: the reduced {arch} {backend} model on the card differs "
+              f"from the JAX package's golden run: {bad}")
+        ref = np.asarray(golden["variants"][backend]["logits"], np.float32)
+        print(f"lm_encdec: golden: reduced {cfg.name} {backend} float32 on the card, prefill "
+              f"of {G.BATCH} x {G.PROMPT_LEN} tokens behind {G.BATCH} x {G.ENC_FRAMES} frames "
+              f"+ {G.DECODE_STEPS} greedy steps: max |logit error| "
+              f"{float(np.abs(got['logits'] - ref).max()):.3e} (bound {G.LOGIT_ATOL} x "
+              f"{float(np.abs(ref).max()):.4f}), greedy tokens equal the JAX package's "
+              f"{got['tokens'].tolist()}; launches {want or 'none'}", flush=True)
+
+    # (b) the QAT loss and gradients, float32, remat on, against the JAX
+    # package's golden
+    qgolden = G.load_qat_golden(arch)
+    for backend in G.QAT_VARIANTS:
+        cfg = G.qat_config(backend, arch)
+        params = lm_params_from_numpy(lm_numpy_params(cfg, G.SEED), dev)
+        model = build(cfg, device=dev)
+        got = counted(lambda: G.qat_run(model, params), {},
+                      f"lm_encdec: the QAT golden's loss and backward ({backend})")
+        want = qgolden["variants"][backend]
+        bad = G.qat_mismatch(want, got)
+        check(bad is None, f"lm_encdec: the reduced {backend} model's loss and gradients on "
+              f"the card differ from the JAX package's: {bad}")
+        wg = want["grads"]
+        worst = max(float(np.abs(np.subtract(gr["head"], wg[p]["head"])).max())
+                    / wg[p]["max_abs"] for p, gr in got["grads"].items())
+        print(f"lm_encdec: QAT golden: reduced {cfg.name} {backend} float32, remat on, "
+              f"{G.BATCH} x {G.QAT_SEQ} tokens behind {G.ENC_FRAMES} frames on the card: loss "
+              f"{got['loss']:.7f} (JAX {want['loss']:.7f}, |error| "
+              f"{abs(got['loss'] - want['loss']):.3e}, bound {G.LOSS_RTOL} x |loss|); "
+              f"{len(got['grads'])} gradient leaves within the bounds, worst head error "
+              f"{worst:.3e} of the leaf's largest (bound {G.GRAD_ATOL}); no kernel launched",
+              flush=True)
+    del model, params
+    torch.cuda.empty_cache()
+
+    # (c) full width and depth, integer-deployed, served through prefill
+    # (with the frame embeddings) and decode_step
+    cfg = get_config(arch).replace(linear_backend=LM_BACKEND)
+    g = torch.Generator(device=dev).manual_seed(LM_SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build(cfg, device=dev)
+    params = model.init(g, quantize=LM_BACKEND)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    draw_peak = torch.cuda.max_memory_allocated()
+    stacks = params["encdec"]
+    proj = {f"{s}/{node}/{name}": leaf for s, nodes in (("enc", ("attn", "ffn")),
+                                                       ("dec", ("attn", "xattn", "ffn")))
+            for node in nodes for name, leaf in stacks[s][node].items()}
+    check(len(proj) == 16 and all(
+        set(p) == {"values", "scale"} and p["values"].dtype == torch.int8
+        and p["values"].shape[0] == (cfg.enc_layers if k.startswith("enc") else cfg.num_layers)
+        for k, p in proj.items()),
+        "lm_encdec: a full-width projection is not integer-deployed int8 on every layer")
+    model_bytes = nbytes(flat_leaves(params).values())
+    proj_bytes = nbytes(p["values"] for p in proj.values())
+    print(f"lm_encdec: full width: {cfg.name} ({cfg.enc_layers} encoder + {cfg.num_layers} "
+          f"decoder layers x {cfg.d_model}, {cfg.num_heads} heads of {cfg.head_dim}, "
+          f"{cfg.activation} d_ff {cfg.d_ff}, {cfg.norm}, vocab {cfg.vocab_size}, untied "
+          f"{not cfg.tie_embeddings}, {cfg.dtype}) drawn on the card from seed {LM_SEED} with "
+          f"init(quantize={LM_BACKEND!r}) in {init_s:.2f} s: the model "
+          f"{model_bytes / 1e9:.4f} GB ({proj_bytes / 1e9:.4f} GB of int8 projections); "
+          f"peak while drawing {draw_peak / 1e9:.3f} GB allocated ({smi})", flush=True)
+    enc = torch.randn((LM_BATCH, ENCDEC_FRAMES, cfg.d_model), generator=g, device=dev).mul_(
+        ENCDEC_SCALE).to(torch.bfloat16)
+    rng = np.random.default_rng(LM_SEED)
+    lens = rng.integers(LM_PROMPT_LENS[0], LM_PROMPT_LENS[1] + 1, LM_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in lens]
+
+    def requests():
+        return [Request(i, p, LM_MAX_NEW) for i, p in enumerate(prompts)]
+
+    groups = [requests()[i:i + LM_BATCH] for i in range(0, LM_REQUESTS, LM_BATCH)]
+    group_tokens = [prompt_batch(grp) for grp in groups]
+    check(all(t.shape[1] + LM_MAX_NEW <= LM_MAX_LEN for t in group_tokens),
+          "lm_encdec: a group's prompt and new tokens do not fit max_len")
+    pre_launches = 6 * cfg.enc_layers + 10 * cfg.num_layers
+    step_launches = 10 * cfg.num_layers
+    per_group = pre_launches + LM_MAX_NEW * step_launches
+    ops.reset_launch_counts()
+    try:
+        serve_loop(model, params, requests()[:1], batch=LM_BATCH, max_len=LM_MAX_LEN)
+        raised = None
+    except KeyError as e:
+        raised = e
+    torch.cuda.synchronize()
+    check(raised is not None and "enc_embeds" in str(raised)
+          and not any(ops.launch_counts().values()),
+          f"lm_encdec: serve_loop on the encoder-decoder gave {raised!r}, want KeyError "
+          "'enc_embeds' (the reference's) before any launch")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    done = counted(lambda: serve_encdec(model, params, requests(), enc, batch=LM_BATCH,
+                                        max_len=LM_MAX_LEN),
+                   {"mvu_int": per_group * len(groups)},
+                   "lm_encdec: whisper-tiny served at full width")
+    serve_s = time.perf_counter() - t0
+    serve_peak = torch.cuda.max_memory_allocated()
+    check([r.rid for r in done] == list(range(LM_REQUESTS))
+          and all(len(r.out) == LM_MAX_NEW and all(0 <= t < cfg.vocab_size for t in r.out)
+                  for r in done),
+          "lm_encdec: a request was not answered with its tokens in the vocabulary")
+    print(f"lm_encdec: served: {LM_REQUESTS} requests (prompts {lens.tolist()} tokens, each "
+          f"group behind {LM_BATCH} x {ENCDEC_FRAMES} seeded frame embeddings, normal x "
+          f"{ENCDEC_SCALE}, bf16) in {len(groups)} groups of {LM_BATCH} through prefill + "
+          f"decode_step (serve_loop raises KeyError 'enc_embeds', as the reference's), "
+          f"max_new {LM_MAX_NEW}, max_len {LM_MAX_LEN}: every request answered; mvu_int "
+          f"launched {per_group * len(groups)} times = ({pre_launches} a prefill + "
+          f"{LM_MAX_NEW} x {step_launches} a decode step) x {len(groups)} groups, nothing "
+          f"else; {LM_REQUESTS * LM_MAX_NEW / serve_s:.2f} tokens/s over the run's "
+          f"{serve_s:.3f} s (host clock, the first run: no warm-up); peak while serving "
+          f"{serve_peak / 1e9:.3f} GB allocated; first tokens {[r.out[:4] for r in done[:2]]} "
+          f"({smi})", flush=True)
+
+    # serving times on the host clock, synchronised: group 0's encoder, its
+    # whole prefill, then its decode steps
+    toks0 = torch.from_numpy(group_tokens[0])
+    pos_enc = torch.arange(ENCDEC_FRAMES, dtype=torch.int32, device=dev)[None].expand(
+        LM_BATCH, ENCDEC_FRAMES)
+    enc_t, pre, dec = [], [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enc_out = tf.encoder_forward(stacks, cfg, enc, pos_enc)
+        torch.cuda.synchronize()
+        enc_t.append(time.perf_counter() - t0)
+        state = model.init_decode_state(LM_BATCH, LM_MAX_LEN)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, state = model.prefill(params, {"tokens": toks0, "enc_embeds": enc}, state)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(LM_MAX_NEW):
+            logits, state = model.decode_step(params, state, torch.argmax(logits, -1))
+        torch.cuda.synchronize()
+        pre.append(t1 - t0)
+        dec.append((time.perf_counter() - t1) / LM_MAX_NEW)
+    check(bool(torch.isfinite(logits).all())
+          and tuple(logits.shape) == (LM_BATCH, cfg.vocab_size)
+          and torch.equal(state["enc_out"], enc_out),
+          f"lm_encdec: full-width logits {tuple(logits.shape)} not finite, or the state's "
+          "enc_out is not the encoder's output")
+    enc_ms, pre_ms, dec_ms = (statistics.median(v) * 1e3 for v in (enc_t, pre, dec))
+    print(f"lm_encdec: full width {LM_BACKEND}, group 0 ({LM_BATCH} x {toks0.shape[1]} tokens "
+          f"behind {LM_BATCH} x {ENCDEC_FRAMES} frames): encoder {enc_ms:.3f} ms, prefill "
+          f"(encoder included) {pre_ms:.3f} ms, decode {dec_ms:.3f} ms a step ({LM_BATCH} "
+          f"tokens), {LM_BATCH / dec_ms * 1e3:.2f} decode tokens/s (host clock, synchronised, "
+          f"median of 3 after the served run) ({smi})", flush=True)
+
+    # (d) the three new mvu_int shapes: the decoder's layer 0 projections
+    # (its self-attention's and the cross attention's share a shape)
+    # against the plain version at the decode rows, each group's decoder
+    # prefill rows and the encoder's rows
+    ga = torch.Generator(device=dev).manual_seed(LM_SEED + 9)
+    m_pre = [t.size for t in group_tokens]
+    m_enc = LM_BATCH * ENCDEC_FRAMES
+    dec0 = tf.layer(stacks["dec"], 0)
+    timed = projection_rows({"attn": dec0["attn"], "ffn": dec0["ffn"]}, "mvu_int",
+                            {LM_BATCH, *m_pre, m_enc}, ga, "lm_encdec")
+    shape = {name: tuple(node["values"].shape) for name, node in
+             (dec0["attn"] | dec0["ffn"]).items()}
+    check(sorted({(k, n) for n, k in shape.values()}) == sorted(ENCDEC_SHAPES)
+          and all(tuple(v["values"].shape) == shape[n] for n, v in dec0["xattn"].items()),
+          f"lm_encdec: the deployed shapes (K, N) {sorted({(k, n) for n, k in shape.values()})}, "
+          f"want {sorted(ENCDEC_SHAPES)}")
+    at = lambda m, names: [timed[("mvu_int", m, *shape[nm])] for nm in names]
+    attn, ffn2 = ("wq", "wk", "wv", "wo"), ("w_up", "w_down")
+    # a timing row per counted launch, in the order the run launches them
+    rows = []
+    for m in m_pre:
+        rows += at(m_enc, attn + ffn2) * cfg.enc_layers
+        rows += (at(m, attn) + at(m, ("wq",)) + at(m_enc, ("wk", "wv")) + at(m, ("wo",))
+                 + at(m, ffn2)) * cfg.num_layers
+        step = (at(LM_BATCH, attn) + at(LM_BATCH, ("wq",)) + at(m_enc, ("wk", "wv"))
+                + at(LM_BATCH, ("wo",)) + at(LM_BATCH, ffn2)) * cfg.num_layers
+        rows += step * LM_MAX_NEW
+    memory_ms = sum(r[0] for r in at(m_enc, ("wk", "wv"))) * cfg.num_layers
+    step_ms = sum(r[0] for r in step)
+    print(f"lm_encdec: a decode step's {step_launches} mvu_int launches take {step_ms:.4f} ms "
+          f"of kernel time (CUDA events, each launch shape's median); the cross attention's "
+          f"{2 * cfg.num_layers} launches at M = {m_enc} on the encoder memory (wk, wv, every "
+          f"step: no cross K/V cache, as in the reference) {memory_ms:.4f} ms of it, "
+          f"{memory_ms / step_ms:.3f} of the kernel time and {memory_ms / dec_ms:.4f} of the "
+          f"{dec_ms:.3f} ms step on the host clock ({smi})", flush=True)
+    del model, params, stacks, proj, dec0, logits, state, enc_out
+    torch.cuda.empty_cache()
+
+    # (e) the QAT loss and its gradients at full width and depth: float bf16
+    # params, W8A8 fake-quant, remat on, the dry run's train batch of tokens
+    # beside frame embeddings
+    torch.cuda.reset_peak_memory_stats()
+    model = build(cfg, device=dev)
+    params = model.init(g)
+    leaves = flat_leaves(params)
+    for t in leaves.values():
+        t.requires_grad_(True)
+    tokens = np.random.default_rng(LM_SEED + 7).integers(
+        0, cfg.vocab_size, (LM_QAT_BATCH, LM_QAT_SEQ + 1)).astype(np.int32)
+    frames = torch.randn((LM_QAT_BATCH, ENCDEC_FRAMES, cfg.d_model), generator=g,
+                         device=dev).mul_(ENCDEC_SCALE).to(torch.bfloat16)
+    batch = {"tokens": torch.from_numpy(tokens).to(dev), "enc_embeds": frames}
+    check(cfg.remat, "lm_encdec: the full-width loss runs with remat on")
+
+    def step():
+        loss, _ = model.loss(params, batch)
+        return loss, torch.autograd.grad(loss, list(leaves.values()))
+
+    loss, grads = counted(step, {}, "lm_encdec: the full-width loss and backward")
+    finite = torch.stack([torch.isfinite(gr).all() for gr in grads]).all()
+    ln_v = math.log(cfg.vocab_size)
+    check(bool(torch.isfinite(loss)) and 0.5 * ln_v < loss.item() < 2.5 * ln_v and bool(finite)
+          and all(gr.shape == t.shape and gr.dtype == t.dtype
+                  for gr, t in zip(grads, leaves.values())),
+          f"lm_encdec: the full-width loss {loss.item()} is not finite within (0.5, 2.5) x "
+          "ln(vocab), or a gradient is not finite or not of its parameter's shape and dtype")
+    loss0 = loss.item()
+    del loss, grads
+    times = []
+    for _ in range(ENCDEC_LOSS_CALLS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        del loss, grads
+    loss_peak = torch.cuda.max_memory_allocated()
+    print(f"lm_encdec: loss at full width and depth: {cfg.name} float {cfg.dtype} params "
+          f"({sum(t.numel() for t in leaves.values()):,} parameters), {LM_BACKEND} fake-quant "
+          f"on every projection, remat on; {LM_QAT_BATCH} rows of {ENCDEC_FRAMES} frames "
+          f"(normal x {ENCDEC_SCALE}, bf16) + {LM_QAT_SEQ} predicted tokens: loss {loss0:.6f} "
+          f"(ln(vocab) {ln_v:.4f}), finite; {len(leaves)} gradient leaves finite, each of its "
+          f"parameter's shape and dtype; no kernel launched; forward + backward "
+          f"{', '.join(f'{t:.3f}' for t in times)} ms, median {statistics.median(times):.3f} ms "
+          f"(host clock, synchronised, {ENCDEC_LOSS_CALLS} calls after the checked one); peak "
+          f"{loss_peak / 1e9:.3f} GB allocated ({smi})", flush=True)
+    del model, params, leaves, batch, frames
+    torch.cuda.empty_cache()
+
+    launches = {"mvu_int": per_group * len(groups)}
+    check(len(rows) == launches["mvu_int"], "lm_encdec: a row for every launch")
+    print(f"lm_encdec: launches of the served run {launches}; kernel ms over them "
+          f"{round(sum(r[0] for r in rows), 4)}; phase {time.perf_counter() - t_phase:.2f} s, "
+          f"peak while drawing {draw_peak / 1e9:.3f} GB, while serving {serve_peak / 1e9:.3f} "
+          f"GB, in the loss {loss_peak / 1e9:.3f} GB allocated ({smi})", flush=True)
+    return {"launches": launches, "rows": {"mvu_int": rows}}
+
+
 def bound_of(nbytes: int, ops: int) -> tuple[float, str]:
     """Least ms the card needs: ``nbytes`` at the HBM rate or ``ops`` at the
     int8 tensor-core peak, whichever is larger."""
@@ -4848,6 +5229,7 @@ def main() -> int:
     ssm_lm = lm_ssm_phase(dev, smi)
     hybrid_lm = lm_hybrid_phase(dev, smi)
     vlm_lm = lm_vlm_phase(dev, smi)
+    encdec_lm = lm_encdec_phase(dev, smi)
 
     # -------------------------------------------------------- 5. results
     mb = plan.microbatch
@@ -4876,10 +5258,11 @@ def main() -> int:
                 if dense == name:
                     rows += [timing[(entry, CNV_DENSE_M, n, k)] for n, k in cnv_dense] * n_micro
                     n_launches += counts[name]
-            # the pipeline, lm, lm_qat, train, lm_moe, lm_ssm, lm_hybrid and
-            # lm_vlm phases' counted runs, each launch at its shape (lm_ssm's:
-            # none)
-            for phase in (piped, lm, lm_qat, trained, moe_lm, ssm_lm, hybrid_lm, vlm_lm):
+            # the pipeline, lm, lm_qat, train, lm_moe, lm_ssm, lm_hybrid,
+            # lm_vlm and lm_encdec phases' counted runs, each launch at its
+            # shape (lm_ssm's: none)
+            for phase in (piped, lm, lm_qat, trained, moe_lm, ssm_lm, hybrid_lm, vlm_lm,
+                          encdec_lm):
                 rows += phase["rows"].get(name, [])
                 n_launches += phase["launches"].get(name, 0)
             if name == "mvu_xnor":  # the packed entry on the same launches, beside it

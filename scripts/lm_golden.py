@@ -7,6 +7,7 @@ Usage (from the repo root, JAX on the CPU):
     PYTHONPATH=src python scripts/lm_golden.py --arch mamba2-780m --write
     PYTHONPATH=src python scripts/lm_golden.py --arch jamba-1.5-large-398b --write
     PYTHONPATH=src python scripts/lm_golden.py --arch qwen2-vl-7b --write
+    PYTHONPATH=src python scripts/lm_golden.py --arch whisper-tiny --write
     PYTHONPATH=src python scripts/lm_golden.py --bf16-gap # bfloat16 gaps
     PYTHONPATH=src python scripts/lm_golden.py --bf16-gap --arch mamba2-780m
     PYTHONPATH=src python scripts/lm_golden.py --bf16-gap --arch jamba-1.5-large-398b
@@ -23,8 +24,10 @@ routing dropped for capacity (a ``jax.debug.callback`` on each
 ``src/repro_torch/configs/``; ``tests/test_torch_lm.py``,
 ``tests/test_torch_lm_moe.py``, ``tests/test_torch_lm_ssm.py``,
 ``tests/test_torch_lm_hybrid.py``, ``tests/test_torch_lm_vlm.py`` and
-``chip_smoke.py`` hold the port to it.  The VLM's prompt is text only, as
-its serving is in both packages (its M-RoPE ids all equal).
+``tests/test_torch_lm_encdec.py`` and ``chip_smoke.py`` hold the port to
+it.  The VLM's prompt is text only, as its serving is in both packages
+(its M-RoPE ids all equal); the encoder-decoder's prefill also takes
+seeded frame embeddings (``lm_golden.golden_batch``).
 
 ``--bf16-gap`` prints, for the reduced ``--arch`` in bfloat16 (the leaves
 ``convert.FLOAT32_LEAVES`` kept float32, as the reference's init keeps
@@ -84,7 +87,7 @@ def jax_run(backend: str, arch: str) -> dict:
     try:
         state = model.init_decode_state(G.BATCH, G.MAX_LEN)
         logits, state = call(model.prefill, params,
-                             {"tokens": jnp.asarray(G.prompt_tokens(cfg.vocab_size))}, state)
+                             {k: jnp.asarray(v) for k, v in G.golden_batch(cfg).items()}, state)
         outs, toks = [], []
         for step in range(G.DECODE_STEPS + 1):
             outs.append(np.asarray(logits, np.float32))
@@ -103,10 +106,13 @@ def jax_run(backend: str, arch: str) -> dict:
 def golden(arch: str) -> dict:
     from repro_torch.configs import lm_golden as G
 
-    return {"arch": arch, "seed": G.SEED, "token_seed": G.TOKEN_SEED, "batch": G.BATCH,
-            "prompt_len": G.PROMPT_LEN, "max_len": G.MAX_LEN,
-            "decode_steps": G.DECODE_STEPS, "dtype": "float32",
-            "variants": {b: jax_run(b, arch) for b in G.VARIANTS}}
+    out = {"arch": arch, "seed": G.SEED, "token_seed": G.TOKEN_SEED, "batch": G.BATCH,
+           "prompt_len": G.PROMPT_LEN, "max_len": G.MAX_LEN,
+           "decode_steps": G.DECODE_STEPS, "dtype": "float32",
+           "variants": {b: jax_run(b, arch) for b in G.VARIANTS}}
+    if G.golden_config(arch=arch).encdec:
+        out |= {"enc_frames": G.ENC_FRAMES, "enc_seed": G.ENC_SEED, "enc_scale": G.ENC_SCALE}
+    return out
 
 
 def bf16_gap(arch: str) -> None:

@@ -4,6 +4,7 @@ Usage (from the repo root, JAX on the CPU):
     PYTHONPATH=src python scripts/lm_qat_golden.py          # check the file
     PYTHONPATH=src python scripts/lm_qat_golden.py --write  # (re)write it
     PYTHONPATH=src python scripts/lm_qat_golden.py --arch qwen2-vl-7b --write
+    PYTHONPATH=src python scripts/lm_qat_golden.py --arch whisper-tiny --write
 
 Runs ``jax.value_and_grad(repro.models.model.build(cfg).loss,
 has_aux=True)`` on the float32 tree of
@@ -13,12 +14,14 @@ on, under ``dense``, ``mvu_w8a8`` and ``mvu_binary`` (every projection
 through the fake-quant arm of ``linear``), on a seeded batch
 (``repro_torch.configs.lm_golden``: ``qat_config``, ``qat_batch``; for
 ``qwen2-vl-7b`` the tokens follow a seeded 40-patch vision prefix, so its
-M-RoPE turns the t, h and w sections by different ids).  The result, the
+M-RoPE turns the t, h and w sections by different ids; for
+``whisper-tiny`` the encoder reads seeded frame embeddings).  The result, the
 loss and each gradient leaf's size, sum, L2 norm, largest magnitude and, a
 layer at a time, first values and product with a fixed seeded vector, is
 ``lm_golden.qat_golden_path(arch)`` under ``src/repro_torch/configs/``
-(``yi_9b_qat_golden.json``, ``qwen2_vl_7b_qat_golden.json``);
-``tests/test_torch_lm_qat.py``, ``tests/test_torch_lm_vlm.py`` and
+(``yi_9b_qat_golden.json``, ``qwen2_vl_7b_qat_golden.json``,
+``whisper_tiny_qat_golden.json``); ``tests/test_torch_lm_qat.py``,
+``tests/test_torch_lm_vlm.py``, ``tests/test_torch_lm_encdec.py`` and
 ``chip_smoke.py`` hold the port to it.
 """
 
@@ -57,6 +60,8 @@ def golden(arch: str) -> dict:
     if G.qat_config(arch=arch).family == "vlm":
         out |= {"prefix": G.VLM_PREFIX, "prefix_seed": G.PREFIX_SEED,
                 "prefix_scale": G.PREFIX_SCALE}
+    if G.qat_config(arch=arch).encdec:
+        out |= {"enc_frames": G.ENC_FRAMES, "enc_seed": G.ENC_SEED, "enc_scale": G.ENC_SCALE}
     return out
 
 

@@ -2,10 +2,8 @@
 
 families: dense | moe | ssm | hybrid | vlm | audio
 
-The port of the JAX package's ``repro/configs/base.py``, field for field.
-The port's models run the dense, MoE and SSM families
-(``models/transformer.py``, ``models/moe.py``, ``models/ssm.py``); the
-other families' fields are kept so every config
+The port of the JAX package's ``repro/configs/base.py``, field for field:
+the port's models run every family (``models/model.py``), and every config
 and its parameter counts equal the reference's.
 """
 

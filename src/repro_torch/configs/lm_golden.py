@@ -13,9 +13,11 @@ with the JAX package on the CPU: ``get_reduced(arch)`` in float32 from
 "mvu_w8a8")``.  A MoE arch's file, and the hybrid's (whose MoE layers
 route as the MoE family's do), also records, for each call, how many
 token-to-expert assignments the routing dropped for capacity
-(``dropped``).  The tests (on the CPU) and ``chip_smoke.py`` (on the card)
-run the port the same way (:func:`greedy_run`) and hold it to the file
-with :func:`mismatch`.
+(``dropped``).  The encoder-decoder's prefill also reads
+:func:`enc_embeds`, (BATCH, ENC_FRAMES, d) frame embeddings, normal x
+``ENC_SCALE`` from ``ENC_SEED`` (:func:`golden_batch`).  The tests (on
+the CPU) and ``chip_smoke.py`` (on the card) run the port the same way
+(:func:`greedy_run`) and hold it to the file with :func:`mismatch`.
 
 ``scripts/lm_qat_golden.py [--arch ARCH]`` writes :func:`qat_golden_path`
 of an arch of ``QAT_GOLDENS`` (``yi_9b_qat_golden.json`` for ``ARCH``, the
@@ -24,10 +26,12 @@ default) the same way: the same float32 tree, remat on,
 (BATCH, QAT_SEQ + 1) token batch from ``np.random.default_rng(TOKEN_SEED)``
 and, for the VLM, a (BATCH, VLM_PREFIX, d) vision prefix, normal x
 ``PREFIX_SCALE`` from ``PREFIX_SEED``: at 40 patches on the 16-wide grid
-the t, h and w ids all differ), for each backend in ``QAT_VARIANTS`` (the
-fake-quant arm under ``mvu_*``): the loss and each gradient leaf's
-:func:`grad_digest`, a layer at a time for a stacked leaf.  The port's side
-is :func:`qat_run`, held to the file with :func:`qat_mismatch`.
+the t, h and w ids all differ; for the encoder-decoder, the
+:func:`enc_embeds` the encoder reads), for each backend in
+``QAT_VARIANTS`` (the fake-quant arm under ``mvu_*``): the loss and each
+gradient leaf's :func:`grad_digest`, a layer at a time for a stacked leaf.
+The port's side is :func:`qat_run`, held to the file with
+:func:`qat_mismatch`.
 
 ``scripts/lm_train_golden.py`` writes ``TRAIN_GOLDEN``
 (``yi_9b_train_golden.json``): the golden run's float32 tree and config
@@ -62,7 +66,8 @@ MOE_ARCHS = ("granite-moe-3b-a800m", "qwen3-moe-235b-a22b")
 SSM_ARCH = "mamba2-780m"
 HYBRID_ARCH = "jamba-1.5-large-398b"
 VLM_ARCH = "qwen2-vl-7b"
-LM_GOLDENS = ("yi-9b", *MOE_ARCHS, SSM_ARCH, HYBRID_ARCH, VLM_ARCH)
+ENCDEC_ARCH = "whisper-tiny"
+LM_GOLDENS = ("yi-9b", *MOE_ARCHS, SSM_ARCH, HYBRID_ARCH, VLM_ARCH, ENCDEC_ARCH)
 SEED = 0  # lm_numpy_params
 TOKEN_SEED = 1
 BATCH = 2
@@ -72,11 +77,18 @@ DECODE_STEPS = 3
 VARIANTS = ("dense", "mvu_w8a8")
 # float32 logits: max |port - reference| <= LOGIT_ATOL * max |reference|
 LOGIT_ATOL = 1e-3
-# the archs with a QAT golden: the dense Yi-9B, and the VLM with a vision prefix
-QAT_GOLDENS = ("yi-9b", VLM_ARCH)
+# the archs with a QAT golden: the dense Yi-9B, the VLM with a vision prefix
+# and the encoder-decoder with its frame embeddings
+QAT_GOLDENS = ("yi-9b", VLM_ARCH, ENCDEC_ARCH)
 VLM_PREFIX = 40  # patches: h ids 0..2, w ids 0..15, the text from 16
 PREFIX_SEED = 3
 PREFIX_SCALE = 0.1
+# the encoder-decoder's frame embeddings: BATCH x ENC_FRAMES = 40 encoder
+# rows a projection, not a multiple of a 32-row tile; the scale of the
+# reference's test (tests/test_models.py)
+ENC_FRAMES = 20
+ENC_SEED = 4
+ENC_SCALE = 0.1
 QAT_VARIANTS = ("dense", "mvu_w8a8", "mvu_binary")
 QAT_SEQ = 16  # tokens predicted a row
 QAT_HEAD = 16  # each gradient row's first values kept
@@ -139,6 +151,24 @@ def prompt_tokens(vocab_size: int | None = None) -> np.ndarray:
         0, vocab_size or golden_config().vocab_size, (BATCH, PROMPT_LEN)).astype(np.int32)
 
 
+def enc_embeds(cfg) -> np.ndarray:
+    """The golden runs' frame embeddings for an encoder-decoder ``cfg``:
+    (BATCH, ENC_FRAMES, d) float32, normal x ``ENC_SCALE`` from
+    ``ENC_SEED``."""
+    rng = np.random.default_rng(ENC_SEED)
+    return (rng.standard_normal((BATCH, ENC_FRAMES, cfg.d_model)) * ENC_SCALE).astype(
+        np.float32)
+
+
+def golden_batch(cfg) -> dict:
+    """The golden prefill's batch for ``cfg``: :func:`prompt_tokens` over its
+    vocabulary, and an encoder-decoder's :func:`enc_embeds`."""
+    batch = {"tokens": prompt_tokens(cfg.vocab_size)}
+    if cfg.encdec:
+        batch["enc_embeds"] = enc_embeds(cfg)
+    return batch
+
+
 def load_golden(arch: str = ARCH) -> dict:
     with open(golden_path(arch)) as f:
         return json.load(f)
@@ -168,7 +198,7 @@ def counting_drops():
 
 
 def greedy_run(model, params) -> dict:
-    """The golden run on the port: ``prefill`` of :func:`prompt_tokens`, then
+    """The golden run on the port: ``prefill`` of :func:`golden_batch`, then
     ``DECODE_STEPS`` greedy ``decode_step``s; float32 numpy logits of each
     call (``logits[0]`` the prefill's) and the greedy tokens, (BATCH,
     1 + DECODE_STEPS); for a MoE model also each call's dropped
@@ -182,8 +212,7 @@ def greedy_run(model, params) -> dict:
             return out
 
         state = model.init_decode_state(BATCH, MAX_LEN)
-        logits, state = call(model.prefill, params,
-                             {"tokens": prompt_tokens(model.cfg.vocab_size)}, state)
+        logits, state = call(model.prefill, params, golden_batch(model.cfg), state)
         outs, toks = [], []
         for step in range(DECODE_STEPS + 1):
             outs.append(logits.to(torch.float32).cpu().numpy())
@@ -225,16 +254,24 @@ def qat_config(backend: str = "dense", arch: str = ARCH):
 
 def qat_batch(cfg) -> dict:
     """The QAT golden's batch for ``cfg`` (a :func:`qat_config`): (BATCH,
-    QAT_SEQ + 1) tokens over its vocabulary from ``TOKEN_SEED``, and for a
+    QAT_SEQ + 1) tokens over its vocabulary from ``TOKEN_SEED``; for a
     VLM ``"prefix_embeds"`` (BATCH, VLM_PREFIX, d) float32, normal x
-    ``PREFIX_SCALE`` from ``PREFIX_SEED``."""
+    ``PREFIX_SCALE`` from ``PREFIX_SEED``; for an encoder-decoder
+    ``"enc_embeds"`` (:func:`enc_embeds`)."""
     batch = {"tokens": np.random.default_rng(TOKEN_SEED).integers(
         0, cfg.vocab_size, (BATCH, QAT_SEQ + 1)).astype(np.int32)}
     if cfg.family == "vlm":
         rng = np.random.default_rng(PREFIX_SEED)
         batch["prefix_embeds"] = (rng.standard_normal((BATCH, VLM_PREFIX, cfg.d_model))
                                   * PREFIX_SCALE).astype(np.float32)
+    if cfg.encdec:
+        batch["enc_embeds"] = enc_embeds(cfg)
     return batch
+
+
+# the paths of the leaves stacked on a layer axis: a decoder's layers, an
+# encoder-decoder's two stacks
+STACKED = ("layers/", "encdec/enc/", "encdec/dec/")
 
 
 def probe(n: int) -> np.ndarray:
@@ -247,11 +284,12 @@ def leaf_digest(leaves: dict) -> dict:
     """For each leaf (float32 numpy by path) its size, sum, L2 norm and
     largest magnitude, and for each of its rows the first ``QAT_HEAD``
     values and the dot product with :func:`probe`: a leaf stacked on the
-    layer axis (under "layers/") has a row a layer, any other leaf one row."""
+    layer axis (under ``STACKED``) has a row a layer, any other leaf one
+    row."""
     out = {}
     for path, g in leaves.items():
         g = np.asarray(g, np.float32)
-        rows = g.reshape(g.shape[0] if path.startswith("layers/") else 1, -1)
+        rows = g.reshape(g.shape[0] if path.startswith(STACKED) else 1, -1)
         g = g.ravel()
         out[path] = {"size": int(g.size), "sum": float(g.sum(dtype=np.float64)),
                      "norm": float(np.sqrt(np.square(g, dtype=np.float64).sum())),

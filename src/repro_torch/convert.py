@@ -25,9 +25,10 @@ device)`` takes the JAX package's tree as nested dicts of numpy arrays
 (``np.asarray`` on each leaf) and returns the port's, leaf for leaf (a
 leaf given in float32 stays float32 in a bfloat16 tree);
 ``lm_numpy_params(cfg, seed)`` draws a dense, MoE, SSM, hybrid or VLM
-decoder's tree in that layout with numpy alone, so both packages can start from the
-same weights, and ``cast_numpy_params(tree, dtype)`` casts it to a model's
-dtype but for the leaves the reference keeps float32 (``FLOAT32_LEAVES``).  An
+decoder's tree, or an encoder-decoder's, in that layout with numpy alone,
+so both packages can start from the same weights, and
+``cast_numpy_params(tree, dtype)`` casts it to a model's dtype but for
+the leaves the reference keeps float32 (``FLOAT32_LEAVES``).  An
 AdamW state (``adamw.init`` / ``update``'s ``{"mu", "nu", "step"}``)
 crosses by ``opt_state_from_numpy(state, device)``, and any port tree
 goes back by ``numpy_tree(tree)``, so both packages can also carry on
@@ -154,9 +155,10 @@ def cast_numpy_params(tree: dict, dtype) -> dict:
 
 
 def lm_numpy_params(cfg, seed: int = 0) -> dict:
-    """A dense, MoE, SSM, hybrid or VLM decoder's parameters in the JAX
-    package's layout (the tree its ``build(cfg).init`` returns, layers
-    stacked on a leading axis; a VLM's is the dense tree) as float32 numpy arrays from
+    """A dense, MoE, SSM, hybrid or VLM decoder's parameters, or an
+    encoder-decoder's, in the JAX package's layout (the tree its
+    ``build(cfg).init`` returns, layers stacked on a leading axis; a VLM's
+    is the dense tree) as float32 numpy arrays from
     ``np.random.default_rng(seed)``: each projection ``normal /
     sqrt(fan_in)``, the embedding ``normal * 0.02``, the norms at their
     init (scale 1, bias 0).  A MoE block holds ``moe/{router/w (L, d, E),
@@ -166,7 +168,11 @@ def lm_numpy_params(cfg, seed: int = 0) -> dict:
     ``num_layers // attn_period`` groups of ``per = attn_period``:
     ``ln_mix`` / ``ln_ffn`` (G, per, d), ``attn`` (G, ...), ``ssm`` (G,
     per - 1, ...), ``ffn`` (G, per - per // 2, ...) and ``moe`` (G, per //
-    2, ...).  The config's dtype is the caller's cast
+    2, ...).  An encoder-decoder holds ``encdec`` in place of ``layers``:
+    ``enc`` (``enc_layers`` stacked layers of ``ln1``, ``attn``, ``ln2``,
+    ``ffn``), ``dec`` (``num_layers`` of ``ln1``, ``attn``, ``lnx``,
+    ``xattn`` -- the cross attention, an ``attn`` node --, ``ln2``,
+    ``ffn``) and ``ln_enc`` (d,).  The config's dtype is the caller's cast
     (:func:`cast_numpy_params`)."""
     require_ported(cfg)
     rng = np.random.default_rng(seed)
@@ -182,8 +188,12 @@ def lm_numpy_params(cfg, seed: int = 0) -> dict:
         return p
 
     table = rng.standard_normal((cfg.vocab_size, d), dtype=np.float32) * np.float32(0.02)
-    params = {"embed": {"table": table}, "layers": _layers_numpy_params(cfg, rng, dense, norm),
-              "ln_f": norm(d)}
+    params = {"embed": {"table": table}}
+    if cfg.encdec:
+        params["encdec"] = _encdec_numpy_params(cfg, dense, norm)
+    else:
+        params["layers"] = _layers_numpy_params(cfg, rng, dense, norm)
+    params["ln_f"] = norm(d)
     if not cfg.tie_embeddings:
         params["unembed"] = {"w": dense(d, cfg.vocab_size)}
     return params
@@ -209,6 +219,18 @@ def _layers_numpy_params(cfg, rng, dense, norm) -> dict:
     else:
         layers["ffn"] = _ffn_numpy_params(cfg, dense, (n_layers,))
     return layers
+
+
+def _encdec_numpy_params(cfg, dense, norm) -> dict:
+    """The encoder's and the decoder's stacked layers and ``ln_enc`` of
+    :func:`lm_numpy_params`."""
+    n_enc, n_dec, d = cfg.enc_layers, cfg.num_layers, cfg.d_model
+    enc = {"ln1": norm(n_enc, d), "attn": _attn_numpy_params(cfg, dense, norm, (n_enc,)),
+           "ln2": norm(n_enc, d), "ffn": _ffn_numpy_params(cfg, dense, (n_enc,))}
+    dec = {"ln1": norm(n_dec, d), "attn": _attn_numpy_params(cfg, dense, norm, (n_dec,)),
+           "lnx": norm(n_dec, d), "xattn": _attn_numpy_params(cfg, dense, norm, (n_dec,)),
+           "ln2": norm(n_dec, d), "ffn": _ffn_numpy_params(cfg, dense, (n_dec,))}
+    return {"enc": enc, "dec": dec, "ln_enc": norm(d)}
 
 
 def _attn_numpy_params(cfg, dense, norm, lead: tuple) -> dict:

@@ -1,14 +1,20 @@
 """Attention: MHA/GQA/MQA, causal + sliding-window masks, RoPE / M-RoPE,
-prefill and single-token decode with a KV cache (float or int8); the port
-of the JAX package's ``repro/models/attention.py``.
+prefill and single-token decode with a KV cache (float or int8), and the
+encoder-decoder's cross attention; the port of the JAX package's
+``repro/models/attention.py``.
 
 The same einsums, float32 scores, ``-1e30`` mask and softmax as the
 reference (not ``scaled_dot_product_attention``), so the port computes
 what JAX computes.  Under ``cfg.mrope`` (the VLM family) positions are
 (3, B, S) t/h/w ids, or (B, S) ids broadcast to all three (the decode
 step's and a text-only prefill's); nothing reads the positions' leading
-axis as the batch.  Not ported here: ``cross_attention``
-(encoder-decoder), ROADMAP queue A item 7, step 4.5.
+axis as the batch.  ``attention(..., causal=False)`` (Whisper's encoder)
+applies no mask on the plain path, and an all-true one on the chunked
+path, as the reference's ``_sdpa_auto`` does.  ``cross_attention``
+(Whisper's decoder over the encoder memory) takes q from the decoder and
+k, v from the memory, with no RoPE and no mask, through ``_sdpa`` itself;
+it caches nothing, so a decode step projects the memory again, as the
+reference's does.
 """
 
 from __future__ import annotations
@@ -224,3 +230,22 @@ def attention_decode(
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bgrst,btgh->bsgrh", probs, vv).reshape(b, 1, h * cfg.head_dim)
     return linear(p["wo"], out, backend=backend), cache
+
+
+# ------------------------------------------------------------------ cross
+def cross_attn_init(generator, cfg, dtype=torch.bfloat16, device="cpu") -> Params:
+    return attn_init(generator, cfg, dtype, device)
+
+
+def cross_attention(
+    p: Params, cfg, x: torch.Tensor, kv_src: torch.Tensor, *, backend: str = "dense"
+) -> torch.Tensor:
+    """Decoder query over encoder memory (Whisper); no mask, no rope.
+    x (B, Sq, d), kv_src (B, Skv, d): the memory is projected at every
+    call (no cross K/V cache, as in the reference)."""
+    hd = cfg.head_dim
+    q = _split_heads(linear(p["wq"], x, backend=backend), cfg.num_heads, hd)
+    k = _split_heads(linear(p["wk"], kv_src, backend=backend), cfg.num_kv_heads, hd)
+    v = _split_heads(linear(p["wv"], kv_src, backend=backend), cfg.num_kv_heads, hd)
+    out = _sdpa(q, k, v, None)
+    return linear(p["wo"], out.reshape(*x.shape[:-1], -1), backend=backend)

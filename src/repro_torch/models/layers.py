@@ -177,18 +177,28 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * (1 / (1 + torch.exp(-x)))
 
 
-# jax.nn.gelu is the tanh approximation by default
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (the tanh approximation, its default): x * (0.5 * (1 +
+    tanh(sqrt(2 / pi) * (x + 0.044715 * x^3)))), both constants rounded to
+    x's dtype and each op rounded to it, as JAX computes it; bit for bit in
+    bfloat16 (``F.gelu(approximate="tanh")`` rounds once, and differs there
+    on about half the values)."""
+    c, k = (torch.tensor(v, dtype=torch.float32).to(x.dtype)
+            for v in (math.sqrt(2 / math.pi), 0.044715))
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + k * x ** 3))))
+
+
 def activation(name: str, gate: torch.Tensor, up: torch.Tensor | None = None) -> torch.Tensor:
     if name == "swiglu":
         assert up is not None
         return silu(gate) * up
     if name == "geglu":
         assert up is not None
-        return F.gelu(gate, approximate="tanh") * up
+        return gelu(gate) * up
     if name == "squared_relu":  # Nemotron-4 (Primer)
         return torch.square(F.relu(gate))
     if name == "gelu":
-        return F.gelu(gate, approximate="tanh")
+        return gelu(gate)
     raise ValueError(f"unknown activation {name!r}")
 
 

@@ -32,8 +32,20 @@ lies twice on the card.  The VLM backbone (Qwen2-VL, ``cfg.family ==
 "vlm"``) is the uniform dense stack, as the reference's ``stack_init``
 dispatches it (neither hybrid nor SSM nor MoE): ``block_init`` /
 ``block_forward`` / ``_block_prefill`` / ``_block_decode``, its M-RoPE in
-``attention._qkv``.  The encoder-decoder (Whisper) raises
-``NotImplementedError`` (ROADMAP queue A item 7, step 4.5).
+``attention._qkv``.
+
+The encoder-decoder (Whisper, ``cfg.encdec``) is two stacks under
+``params["encdec"]``: ``enc`` (``enc_layers`` layers of ``ln1``, ``attn``,
+``ln2``, ``ffn``: non-causal self-attention, RoPE over frame ids 0..T-1)
+closed by ``ln_enc``, and ``dec`` (``num_layers`` layers of ``ln1``,
+``attn``, ``lnx``, ``xattn``, ``ln2``, ``ffn``: causal self-attention,
+then cross attention over the encoder's output).  ``encoder_forward`` and
+``decoder_forward`` are the training forward (each layer under
+``torch.utils.checkpoint`` with ``cfg.remat``), ``decoder_prefill`` the
+teacher-forced pass that fills the decoder's KV caches (no remat: the
+reference's inline scan in ``model.prefill``), ``decoder_decode`` one step,
+writing each layer's KV cache in place and projecting the encoder memory
+again in every layer (no cross K/V cache, as in the reference).
 """
 
 from __future__ import annotations
@@ -46,6 +58,8 @@ from repro_torch.models.attention import (
     attention_decode,
     attention_prefill,
     attn_init,
+    cross_attention,
+    cross_attn_init,
     init_kv_cache,
 )
 from repro_torch.models.layers import (
@@ -72,13 +86,15 @@ from repro_torch.models.ssm import (
 from repro_torch.tree import tree_map
 
 
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+
+
 def require_ported(cfg) -> None:
-    """Raise for a config of a family the port does not run yet."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid", "vlm"):
+    """Raise for a config of a family the port does not know."""
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported; the port runs the "
-            "dense, MoE, SSM, hybrid and VLM decoders (the encoder-decoder waits for "
-            "ROADMAP queue A item 7, step 4.5)")
+            f"families {PORTED_FAMILIES}")
 
 
 def _norm_init(cfg, dtype, device):
@@ -423,4 +439,107 @@ def stack_prefill(params, cfg, x, positions, caches):
     pre = _group_prefill if cfg.is_hybrid else _block_prefill
     for i in range(_n_stacked(cfg)):
         x, _ = pre(layer(params, i), cfg, x, positions, layer(caches, i))
+    return x, caches
+
+
+# --------------------------------------------------------- encoder-decoder
+def _enc_layer_init(generator, cfg, dtype, device) -> Params:
+    return {"ln1": _norm_init(cfg, dtype, device), "attn": attn_init(generator, cfg, dtype, device),
+            "ln2": _norm_init(cfg, dtype, device), "ffn": ffn_init(generator, cfg, dtype, device)}
+
+
+def _dec_layer_init(generator, cfg, dtype, device) -> Params:
+    return {"ln1": _norm_init(cfg, dtype, device), "attn": attn_init(generator, cfg, dtype, device),
+            "lnx": _norm_init(cfg, dtype, device),
+            "xattn": cross_attn_init(generator, cfg, dtype, device),
+            "ln2": _norm_init(cfg, dtype, device), "ffn": ffn_init(generator, cfg, dtype, device)}
+
+
+def encdec_init(generator, cfg, dtype, device, *, quantize: str | None = None) -> Params:
+    """The encoder's and the decoder's layers, each stacked on a leading
+    axis (:func:`stack_layers`), and the encoder's closing norm
+    ``ln_enc``.  With ``quantize`` (an ``mvu_*`` backend) each layer's
+    projections, the cross attention's included, are quantized as soon as
+    it is drawn."""
+    require_ported(cfg)
+
+    def stack(init, n):
+        def one():
+            p = init(generator, cfg, dtype, device)
+            return p if quantize is None else quantize_model_params(p, quantize)
+        return stack_layers((one() for _ in range(n)), n)
+
+    return {"enc": stack(_enc_layer_init, cfg.enc_layers),
+            "dec": stack(_dec_layer_init, cfg.num_layers),
+            "ln_enc": _norm_init(cfg, dtype, device)}
+
+
+def _enc_layer(p, cfg, h, positions):
+    be = cfg.linear_backend
+    h = h + attention(p["attn"], cfg, _norm(cfg, p["ln1"], h), positions, causal=False,
+                      backend=be)
+    return h + ffn(p["ffn"], cfg, _norm(cfg, p["ln2"], h), backend=be)
+
+
+def _dec_layer(p, cfg, h, positions, enc_out):
+    be = cfg.linear_backend
+    h = h + attention(p["attn"], cfg, _norm(cfg, p["ln1"], h), positions, causal=True,
+                      backend=be)
+    h = h + cross_attention(p["xattn"], cfg, _norm(cfg, p["lnx"], h), enc_out, backend=be)
+    return h + ffn(p["ffn"], cfg, _norm(cfg, p["ln2"], h), backend=be)
+
+
+def _run_layers(fn, stacked, cfg, x, *args):
+    """``x`` through ``fn`` once a layer of ``stacked``, each layer under
+    ``torch.utils.checkpoint`` with ``cfg.remat``; a 1-bit backend's
+    projection scales computed once, before the layers
+    (:func:`with_column_scales`), as :func:`stack_forward` computes them."""
+    for p in unbind_layers(with_column_scales(stacked, cfg.linear_backend)):
+        if cfg.remat:
+            x = torch.utils.checkpoint.checkpoint(fn, p, cfg, x, *args, use_reentrant=False)
+        else:
+            x = fn(p, cfg, x, *args)
+    return x
+
+
+def encoder_forward(params, cfg, x, positions):
+    """The encoder over frame embeddings x (B, T, d), positions (B, T):
+    non-causal self-attention and the FFN in every layer, then ``ln_enc``."""
+    x = _run_layers(_enc_layer, params["enc"], cfg, x, positions)
+    return _norm(cfg, params["ln_enc"], x)
+
+
+def decoder_forward(params, cfg, x, positions, enc_out):
+    """The decoder's uncached forward (the training forward) over token
+    embeddings x (B, S, d) against the encoder's output (B, T, d)."""
+    return _run_layers(_dec_layer, params["dec"], cfg, x, positions, enc_out)
+
+
+def decoder_prefill(params, cfg, x, positions, caches, enc_out):
+    """The teacher-forced pass over the prompt that fills each decoder
+    layer's KV cache in place (no remat, as the reference's inline scan in
+    ``model.prefill``); returns (x, ``caches``)."""
+    be = cfg.linear_backend
+    for i in range(cfg.num_layers):
+        p = layer(params["dec"], i)
+        y, _ = attention_prefill(p["attn"], cfg, _norm(cfg, p["ln1"], x), positions,
+                                 layer(caches, i), backend=be)
+        x = x + y
+        x = x + cross_attention(p["xattn"], cfg, _norm(cfg, p["lnx"], x), enc_out, backend=be)
+        x = x + ffn(p["ffn"], cfg, _norm(cfg, p["ln2"], x), backend=be)
+    return x, caches
+
+
+def decoder_decode(params, cfg, x, pos, caches, enc_out):
+    """One decode step through the decoder: x (B, 1, d), pos (B, 1); each
+    layer's KV cache written in place, and the encoder memory projected
+    again by every layer's cross attention; returns (x, ``caches``)."""
+    be = cfg.linear_backend
+    for i in range(cfg.num_layers):
+        p = layer(params["dec"], i)
+        y, _ = attention_decode(p["attn"], cfg, _norm(cfg, p["ln1"], x), pos,
+                                layer(caches, i), backend=be)
+        x = x + y
+        x = x + cross_attention(p["xattn"], cfg, _norm(cfg, p["lnx"], x), enc_out, backend=be)
+        x = x + ffn(p["ffn"], cfg, _norm(cfg, p["ln2"], x), backend=be)
     return x, caches

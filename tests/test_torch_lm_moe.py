@@ -339,16 +339,19 @@ def test_moe_tree_round_trips_with_the_router_float32(arch, dtype):
 
 
 def test_only_the_dense_and_moe_families_build():
-    """The dense, MoE, SSM, hybrid and VLM families build; Jamba, which holds
-    MoE and SSM layers, dispatches on ``is_hybrid`` before ``is_moe``; the
-    audio family stays unported."""
+    """The dense, MoE, SSM, hybrid, VLM and audio families build; Jamba,
+    which holds MoE and SSM layers, dispatches on ``is_hybrid`` before
+    ``is_moe``; the encoder-decoder holds ``encdec`` in place of
+    ``layers``."""
     cfg = get_reduced("jamba-1.5-large-398b")
     assert cfg.family == "hybrid" and cfg.is_hybrid and cfg.is_moe
     TT.require_ported(cfg)
     assert set(build(cfg, device="cpu").init(torch.Generator().manual_seed(0))["layers"]) == {
         "ln_mix", "ln_ffn", "attn", "ssm", "ffn", "moe"}
-    with pytest.raises(NotImplementedError, match="item 7, step 4.5"):
-        TT.require_ported(get_reduced("whisper-tiny"))
+    whisper = get_reduced("whisper-tiny")
+    TT.require_ported(whisper)
+    assert set(build(whisper, device="cpu").init(torch.Generator().manual_seed(0))) == {
+        "embed", "encdec", "ln_f", "unembed"}
     assert get_reduced("mamba2-780m").family == "ssm"
     for arch in ("yi-9b", *MOE_ARCHS, "mamba2-780m", "qwen2-vl-7b"):
         TT.require_ported(get_reduced(arch))

@@ -440,13 +440,29 @@ def test_qat_digest_catches_a_fault_in_one_layer():
     assert G.qat_mismatch(want, G.grad_digest(1.0, {path: g.copy()})) is None
 
 
-@pytest.mark.parametrize("arch", [a for a in ARCH_IDS if get_reduced(a).family
-                                  not in ("dense", "moe", "ssm", "hybrid", "vlm")])
+@pytest.mark.parametrize("arch", [*ARCH_IDS, "unknown-family"])
 def test_loss_of_non_dense_families_raises(arch):
-    """The encoder-decoder loss waits for ROADMAP item 7, step 4.5:
-    ``build`` raises before a loss exists (the MoE, SSM, hybrid and VLM
-    losses are ``tests/test_torch_lm_moe.py``'s, ``tests/test_torch_lm_ssm.py``'s,
-    ``tests/test_torch_lm_hybrid.py``'s and ``tests/test_torch_lm_vlm.py``'s)."""
+    """Every family's loss runs: float32, W8A8 fake-quant, the reduced
+    config of each of the ten architectures, on seeded tokens (and the
+    encoder-decoder's frame embeddings, the VLM's patch prefix), finite
+    (each family's loss against the reference: ``tests/test_torch_lm.py``,
+    ``test_torch_lm_moe.py``, ``test_torch_lm_ssm.py``,
+    ``test_torch_lm_hybrid.py``, ``test_torch_lm_vlm.py`` and
+    ``test_torch_lm_encdec.py``).  A family the port does not know raises
+    at ``build``, before a loss exists."""
+    if arch == "unknown-family":
+        cfg = get_reduced("yi-9b").replace(name="unknown", family="speech")
+        with pytest.raises(NotImplementedError, match="'speech' family is not ported"):
+            build(cfg, device="cpu").loss({}, {"tokens": np.zeros((1, 3), np.int32)})
+        return
     cfg = get_reduced(arch).replace(dtype="float32", linear_backend="mvu_w8a8")
-    with pytest.raises(NotImplementedError, match="item 7, step 4.5"):
-        build(cfg, device="cpu").loss({}, {"tokens": np.zeros((1, 3), np.int32)})
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 9)).astype(np.int32)}
+    if cfg.encdec:
+        batch["enc_embeds"] = (rng.standard_normal((2, 12, cfg.d_model)) * 0.1).astype(np.float32)
+    if cfg.family == "vlm":
+        batch["prefix_embeds"] = (rng.standard_normal((2, 8, cfg.d_model)) * 0.1).astype(
+            np.float32)
+    loss, aux = build(cfg, device="cpu").loss(lm_params_from_numpy(lm_numpy_params(cfg, 0)),
+                                              batch)
+    assert bool(torch.isfinite(loss)) and loss.shape == () and aux["aux"].dtype == torch.float32

@@ -28,8 +28,8 @@ sections (4, 6, 6)).  The contract, fixed before the port was written:
   golden (``configs/qwen2_vl_7b_qat_golden.json``) holds on the CPU;
 * ``lm_numpy_params`` draws the reference's layout (``jax.eval_shape`` of
   its ``init``) in float32 and bfloat16; ``init(quantize=...)`` equals
-  quantizing the float init; the full config builds, and whisper-tiny
-  still raises.
+  quantizing the float init; the full config builds, and so does
+  whisper-tiny (its tests: ``tests/test_torch_lm_encdec.py``).
 """
 
 import contextlib
@@ -316,8 +316,8 @@ def test_init_quantized_as_drawn_equals_quantizing_the_float_init(backend):
 def test_the_vlm_builds_and_whisper_still_raises():
     """The full config and the reduced one build on the CPU (the uniform
     dense stack, as the reference's ``stack_init`` dispatches a VLM:
-    neither hybrid, SSM nor MoE); the encoder-decoder raises, naming step
-    4.5."""
+    neither hybrid, SSM nor MoE); the encoder-decoder builds too, its
+    stacks under ``encdec`` (``tests/test_torch_lm_encdec.py``)."""
     full = get_config(ARCH)
     assert full.family == "vlm" and full.mrope and not (full.is_hybrid or full.is_moe)
     TT.require_ported(full)
@@ -325,9 +325,9 @@ def test_the_vlm_builds_and_whisper_still_raises():
     build(get_reduced(ARCH), device="cpu")
     lm_numpy_params(get_reduced(ARCH), 0)
     whisper = get_reduced("whisper-tiny")
-    for fn in (lambda: build(whisper, device="cpu"), lambda: lm_numpy_params(whisper, 0)):
-        with pytest.raises(NotImplementedError, match="item 7, step 4.5"):
-            fn()
+    TT.require_ported(whisper)
+    assert build(whisper, device="cpu").cfg is whisper
+    assert set(lm_numpy_params(whisper, 0)["encdec"]) == {"enc", "dec", "ln_enc"}
 
 
 def test_build_runs_prefill_decode_and_the_prefix_loss_at_the_reduced_config():
